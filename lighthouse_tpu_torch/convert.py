@@ -1,0 +1,41 @@
+"""Carry state across from the JAX package.
+
+``state_from_ssz`` builds the port's BeaconState from the SSZ bytes of a
+state the JAX package serialized; ``device_tree_from_levels`` builds a port
+DeviceTree from the dense levels of a JAX ``DeviceTree`` taken as numpy
+arrays. Neither imports the JAX package: both take plain bytes and arrays.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .containers.core import get_types
+from .containers.state import BeaconState
+from .ops.merkle_tree import DeviceTree
+from .ops.sha256 import cap_root, words_to_tensor
+from .specs.chain_spec import ChainSpec, ForkName
+
+
+def state_from_ssz(data: bytes, spec: ChainSpec,
+                   fork: ForkName) -> BeaconState:
+    """The port's BeaconState of ``fork`` from SSZ bytes."""
+    return BeaconState.from_ssz_bytes(bytes(data), get_types(spec.preset),
+                                      spec, fork)
+
+
+def device_tree_from_levels(levels, n: int, limit: int, pre_levels: int = 0,
+                            with_pk: bool = False, device=None) -> DeviceTree:
+    """A port DeviceTree over ``n`` leaves holding ``levels`` (u32[2^l, 8]
+    numpy arrays, leaf level first, as a JAX DeviceTree keeps them)."""
+    tree = DeviceTree(n, limit, pre_levels, with_pk, device=device)
+    levels = [np.asarray(lv, dtype=np.uint32) for lv in levels]
+    if len(levels) != tree.dense_depth + 1:
+        raise ValueError(f"expected {tree.dense_depth + 1} levels, "
+                         f"got {len(levels)}")
+    for lvl, lv in enumerate(levels):
+        if lv.shape != (tree.dense >> lvl, 8):
+            raise ValueError(f"level {lvl}: shape {lv.shape}")
+    tree.levels = [words_to_tensor(lv, tree.device) for lv in levels]
+    tree.root_words = cap_root(tree.levels[-1][0], tree.dense_depth,
+                               tree.limit_depth)
+    return tree
