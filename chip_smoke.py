@@ -6,21 +6,33 @@
 Phases (each prints its lines; any failure raises and exits nonzero):
 
 1. Card and build: ``nvidia-smi`` name and power limit; build every CUDA
-   kernel of the state-root path from ``lighthouse_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once) and print the build time.
-2. Kernels against their plain PyTorch versions, on the card, at the shapes
-   the state root gives them; equality is bit-exact (max_abs_err 0). Each
-   kernel's time (CUDA events, median of repeats), its plain version's
-   time and its bound (the least time the card could take for the same
-   work: bytes over the memory rate, or integer ops over the INT32 rate).
-3. The slice: a Deneb mainnet-preset BeaconState at 1,000,000 validators
-   from ``seeded_columns(N_VALIDATORS, STATE_SEED)``; ``hash_tree_root()``
-   on the card must equal ``EXPECTED_STATE_ROOT_1M``; ``REPS`` (5) reps of
-   the ``bench.py`` ``bench_tree_hash`` writes (1,024 effective-balance and
-   1,024 balance writes each), each followed by the state root; the last
-   must equal ``EXPECTED_STATE_ROOT_1M_AFTER_REPS``; a rebuild from scratch
-   must equal the incremental root; every kernel's launch count over the
-   full build and the reps must be nonzero.
+   kernel of the port from ``lighthouse_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all at once), print the build time and each kernel's registers,
+   stack and spills.
+2. State-root kernels against their plain PyTorch versions, on the card,
+   at the shapes the state root gives them; equality is bit-exact
+   (max_abs_err 0). Each kernel's time (CUDA events, median of repeats),
+   its plain version's time and its bound (the least time the card could
+   take for the same work: bytes over the memory rate, or integer ops over
+   the INT32 rate).
+3. The state-root slice: a Deneb mainnet-preset BeaconState at 1,000,000
+   validators from ``seeded_columns(N_VALIDATORS, STATE_SEED)``;
+   ``hash_tree_root()`` on the card must equal ``EXPECTED_STATE_ROOT_1M``;
+   ``REPS`` (5) reps of the ``bench.py`` ``bench_tree_hash`` writes, each
+   followed by the state root; the last must equal
+   ``EXPECTED_STATE_ROOT_1M_AFTER_REPS``; a rebuild from scratch must equal
+   the incremental root; every kernel's launch count must be nonzero.
+4. The BLS slice, batched signature verification: 10,000 gossip sets over
+   127 messages (``bls_batch``), signed by the C++ host backend, pubkeys
+   warmed into the cache. Each BLS kernel against its plain version on the
+   batch's own lane inputs (10,240 lanes, 128 message lanes), canonical
+   field values equal (max_abs_err 0); bound from the field multiplies of
+   the kernel's own algorithm on those inputs (``ops/bls_cost.py``). Then
+   the module entry ``crypto.bls.verify_signature_sets`` on its default
+   backend (``gpu``): True on the batch and equal to the C++ backend; five
+   negative batches False on both; a 100-set batch True; every BLS kernel
+   launched on that path; the first call and the median of three warm
+   calls, sets/s, host prep.
 
 The two expected roots are the JAX package's, pinned by
 tests/test_torch_state_root.py. Importing this module touches no CUDA.
@@ -56,7 +68,21 @@ REPLACES = {
     "cap_fold": "lighthouse_tpu/ops/sha256.py:135",
     "fold_pre": "lighthouse_tpu/ops/merkle_tree.py:52",
     "path_update": "lighthouse_tpu/ops/merkle_tree.py:105",
+    "fp_ops": "lighthouse_tpu/ops/bigint.py:319",
+    "g2_intake": "lighthouse_tpu/ops/bls12_381.py:1140",
+    "hash_to_g2": "lighthouse_tpu/ops/bls12_381.py:1069",
+    "rlc_scale": "lighthouse_tpu/ops/bls12_381.py:523",
+    "g1_segment_sum": "lighthouse_tpu/ops/bls12_381.py:528",
+    "g2_sum": "lighthouse_tpu/ops/bls12_381.py:572",
+    "affine": "lighthouse_tpu/ops/bls12_381.py:558",
+    "miller_loop": "lighthouse_tpu/ops/bls12_381.py:674",
+    "final_exp": "lighthouse_tpu/ops/bls12_381.py:806",
 }
+
+#: integer ops of one 12-word CIOS Montgomery product: 288 32x32->64-bit
+#: multiply-adds (144 for a*b, 144 for m*p), each a low and a high half.
+#: Additions and carries are left out, so the bound stays a lower bound.
+FP_MUL_INT_OPS = 2 * 288
 
 
 class SmokeFailure(RuntimeError):
@@ -318,7 +344,7 @@ def slice_phase(card: str) -> dict:
         mutate_ms.append((t1 - t0) * 1e3)
         root_ms.append((t2 - t1) * 1e3)
         rep_ms.append((t2 - t0) * 1e3)
-    launches = kernels.counts()
+    launches = {k.name: k.launches for k in kernels.STATE_ROOT_KERNELS}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     check(root.hex() == EXPECTED_STATE_ROOT_1M_AFTER_REPS,
           f"state root after {REPS} reps {root.hex()} != "
@@ -346,6 +372,377 @@ def slice_phase(card: str) -> dict:
             "peak_device_mib": peak_mib, "setup_s": setup_s}
 
 
+def timed(fn):
+    """(result, ms) of one call of ``fn`` between two CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def build_summary(logs: dict) -> dict:
+    """Per source: the registers, stack frame and spills ptxas reported
+    for each of its kernels (entry functions)."""
+    import re
+    out = {}
+    for src, log in logs.items():
+        rows, cur = [], None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = {"entry": m.group(1)}
+                rows.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and "stack" not in cur:
+                cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                    int(m.group(1)), int(m.group(2)), int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and "registers" not in cur:
+                cur["registers"] = int(m.group(1))
+        out[src] = rows
+    return out
+
+
+class BlsKernelCheck:
+    """Each BLS kernel against its plain version on the card, on the lane
+    inputs of the flagship batch, stage after stage: every kernel reads
+    what the kernel before it wrote, as on the main path. Equality is of
+    canonical field values (max_abs_err over canonical limbs, 0 required)
+    and of flags. Times: the kernel's median over ``repeats`` CUDA-event
+    runs, the plain version's one run. The bound is the larger of the
+    bytes over the memory rate and the field multiplies of the kernel's
+    own algorithm on these inputs (``muls``: a count, or a function of the
+    kernel's output) x FP_MUL_INT_OPS over the INT32 rate. The plain
+    version's count (its mont_mul counter) is printed beside it: it is
+    branch-free, so it computes more."""
+
+    def __init__(self, bounds: Bounds):
+        self.bounds = bounds
+        self.rows: list[dict] = []
+        self.modes: dict[str, list] = {}
+        self.muls: dict[str, dict] = {}
+
+    def run(self, name, kernel_fn, plain_fn, inputs, muls, mode=None,
+            repeats=3):
+        import torch
+
+        from lighthouse_tpu_torch import kernels
+        from lighthouse_tpu_torch.ops import bigint as bi
+        got = kernel_fn()
+        torch.cuda.synchronize()
+        bi.MONT_MUL_ROWS.reset()
+        want, plain_ms = timed(plain_fn)
+        plain_muls = bi.MONT_MUL_ROWS.rows
+        if callable(muls):
+            muls = muls(got)
+        got_t = got if isinstance(got, tuple) else (got,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        err = 0
+        for g, w in zip(got_t, want_t):
+            if g.dtype == torch.bool or w.dtype == torch.bool:
+                ok = torch.equal(g.to(torch.bool), w.to(torch.bool))
+                err = max(err, 0 if ok else 1)
+            else:
+                err = max(err, max_abs_err(bi.canonical(g),
+                                           bi.canonical(w)))
+        label = name if mode is None else f"{name} [{mode}]"
+        check(err == 0, f"{label}: kernel != plain (max_abs_err {err} on "
+                        f"canonical values)")
+        ms = time_cuda(kernel_fn, repeats)
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (*inputs, *got_t))
+        bound_ms, bound_by = self.bounds(n_bytes, muls * FP_MUL_INT_OPS)
+        print(f"kernel {label}: ok canonical-exact, {ms:.4f} ms (plain "
+              f"{plain_ms:.1f} ms; {muls} field multiplies, the plain "
+              f"version {plain_muls}; bound {bound_ms:.4f} ms by "
+              f"{bound_by})", flush=True)
+        rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "field_muls": muls,
+               "plain_field_muls": plain_muls}
+        self.muls[label] = {"field_muls": muls, "plain_field_muls": plain_muls}
+        if mode is not None:
+            row = next(r for r in self.rows if r["name"] == name)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            self.modes.setdefault(name, []).append({"mode": mode, **rec})
+        else:
+            self.rows.append({
+                "name": name, "route": "cuda",
+                "source": "lighthouse_tpu_torch/csrc/"
+                          + kernels.KERNELS[name].source,
+                "replaces": REPLACES[name], "launches": 0,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None})
+        return got
+
+
+def bls_setup() -> dict:
+    """Sign the 10,000 sets with the C++ host backend, then warm the
+    pubkey cache of the module's default backend, ``gpu`` (a node's
+    registry cache)."""
+    from lighthouse_tpu_torch.bls_batch import build_sets, warm_pubkeys
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls.cpp_backend import CppBackend
+    from lighthouse_tpu_torch.crypto.bls.gpu_backend import GpuBackend
+
+    t0 = time.perf_counter()
+    cpp = CppBackend()
+    sets = build_sets(cpp)
+    sign_s = time.perf_counter() - t0
+    gpu = bls.get_backend()
+    check(isinstance(gpu, GpuBackend),
+          f"the default BLS backend is {type(gpu).__name__}, not gpu")
+    t0 = time.perf_counter()
+    warmed = warm_pubkeys(gpu, sets)
+    warm_s = time.perf_counter() - t0
+    print(f"bls setup: {len(sets)} sets over "
+          f"{len({s.message for s in sets})} messages signed in "
+          f"{sign_s:.1f} s (C++ host backend, 8 threads); {warmed} pubkeys "
+          f"into the cache in {warm_s:.1f} s (8 processes)", flush=True)
+    return {"cpp": cpp, "gpu": gpu, "sets": sets, "sign_s": sign_s,
+            "pubkey_warm_s": warm_s}
+
+
+def bls_kernel_phase(bounds: Bounds, setup: dict) -> BlsKernelCheck:
+    """The BLS kernels against their plain versions at the flagship
+    batch's shapes: L = 10,240 signature and pubkey lanes, M = 128 message
+    lanes, M + 1 Miller pairs."""
+    import torch
+
+    from lighthouse_tpu_torch.crypto.bls import gpu_backend as gb
+    from lighthouse_tpu_torch.ops import bigint as bi
+    from lighthouse_tpu_torch.ops import bls12_381 as k
+    from lighthouse_tpu_torch.ops import bls_cost as cost
+
+    dev = torch.device("cuda")
+    parsed = gb.parse_sets(setup["gpu"], setup["sets"])
+    check(parsed is not None, "the flagship batch did not parse")
+    lanes, small = 10240, 128
+    prep = gb.host_prepare(*parsed, lanes, small)
+    check(prep["msg_lanes"] == small and prep["n_groups"] == 127,
+          f"flagship layout: {prep['n_groups']} groups on "
+          f"{prep['msg_lanes']} message lanes")
+
+    def put(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    c = BlsKernelCheck(bounds)
+    sx_int, r2 = put(prep["sig_x"]), put(np.broadcast_to(
+        bi.R2_LIMBS, (lanes, 2, bi.NLIMBS)))
+    sig_x = c.run("fp_ops", lambda: bi.fp_ops_kernel(bi.FP_MUL, sx_int, r2),
+                  lambda: bi._mont_mul_plain(sx_int, r2), (sx_int, r2),
+                  2 * lanes)
+    for mode, op, plain in (("add", bi.FP_ADD, bi._add_mod_plain),
+                            ("sub", bi.FP_SUB, bi._sub_mod_plain)):
+        c.run("fp_ops", lambda op=op: bi.fp_ops_kernel(op, sig_x, sig_x),
+              lambda plain=plain: plain(sig_x, sig_x), (sig_x, sig_x), 0,
+              mode=mode)
+    pk_x = bi.mont_from_int_limbs(put(prep["pk_x"]))
+    pk_y = bi.mont_from_int_limbs(put(prep["pk_y"]))
+    flags = put(prep["flags"].astype(np.int32))
+
+    sig_y, _ = c.run(
+        "g2_intake", lambda: k.g2_decompress_batch(sig_x, flags),
+        lambda: k._g2_decompress_plain(sig_x, flags), (sig_x, flags),
+        cost.g2_decompress(lanes), repeats=2)
+    one2 = put(np.broadcast_to(k.FP2_ONE, (lanes, 2, bi.NLIMBS)))
+    ok = c.run("g2_intake", lambda: k.g2_in_subgroup_batch(sig_x, sig_y,
+                                                           one2),
+               lambda: k._g2_in_subgroup_plain(sig_x, sig_y, one2),
+               (sig_x, sig_y, one2),
+               lambda ok: cost.g2_subgroup(np.zeros(lanes, bool),
+                                           ok.cpu().numpy()),
+               mode="subgroup", repeats=2)
+    check(bool(ok.all()), "a flagship signature failed the subgroup check")
+
+    u0, u1 = put(prep["u0"]), put(prep["u1"])
+    mx, my, mz = c.run("hash_to_g2", lambda: k.hash_to_g2_batch_from_u(u0,
+                                                                       u1),
+                       lambda: k._hash_to_g2_plain(u0, u1), (u0, u1),
+                       cost.hash_to_g2(small), repeats=2)
+    msg_x, msg_y = c.run(
+        "affine", lambda: k.jacobian_to_affine_fp2(mx, my, mz),
+        lambda: k._jacobian_to_affine_fp2_plain(mx, my, mz), (mx, my, mz),
+        cost.affine(small, 2))
+
+    one1 = put(np.broadcast_to(k.FP_ONE, (lanes, bi.NLIMBS)))
+    pk_bits_np = k.scalars_to_bits(prep["pk_rands"], 64)
+    sig_bits_np = k.scalars_to_bits(prep["sig_rands"], 64)
+    pk_bits, sig_bits = put(pk_bits_np), put(sig_bits_np)
+    spx, spy, spz = c.run(
+        "rlc_scale", lambda: k.g1_scalar_mul(pk_x, pk_y, one1, pk_bits),
+        lambda: k._g1_scalar_mul_plain(pk_x, pk_y, one1, pk_bits),
+        (pk_x, pk_y, one1, pk_bits), cost.scalar_mul(pk_bits_np, 1))
+    ssx, ssy, ssz = c.run(
+        "rlc_scale", lambda: k.g2_scalar_mul(sig_x, sig_y, one2, sig_bits),
+        lambda: k._g2_scalar_mul_plain(sig_x, sig_y, one2, sig_bits),
+        (sig_x, sig_y, one2, sig_bits), cost.scalar_mul(sig_bits_np, 2),
+        mode="G2")
+    starts, ends = put(prep["starts"]), put(prep["ends"])
+    gpx, gpy, gpz = c.run(
+        "g1_segment_sum", lambda: k.g1_segment_sum(spx, spy, spz, starts,
+                                                   ends),
+        lambda: k._g1_segment_sum_plain(spx, spy, spz, starts, ends),
+        (spx, spy, spz, starts, ends),
+        cost.g1_segment_sum(prep["starts"], prep["ends"]))
+    ax, ay, az = c.run("g2_sum", lambda: k.g2_sum(ssx, ssy, ssz),
+                       lambda: k._g2_sum_plain(ssx, ssy, ssz),
+                       (ssx, ssy, ssz), cost.g2_sum(lanes))
+    apx, apy = c.run(
+        "affine", lambda: k.jacobian_to_affine_fp(gpx, gpy, gpz),
+        lambda: k._jacobian_to_affine_fp_plain(gpx, gpy, gpz),
+        (gpx, gpy, gpz), cost.affine(small, 1), mode="G1")
+    aax, aay = k.jacobian_to_affine_fp2(ax, ay, az)
+
+    pad = gb._pad_cache()
+    px = torch.cat([apx, put(pad.neg_g_x)])
+    py = torch.cat([apy, put(pad.neg_g_y)])
+    qx = torch.cat([msg_x, aax[None]])
+    qy = torch.cat([msg_y, aay[None]])
+    mask = put(prep["mask"].astype(np.int32))
+    fs = c.run("miller_loop",
+               lambda: k.miller_loop_batch(px, py, qx, qy, mask),
+               lambda: k._mask_to_one(k._miller_loop_plain(px, py, qx, qy),
+                                      mask),
+               (px, py, qx, qy, mask), cost.miller_loop(prep["mask"]),
+               repeats=2)
+    out, flag = c.run(
+        "final_exp", lambda: k._final_exp_kernel(1, fs),
+        lambda: (lambda v: (v, k.fp12_eq(v, k.fp12_one_like((), v))
+                            .reshape(1)))(
+            k._final_exponentiation_plain(k._fp12_product_plain(fs))),
+        (fs,), cost.final_exp(fs.shape[0], 1), repeats=2)
+    check(int(flag.item()) == 1, "the flagship batch's pairing product "
+                                 "is not one on the kernels")
+    c.run("final_exp", lambda: k.fp12_product(fs),
+          lambda: k._fp12_product_plain(fs), (fs,),
+          cost.final_exp(fs.shape[0], 0), mode="product")
+    torch.cuda.synchronize()
+    return c
+
+
+def bls_slice_phase(setup: dict, card: str) -> dict:
+    """The slice: the module entry ``crypto.bls.verify_signature_sets``
+    (its default backend, ``gpu``, inside the ``bls_batch_verify`` span)
+    on the 10,000-set batch (launch counts from its first call), its warm
+    time, the negatives and the small batch, each verdict held to the C++
+    host backend."""
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch.bls_batch import N_SETS
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import SignatureSet, gpu_backend
+    from lighthouse_tpu_torch.crypto.bls12_381 import Fp2
+    from lighthouse_tpu_torch.crypto.bls12_381.curve import B_G2, G2Point
+    from lighthouse_tpu_torch.crypto.bls12_381.sig import g2_compress
+    from lighthouse_tpu_torch.profile_state_root import profiled
+
+    cpp, gpu, sets = setup["cpp"], setup["gpu"], setup["sets"]
+    check(gpu_backend.lane_options() == (128, 10240),
+          f"lane options {gpu_backend.lane_options()} on the card")
+
+    verify = bls.verify_signature_sets
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    ok = verify(sets)
+    cold_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.BLS_KERNELS}
+    check(ok is True, "the 10,000-set batch did not verify on the card")
+    print(f"bls slice: {N_SETS} sets verify True, first call {cold_s:.3f} "
+          f"s [{card}]", flush=True)
+    print(f"bls slice: launches on the main path {launches}", flush=True)
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the BLS path")
+
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        check(verify(sets) is True, "warm call failed")
+        warm.append(time.perf_counter() - t0)
+    warm_s = statistics.median(warm)
+    # one more warm call under torch.profiler: the device's busy share and
+    # its time by kernel (the profiler slows the host side of the call)
+    prof = profiled(lambda: check(verify(sets) is True,
+                                  "profiled call failed"))
+    print(f"bls slice: under the profiler {prof['wall_ms']:.1f} ms wall, "
+          f"device busy {prof['device_busy_ms']:.1f} ms "
+          f"({100 * prof['device_busy_share']:.1f} %), by name "
+          f"{prof['device_ms_by_name']}", flush=True)
+    t0 = time.perf_counter()
+    parsed = gpu_backend.parse_sets(gpu, sets)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gpu_backend.host_prepare(*parsed, 10240, 128)
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpp_ok = cpp.verify_signature_sets(sets)
+    cpp_s = time.perf_counter() - t0
+    check(cpp_ok is True, "the C++ backend rejects the flagship batch")
+    print(f"bls slice: warm {[round(w, 4) for w in warm]} s, median "
+          f"{warm_s * 1e3:.1f} ms = {N_SETS / warm_s:.0f} sets/s; host "
+          f"parse {parse_s * 1e3:.1f} ms + prepare {prep_s * 1e3:.1f} ms; "
+          f"C++ host backend {cpp_s:.2f} s, agrees [{card}]", flush=True)
+
+    mid = N_SETS // 2
+    s = sets[mid]
+    xx = 1
+    while True:
+        yy = (Fp2(xx, 0) * Fp2(xx, 0) * Fp2(xx, 0) + B_G2).sqrt()
+        if yy is not None:
+            break
+        xx += 1
+    outside = g2_compress(G2Point(Fp2(xx, 0), yy))
+    negatives = {
+        "one message changed": SignatureSet(s.signature, s.pubkeys,
+                                            b"\xee" * 32),
+        "signature of another message": SignatureSet(
+            sets[mid + 1].signature, s.pubkeys, s.message),
+        "infinity signature": SignatureSet(bytes([0xC0]) + bytes(95),
+                                           s.pubkeys, s.message),
+        "G2 point outside the subgroup": SignatureSet(outside, s.pubkeys,
+                                                      s.message),
+        "malformed bytes": SignatureSet(s.signature[:95], s.pubkeys,
+                                        s.message),
+    }
+    neg_s = {}
+    for label, bad_set in negatives.items():
+        bad = list(sets)
+        bad[mid] = bad_set
+        t0 = time.perf_counter()
+        got = verify(bad)
+        neg_s[label] = time.perf_counter() - t0
+        want = cpp.verify_signature_sets(bad)
+        check(got is False and want is False,
+              f"negative batch '{label}': gpu {got}, C++ {want}")
+    print(f"bls slice: the five negative batches verify False on the card "
+          f"and on the C++ backend ({', '.join(f'{l} {t:.3f} s' for l, t in neg_s.items())})",
+          flush=True)
+
+    small = sets[:100]
+    t0 = time.perf_counter()
+    check(verify(small) is True and
+          cpp.verify_signature_sets(small) is True,
+          "the 100-set batch did not verify")
+    small_s = time.perf_counter() - t0
+    print(f"bls slice: 100-set batch (128 lanes) verifies True, "
+          f"{small_s:.3f} s with the C++ check", flush=True)
+    return {"launches": launches, "cold_s": cold_s, "warm_s": warm,
+            "warm_median_s": warm_s, "sets_per_s": N_SETS / warm_s,
+            "host_parse_s": parse_s, "host_prepare_s": prep_s,
+            "cpp_verify_s": cpp_s, "negative_s": neg_s, "profile": prof,
+            "small_batch_s": small_s, "sign_s": setup["sign_s"],
+            "pubkey_warm_s": setup["pubkey_warm_s"]}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -363,20 +760,41 @@ def main(argv=None) -> int:
     print(card_line, flush=True)
     sm_clock = float(nvidia_smi("clocks.max.sm").split()[0])
     build_s = kernels.build_all()
-    print(f"build: {len(kernels.KERNELS)} kernels in {build_s:.1f} s "
-          f"(nvcc, sm_90a); max SM clock {sm_clock:.0f} MHz", flush=True)
+    summary = build_summary(kernels.BUILD_LOGS)
+    print(f"build: {len(kernels.KERNELS)} kernels from "
+          f"{len({k.source for k in kernels.KERNELS.values()})} sources in "
+          f"{build_s:.1f} s (nvcc, sm_90a, one process per source); max SM "
+          f"clock {sm_clock:.0f} MHz", flush=True)
+    for src, entries in summary.items():
+        for e in entries:
+            print(f"build: {src} {e['entry']}: {e.get('registers')} "
+                  f"registers, {e.get('stack')} B stack, "
+                  f"{e.get('spill_stores')}/{e.get('spill_loads')} B spill "
+                  f"stores/loads", flush=True)
+    bounds = Bounds(sm_clock)
 
-    # phase 2: kernels against their plain versions
-    rows, modes = kernel_phase(Bounds(sm_clock))
+    # phase 2: state-root kernels against their plain versions
+    rows, modes = kernel_phase(bounds)
 
-    # phase 3: the slice
+    # phase 3: the state-root slice
     sl = slice_phase(card_line)
     for row in rows:
         row["launches"] = sl["launches"][row["name"]]
 
+    # phase 4: the BLS slice: the batch, its kernels against their plain
+    # versions at its shapes, then the main path
+    setup = bls_setup()
+    bls_check = bls_kernel_phase(bounds, setup)
+    bls = bls_slice_phase(setup, card_line)
+    for row in bls_check.rows:
+        row["launches"] = bls["launches"][row["name"]]
+    rows += bls_check.rows
+    modes.update(bls_check.modes)
+
     report = {"card": card_line, "sm_clock_max_mhz": sm_clock,
-              "build_s": build_s, "kernels": rows, "kernel_modes": modes,
-              "slice": sl}
+              "build_s": build_s, "build": summary, "kernels": rows,
+              "kernel_modes": modes, "bls_field_muls": bls_check.muls,
+              "slice": sl, "bls": bls}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

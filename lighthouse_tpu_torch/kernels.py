@@ -1,10 +1,12 @@
-"""Build and bind the port's CUDA kernels (csrc/*.cu).
+"""Build and bind the port's CUDA kernels (csrc/*.cu, csrc/bls/*.cu).
 
 Each source is compiled at first use by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, and loaded with ``ctypes``. The
-library's file name carries a digest of its source and of the shared header,
-so an edited source never loads a stale build. ``build_all()`` starts one
-``nvcc`` per source at once and waits for all of them.
+shared library with a plain C interface, and loaded with ``ctypes``; a
+source may hold several kernels, each its own C entry. The library's file
+name carries a digest of its source and of the shared headers, so an
+edited source never loads a stale build. ``build_all()`` starts one
+``nvcc`` per source at once and waits for all of them; ``BUILD_LOGS``
+keeps each source's ``-Xptxas -v`` report (registers, spills, stack).
 
 Every C entry takes device pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; ``CudaKernel.launch`` raises on a
@@ -24,9 +26,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_HEADERS = ("sha256.cuh",)
+_HEADERS = ("sha256.cuh", "bls/fp.cuh", "bls/tower.cuh", "bls/curve.cuh",
+            "bls/consts.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: source -> the compiler's report of its last build in this process
+BUILD_LOGS: dict[str, str] = {}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -94,11 +100,12 @@ def build_all(kernels=None) -> float:
     t0 = time.perf_counter()
     kernels = list(KERNELS.values()) if kernels is None else list(kernels)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs, started = [], set()
     for k in kernels:
         out = k.library_path()
-        if out.exists():
+        if out.exists() or out in started:
             continue
+        started.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(k._compile_cmd(tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -106,6 +113,7 @@ def build_all(kernels=None) -> float:
     failures = []
     for k, proc, tmp, out in procs:
         log, _ = proc.communicate()
+        BUILD_LOGS[k.source] = log
         if proc.returncode != 0:
             failures.append(f"--- {k.source} (nvcc rc {proc.returncode})\n"
                             f"{log}")
@@ -124,10 +132,6 @@ def reset_counts() -> None:
         k.launches = 0
 
 
-def counts() -> dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
-
-
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
@@ -141,4 +145,28 @@ FOLD_PRE = CudaKernel("fold_pre", "fold_pre.cu", "lh_fold_pre",
 PATH_UPDATE = CudaKernel("path_update", "path_update.cu", "lh_path_update",
                          [_P, _P, _P, _I64, _I32, _P])
 
-KERNELS = {k.name: k for k in (HASH64, CAP_FOLD, FOLD_PRE, PATH_UPDATE)}
+# BLS12-381 (csrc/bls/): the batched signature verification path
+FP_OPS = CudaKernel("fp_ops", "bls/fp_ops.cu", "lh_fp_ops",
+                    [_I32, _P, _P, _P, _I64, _P])
+G2_INTAKE = CudaKernel("g2_intake", "bls/g2_intake.cu", "lh_g2_intake",
+                       [_I32, _P, _P, _P, _P, _P, _I64, _P])
+HASH_TO_G2 = CudaKernel("hash_to_g2", "bls/hash_to_g2.cu", "lh_hash_to_g2",
+                        [_P, _P, _P, _P, _P, _I64, _P])
+RLC_SCALE = CudaKernel("rlc_scale", "bls/rlc_scale.cu", "lh_rlc_scale",
+                       [_I32, _P, _P, _P, _P, _I32, _P, _P, _P, _I64, _P])
+G1_SEGMENT_SUM = CudaKernel("g1_segment_sum", "bls/aggregate.cu",
+                            "lh_g1_segment_sum",
+                            [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P])
+G2_SUM = CudaKernel("g2_sum", "bls/aggregate.cu", "lh_g2_sum",
+                    [_P, _P, _P, _I64, _P, _P, _P, _P])
+AFFINE = CudaKernel("affine", "bls/aggregate.cu", "lh_affine",
+                    [_I32, _P, _P, _P, _P, _P, _I64, _P])
+MILLER_LOOP = CudaKernel("miller_loop", "bls/pairing.cu", "lh_miller_loop",
+                         [_P, _P, _P, _P, _P, _P, _I64, _P])
+FINAL_EXP = CudaKernel("final_exp", "bls/pairing.cu", "lh_final_exp",
+                       [_I32, _P, _I64, _P, _P, _P])
+
+STATE_ROOT_KERNELS = (HASH64, CAP_FOLD, FOLD_PRE, PATH_UPDATE)
+BLS_KERNELS = (FP_OPS, G2_INTAKE, HASH_TO_G2, RLC_SCALE, G1_SEGMENT_SUM,
+               G2_SUM, AFFINE, MILLER_LOOP, FINAL_EXP)
+KERNELS = {k.name: k for k in STATE_ROOT_KERNELS + BLS_KERNELS}

@@ -1,0 +1,478 @@
+"""Batched 384-bit modular arithmetic on the card (int32 limb tensors).
+
+The port of ``lighthouse_tpu/ops/bigint.py`` (mode 0): the foundation of
+the BLS12-381 stages (ops/bls12_381.py).
+
+- representation: 32 little-endian limbs of 12 bits in int32 ``[..., 32]``,
+  the JAX package's interchange layout, so limbs carry across unchanged;
+- field values live in the redundant range [0, 2p) in Montgomery form
+  (R = 2^384); every op returns to [0, 2p), canonicalization only at the
+  edges.
+
+``mont_mul``, ``add_mod`` and ``sub_mod`` are the wrappers of the
+``fp_ops`` CUDA kernel (csrc/bls/fp_ops.cu, CIOS Montgomery over 12
+32-bit words; R is 2^384 in both layouts, so the Montgomery domain is the
+same): a CUDA tensor launches the kernel, a CPU tensor takes the plain
+version. The plain versions (``_mont_mul_plain`` and friends) follow the
+JAX algorithm: Toeplitz column products, two carry passes, and
+``normalize``'s log-depth scan over {-1, 0, 1} carry triples. They run on
+any device: the tower, curve and pairing plain versions are built on
+them, and ``chip_smoke.py`` compares the kernels with them on the card.
+
+The kernel and the plain multiply return different representatives in
+[0, 2p): compare ``canonical`` values, never raw limbs.
+
+``MONT_MUL_ROWS`` counts the field products the plain ``mont_mul`` (and
+the plain conversion out of the Montgomery domain, a product by 1) has
+computed (rows x calls), so a stage's field-multiply count can be read off
+its plain version; tests hold the kernels' own counts (ops/bls_cost.py)
+to it.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+LIMB_BITS = 12
+NLIMBS = 32
+LIMB_MASK = (1 << LIMB_BITS) - 1
+
+P_INT = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
+R_INT = 1 << (LIMB_BITS * NLIMBS)          # Montgomery radix 2^384
+R_MOD_P = R_INT % P_INT
+R2_MOD_P = (R_INT * R_INT) % P_INT
+NPRIME = (-pow(P_INT, -1, R_INT)) % R_INT  # -p^-1 mod R
+
+
+def to_limbs(v: int, n: int = NLIMBS) -> np.ndarray:
+    out = np.zeros(n, dtype=np.int32)
+    for i in range(n):
+        out[i] = v & LIMB_MASK
+        v >>= LIMB_BITS
+    assert v == 0
+    return out
+
+
+def from_limbs(limbs) -> int:
+    v = 0
+    for i, l in enumerate(np.asarray(limbs).tolist()):
+        v += int(l) << (LIMB_BITS * i)
+    return v
+
+
+def ints_to_limbs(vals) -> np.ndarray:
+    """Python ints in [0, 2^384) -> int32 limbs [n, 32], vectorized (the
+    bulk form of ``to_limbs``: 48 little-endian bytes a value, each 3
+    bytes two 12-bit limbs)."""
+    raw = b"".join(int(v).to_bytes(48, "little") for v in vals)
+    b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 16, 3).astype(
+        np.int32)
+    lo = b[..., 0] | ((b[..., 1] & 0xF) << 8)
+    hi = (b[..., 1] >> 4) | (b[..., 2] << 4)
+    return np.stack([lo, hi], axis=-1).reshape(-1, NLIMBS)
+
+
+def limbs_to_ints(limbs) -> list[int]:
+    """int32 limbs [..., 32] (digits may be loose) -> Python ints."""
+    arr = np.asarray(limbs, dtype=np.int64).reshape(-1, NLIMBS)
+    return [from_limbs(row) for row in arr]
+
+
+P_LIMBS = to_limbs(P_INT)
+TWO_P_LIMBS = to_limbs(2 * P_INT)
+NPRIME_LIMBS = to_limbs(NPRIME)
+R2_LIMBS = to_limbs(R2_MOD_P)
+R3_LIMBS = to_limbs((R_INT * R_INT * R_INT) % P_INT)
+
+
+class RowCounter:
+    """Field products computed by the plain ``mont_mul`` (rows x calls)."""
+
+    def __init__(self):
+        self.rows = 0
+
+    def reset(self) -> None:
+        self.rows = 0
+
+
+MONT_MUL_ROWS = RowCounter()
+
+
+def const(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A numpy limb constant as an int32 tensor on ``like``'s device."""
+    return torch.as_tensor(np.asarray(arr, dtype=np.int32),
+                           device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# The plain limb arithmetic, written once over an array namespace: PyTorch
+# for tensors on the card, numpy for tensors on the CPU (the same
+# operations on the same int64 limbs; numpy's per-call cost on the small
+# batches of the CPU tests is a fraction of PyTorch's, and these functions
+# run tens of thousands of times in one pairing). Public functions take and
+# return torch tensors.
+# ---------------------------------------------------------------------------
+
+class _TorchOps:
+    @staticmethod
+    def i64(x):
+        return x.to(torch.int64)
+
+    @staticmethod
+    def i32(x):
+        return x.to(torch.int32)
+
+    @staticmethod
+    def cat(xs, axis):
+        return torch.cat(xs, dim=axis)
+
+    @staticmethod
+    def copy(x):
+        return x.clone()
+
+    @staticmethod
+    def const(arr, like):
+        return torch.as_tensor(np.asarray(arr), device=like.device)
+
+    @staticmethod
+    def zeros(shape, like):
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+    @staticmethod
+    def sum(x, axis):
+        return x.sum(dim=axis)
+
+    @staticmethod
+    def all(x, axis):
+        return torch.all(x, dim=axis)
+
+    where = staticmethod(torch.where)
+
+
+class _NumpyOps:
+    @staticmethod
+    def i64(x):
+        return x.astype(np.int64)
+
+    @staticmethod
+    def i32(x):
+        return x.astype(np.int32)
+
+    @staticmethod
+    def cat(xs, axis):
+        return np.concatenate(xs, axis=axis)
+
+    @staticmethod
+    def copy(x):
+        return x.copy()
+
+    @staticmethod
+    def const(arr, like):
+        return np.asarray(arr)
+
+    @staticmethod
+    def zeros(shape, like):
+        return np.zeros(shape, dtype=like.dtype)
+
+    @staticmethod
+    def sum(x, axis):
+        return x.sum(axis=axis)
+
+    @staticmethod
+    def all(x, axis):
+        return np.all(x, axis=axis)
+
+    where = staticmethod(np.where)
+
+
+_TORCH, _NUMPY = _TorchOps(), _NumpyOps()
+
+
+def _plain(fn, *tensors):
+    """Run the plain ``fn(xp, *arrays)`` on torch tensors: through numpy
+    when they lie on the CPU, through PyTorch otherwise."""
+    tensors = torch.broadcast_tensors(*tensors)
+    if tensors[0].device.type == "cpu":
+        return torch.from_numpy(np.ascontiguousarray(
+            fn(_NUMPY, *(t.numpy() for t in tensors))))
+    return fn(_TORCH, *tensors)
+
+
+# ---------------------------------------------------------------------------
+# carries
+# ---------------------------------------------------------------------------
+
+def _carry_pass(xp, x):
+    """One carry pass: keep the low 12 bits of every limb, push the
+    (arithmetic-shift) carry into the next limb; the top limb keeps its
+    own carry (absorbs it), so the value and its sign stay observable
+    there."""
+    out = xp.copy(x)
+    out[..., :-1] &= LIMB_MASK
+    out[..., 1:] += x[..., :-1] >> LIMB_BITS
+    return out
+
+
+def _compose_table() -> np.ndarray:
+    """COMP[g, f] = code of g . f, for carry functions {-1,0,1} -> {-1,0,1}
+    coded as 9*(f(-1)+1) + 3*(f(0)+1) + (f(1)+1)."""
+    vals = [(c // 9 - 1, c // 3 % 3 - 1, c % 3 - 1) for c in range(27)]
+    comp = np.zeros((27, 27), dtype=np.int64)
+    for g in range(27):
+        for f in range(27):
+            h = [vals[g][v + 1] for v in vals[f]]
+            comp[g, f] = 9 * (h[0] + 1) + 3 * (h[1] + 1) + (h[2] + 1)
+    return comp
+
+
+_COMPOSE = _compose_table()
+
+
+def _normalize(xp, x):
+    """Exact signed carry propagation over the last axis (int64 out).
+
+    Input limbs may be any integer with |limb| < 2^30; output limbs are in
+    [0, 2^12) except the top limb, which absorbs the final carry (negative
+    iff the value is). Two carry passes bound every other limb to
+    (-2^8, 2^12 + 2^8); the residual carries are in {-1, 0, 1} and resolve
+    with an inclusive log-depth scan over carry functions, each the value
+    triple (f(-1), f(0), f(1)) of f(c) = (l + c) >> 12, as the JAX
+    ``normalize`` does. Here a triple is a code in [0, 27) and composing two
+    is one lookup in ``_COMPOSE``. The top limb's carry-out is never used,
+    so the scan runs over the limbs below it."""
+    x = _carry_pass(xp, _carry_pass(xp, xp.i64(x)))
+    low = x[..., :-1]
+    a = low >> LIMB_BITS
+    r = low & LIMB_MASK
+    code = (9 * (a - xp.i64(r == 0)) + 3 * a + (a + xp.i64(r == LIMB_MASK))
+            + 13)
+    comp = xp.const(_COMPOSE, x)
+    n = code.shape[-1]
+    d = 1
+    while d < n:
+        # Hillis-Steele step: F[i] <- F[i] . F[i-d]
+        nxt = xp.copy(code)
+        nxt[..., d:] = comp[code[..., d:], code[..., :-d]]
+        code = nxt
+        d *= 2
+    s = xp.copy(x)
+    s[..., 1:] += code // 3 % 3 - 1           # F_i(0): the carry into i+1
+    s[..., :-1] &= LIMB_MASK
+    return s
+
+
+def _cond_sub(xp, x, m):
+    """x - m if x >= m else x (x loose-positive, m canonical constant).
+    Output limbs <= 2^12 (one cheap carry pass on the restore branch), not
+    bit-canonical digits."""
+    mc = xp.i64(xp.const(m, x))
+    d = _normalize(xp, x - mc)
+    neg = (d[..., -1] < 0)[..., None]
+    return xp.where(neg, _carry_pass(xp, d + mc), d)
+
+
+def _cond_sub_exact(xp, x, m):
+    d = _normalize(xp, x - xp.i64(xp.const(m, x)))
+    neg = (d[..., -1] < 0)[..., None]
+    return xp.where(neg, _normalize(xp, x), d)
+
+
+def _mul_columns(xp, a, b, out_len: int):
+    """Schoolbook column products: out[k] = sum_i a[i] * b[k-i], un-carried,
+    in int64 (the JAX Toeplitz contraction, computed without the gather).
+    Small CPU batches skew the outer product so that row i starts at column
+    i (pad each row to 65, view the first 32*64 entries as [32, 64]) and sum
+    the rows; larger ones, and the card, add 32 shifted row products."""
+    a, b = xp.i64(a), xp.i64(b)
+    lead = a.shape[:-1]
+    rows = int(np.prod(lead)) if lead else 1
+    if xp is _NUMPY and rows <= 64:
+        o = np.zeros(lead + (NLIMBS, 2 * NLIMBS + 1), dtype=np.int64)
+        np.multiply(a[..., :, None], b[..., None, :], out=o[..., :NLIMBS])
+        o = o.reshape(lead + (NLIMBS * (2 * NLIMBS + 1),))
+        o = o[..., :NLIMBS * 2 * NLIMBS].reshape(
+            lead + (NLIMBS, 2 * NLIMBS))
+        return xp.sum(o, -2)[..., :out_len]
+    out = xp.zeros(lead + (2 * NLIMBS,), a)
+    for i in range(NLIMBS):
+        out[..., i:i + NLIMBS] += a[..., i:i + 1] * b
+    return out[..., :out_len]
+
+
+def _toeplitz(limbs: np.ndarray, out_len: int) -> np.ndarray:
+    """T[i, k] = c[k - i]: the column product with the constant c is the
+    matrix product x @ T (float64: every sum is an integer below 2^31)."""
+    t = np.zeros((NLIMBS, out_len), dtype=np.float64)
+    for i in range(NLIMBS):
+        hi = min(out_len, i + NLIMBS)
+        t[i, i:hi] = limbs[:hi - i]
+    return t
+
+
+_NPRIME_T = _toeplitz(NPRIME_LIMBS, NLIMBS)       # low product, mod R
+_P_T = _toeplitz(P_LIMBS, 2 * NLIMBS)             # full product
+
+
+def _mul_const(xp, x, t: np.ndarray):
+    """Column products of x with a shared constant (its Toeplitz matrix)."""
+    tt = xp.const(t, x)
+    if xp is _NUMPY:
+        return np.rint(x.astype(np.float64) @ tt).astype(np.int64)
+    return torch.round(x.to(torch.float64) @ tt).to(torch.int64)
+
+
+def _mont_mul_limbs(xp, a, b):
+    """Montgomery product a*b*R^-1 mod p, inputs/outputs in [0, 2p): the
+    JAX mode-0 REDC with one exact normalize (t and m need only bounded
+    limbs)."""
+    t = _carry_pass(xp, _carry_pass(xp, _mul_columns(xp, a, b, 2 * NLIMBS)))
+    m = _carry_pass(xp, _carry_pass(xp, _mul_const(xp, t[..., :NLIMBS],
+                                                   _NPRIME_T)))
+    m[..., -1] &= LIMB_MASK                         # value mod R
+    mp = _mul_const(xp, m, _P_T)
+    return xp.i32(_normalize(xp, t + mp)[..., NLIMBS:])
+
+
+def _add_limbs(xp, a, b):
+    return xp.i32(_cond_sub(xp, xp.i64(a) + b, TWO_P_LIMBS))
+
+
+def _sub_limbs(xp, a, b):
+    x = xp.i64(a) - b + xp.i64(xp.const(TWO_P_LIMBS, a))
+    return xp.i32(_cond_sub(xp, x, TWO_P_LIMBS))
+
+
+def _canonical_limbs(xp, x):
+    return xp.i32(_cond_sub_exact(xp, _normalize(xp, x), P_LIMBS))
+
+
+def _to_int_limbs(xp, x):
+    one = xp.zeros(x.shape, x)
+    one[..., 0] = 1
+    v = _mont_mul_limbs(xp, x, one)
+    v = _cond_sub_exact(xp, xp.i64(v), P_LIMBS)
+    return xp.i32(_cond_sub_exact(xp, v, P_LIMBS))
+
+
+def normalize(x: torch.Tensor) -> torch.Tensor:
+    """Exact signed carry propagation (see ``_normalize``); int32 out."""
+    return _plain(lambda xp, v: xp.i32(_normalize(xp, v)), x)
+
+
+def cond_sub_exact(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+    """Like cond_sub but both branches yield exact canonical digits."""
+    return _plain(lambda xp, v: xp.i32(_cond_sub_exact(xp, xp.i64(v), m)),
+                  x)
+
+
+def _mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain Montgomery product (any device); counts its rows."""
+    MONT_MUL_ROWS.rows += max(a.numel(), b.numel()) // NLIMBS
+    return _plain(_mont_mul_limbs, a, b)
+
+
+def _add_mod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _plain(_add_limbs, a, b)
+
+
+def _sub_mod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _plain(_sub_limbs, a, b)
+
+
+def canonical(x: torch.Tensor) -> torch.Tensor:
+    """Reduce a [0,2p) value to [0,p), exact digits."""
+    return _plain(_canonical_limbs, x)
+
+
+def to_int_limbs_plain(x: torch.Tensor) -> torch.Tensor:
+    """Out of Montgomery domain, fully reduced to [0, p), by the plain
+    multiply (counted: a product by 1)."""
+    MONT_MUL_ROWS.rows += x.numel() // NLIMBS
+    return _plain(_to_int_limbs, x)
+
+
+def eq_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Equality of field values in [0,2p) (canonicalize then compare)."""
+    return _plain(lambda xp, u, v: xp.all(
+        _canonical_limbs(xp, u) == _canonical_limbs(xp, v), -1), a, b)
+
+
+def is_zero_mod(a: torch.Tensor) -> torch.Tensor:
+    return _plain(lambda xp, u: xp.all(_canonical_limbs(xp, u) == 0, -1), a)
+
+
+FP_MUL, FP_ADD, FP_SUB = 0, 1, 2
+_PLAIN = {FP_MUL: _mont_mul_plain, FP_ADD: _add_mod_plain,
+          FP_SUB: _sub_mod_plain}
+
+
+def _fp_op(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return _PLAIN[op](a, b)
+    return fp_ops_kernel(op, a, b)
+
+
+def fp_ops_kernel(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch ``fp_ops`` (mul / add / sub elementwise over [..., 32]) on
+    two CUDA int32 tensors (broadcast to one shape). Raises on anything
+    else."""
+    from .. import kernels
+    if a.device.type != "cuda" or b.device.type != "cuda":
+        raise ValueError(f"fp_ops takes CUDA tensors, got {a.device} and "
+                         f"{b.device}")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"fp_ops takes int32 limbs, got {a.dtype}, "
+                        f"{b.dtype}")
+    a, b = torch.broadcast_tensors(a, b)
+    if a.shape[-1] != NLIMBS:
+        raise ValueError(f"fp_ops takes [..., {NLIMBS}] limbs, got "
+                         f"{tuple(a.shape)}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // NLIMBS
+    if n:
+        kernels.FP_OPS.launch(op, a.data_ptr(), b.data_ptr(),
+                              out.data_ptr(), n,
+                              kernels.stream_ptr(a.device))
+    return out
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a*b*R^-1 mod p, inputs/outputs in [0, 2p)."""
+    return _fp_op(FP_MUL, a, b)
+
+
+def add_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _fp_op(FP_ADD, a, b)
+
+
+def sub_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _fp_op(FP_SUB, a, b)
+
+
+def neg_mod(a: torch.Tensor) -> torch.Tensor:
+    return sub_mod(torch.zeros_like(a), a)
+
+
+def mont_from_int_limbs(x: torch.Tensor) -> torch.Tensor:
+    """Into Montgomery domain: x * R mod p (x < p)."""
+    return mont_mul(x, const(R2_LIMBS, x))
+
+
+def mont_to_int_limbs(x: torch.Tensor) -> torch.Tensor:
+    """Out of Montgomery domain and fully reduced to [0, p)."""
+    one = torch.zeros_like(x)
+    one[..., 0] = 1
+    v = mont_mul(x, one)
+    v = cond_sub_exact(v, P_LIMBS)
+    return cond_sub_exact(v, P_LIMBS)
+
+
+def reduce_wide_mod_p(wide: torch.Tensor) -> torch.Tensor:
+    """Reduce a 64-limb (768-bit capacity) value mod p into Montgomery
+    form: x*R = lo*R + hi*R^2, i.e. mont(lo, R^2) + mont(hi, R^3).
+    Returns x*R mod p in [0, 2p)."""
+    lo = wide[..., :NLIMBS].contiguous()
+    hi = wide[..., NLIMBS:].contiguous()
+    return add_mod(mont_mul(lo, const(R2_LIMBS, lo)),
+                   mont_mul(hi, const(R3_LIMBS, hi)))

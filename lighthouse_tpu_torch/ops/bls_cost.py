@@ -1,0 +1,141 @@
+"""Field multiplies of the BLS kernels (csrc/bls/*.cu) on given inputs.
+
+The op bound of a BLS kernel (``chip_smoke.py``) is its Montgomery products
+times the integer ops of one. This module counts the products of each
+kernel's own algorithm on the data it is given:
+
+- a scalar multiply doubles on every bit and adds only on set bits;
+- a Jacobian add computes its 16 products whatever its inputs, and takes
+  its doubling fallback only when the two points are equal, which random
+  scalars never meet: the fallback is not counted, so the count stays a
+  lower bound;
+- a Miller lane whose mask is 0 does nothing;
+- a Jacobian equality stops after the x test when the x coordinates differ.
+
+The plain versions count more on the same inputs (``MONT_MUL_ROWS``): they
+are branch-free, as the JAX scans are, so they compute the add on every
+bit and the doubling fallback inside every add, then select. Each cost
+below is the kernel's formula; tests/test_torch_bls_kernel.py holds every
+constant against the plain counter, naming the few places where the two
+formulas square differently (the Fp6 inverse, the G2 affine conversion).
+Units: Fp products (an Fp2 product is 3, Karatsuba).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from . import bls12_381 as k
+
+P = k.P_INT
+
+
+def _pow(e: int, sqr: int, mul: int) -> int:
+    """a^e from a, skipping e's leading one (fp_pow, fp2_pow)."""
+    return (e.bit_length() - 1) * sqr + (bin(e).count("1") - 1) * mul
+
+
+FP2_MUL, FP2_SQR, FP2_MUL_FP = 3, 2, 2
+FP6_MUL = 6 * FP2_MUL
+FP12_MUL = 3 * FP6_MUL
+FP12_SQR = 2 * FP6_MUL
+FP12_MUL_BY_014 = 15 * FP2_MUL
+FP12_FROB = 6 * FP2_MUL
+FP_INV = _pow(P - 2, 1, 1)
+FP2_INV = 2 + FP_INV + 2
+FP6_INV = 3 * FP2_SQR + 9 * FP2_MUL + FP2_INV
+FP12_INV = 4 * FP6_MUL + FP6_INV
+FP2_SQRT = (_pow((P - 3) // 4, FP2_SQR, FP2_MUL)
+            + _pow((P - 1) // 2, FP2_SQR, FP2_MUL) + 3 * FP2_MUL + FP2_SQR)
+FP2_IS_SQUARE = 2 + _pow((P - 1) // 2, 1, 1)
+FP2_TO_INT = 2                  # sgn0 and the lexicographic sign
+#: Jacobian doubling and addition (without its fallback), by field degree
+DBL = {1: 7, 2: 7 * FP2_MUL}
+ADD = {1: 16, 2: 16 * FP2_MUL}
+PSI = 2 * FP2_MUL
+#: Miller loop: projective doubling and mixed addition steps, a line
+#: scaled by P and multiplied into f
+MILLER_DBL = 12 * FP2_MUL
+MILLER_ADD = 13 * FP2_MUL
+ELL = 2 * FP2_MUL_FP + FP12_MUL_BY_014
+#: hash-to-G2 pieces
+H2C_G = FP2_SQR + 2 * FP2_MUL
+SSWU = (2 * FP2_SQR + 3 * FP2_MUL + FP2_INV + 2 * H2C_G + FP2_IS_SQUARE
+        + FP2_SQRT + 2 * FP2_TO_INT)
+_ISO_HORNER = sum(len(k._H2C[n]) - (0 if n in ("XD", "YD") else 1)
+                  for n in ("XN", "XD", "YN", "YD"))
+ISO = (_ISO_HORNER + 7) * FP2_MUL + 2 * FP2_SQR
+FINAL_EXP_THREADS = 64
+
+
+def scalar_mul_const(scalar: int, degree: int) -> int:
+    """jac_scalar_mul_const: from (x, y, 0), every bit from the top one."""
+    return (scalar.bit_length() * DBL[degree]
+            + bin(scalar).count("1") * ADD[degree])
+
+
+CLEAR_COFACTOR = (scalar_mul_const(k._BP_K1, 2) + scalar_mul_const(k._BP_K2, 2)
+                  + 3 * PSI + DBL[2] + 2 * ADD[2])
+HASH_TO_G2_LANE = 2 * (SSWU + ISO) + ADD[2] + CLEAR_COFACTOR
+DECOMPRESS_LANE = FP2_SQR + FP2_MUL + FP2_SQRT + FP2_TO_INT
+_X_STEPS = k._X_ABS.bit_length() - 1
+MILLER_LANE = (_X_STEPS * (FP12_SQR + MILLER_DBL + ELL)
+               + (bin(k._X_ABS).count("1") - 1) * (MILLER_ADD + ELL))
+FINAL_EXP = (FP12_INV + 2 * FP12_MUL + 4 * FP12_FROB + 11 * FP12_MUL
+             + k._HARD_NBITS * (FP12_SQR + FP12_MUL))
+
+
+def g2_decompress(n: int) -> int:
+    return n * DECOMPRESS_LANE
+
+
+def g2_subgroup(z_is_zero, x_equal) -> int:
+    """psi, [|x|]Q and the Jacobian equality, per lane: no products after
+    an infinity test, 10 when the x test fails, 22 when it passes."""
+    z_is_zero = np.asarray(z_is_zero, bool)
+    x_equal = np.asarray(x_equal, bool)
+    eq = np.where(z_is_zero, 0, np.where(x_equal, 10 + 4 * FP2_MUL, 10))
+    return int(z_is_zero.size * (PSI + scalar_mul_const(k._X_ABS, 2))
+               + eq.sum())
+
+
+def hash_to_g2(n: int) -> int:
+    return n * HASH_TO_G2_LANE
+
+
+def scalar_mul(bits, degree: int) -> int:
+    """Per-lane MSB-first bits [n, nbits]: a doubling every bit, an add
+    on every set bit."""
+    bits = np.asarray(bits)
+    return int(bits.size * DBL[degree] + np.count_nonzero(bits) * ADD[degree])
+
+
+def g1_segment_sum(starts, ends) -> int:
+    """Thread g adds the lanes after its segment's first up to ends[g]."""
+    starts, ends = np.asarray(starts), np.asarray(ends)
+    lanes = np.arange(starts.shape[0])
+    first = np.maximum.accumulate(np.where(starts != 0, lanes, 0))
+    return int((ends - first[ends]).sum() * ADD[1])
+
+
+def g2_sum(n: int) -> int:
+    """A column add per row of the [ceil(n/128), 128] layout, then the
+    partials."""
+    w = min(k.G2_SUM_WIDTH, max(1, n))
+    rows = -(-n // w)
+    return (w * rows + (w if w > 1 else 0)) * ADD[2]
+
+
+def affine(n: int, degree: int) -> int:
+    inv = FP_INV if degree == 1 else FP2_INV
+    return n * (inv + 4 * (1 if degree == 1 else FP2_MUL))
+
+
+def miller_loop(mask) -> int:
+    return int(np.count_nonzero(np.asarray(mask)) * MILLER_LANE)
+
+
+def final_exp(n: int, mode: int) -> int:
+    """The block product of n values (each thread's share from one, then
+    the 63 partials), and in mode 1 the final exponentiation."""
+    product = (n + FINAL_EXP_THREADS - 1) * FP12_MUL
+    return product + (FINAL_EXP if mode == 1 else 0)

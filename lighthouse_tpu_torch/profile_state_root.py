@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 
-def _device_summary(prof, wall_ms: float) -> dict:
+def device_summary(prof, wall_ms: float) -> dict:
     from torch.autograd import DeviceType
     by_name: dict[str, float] = {}
     spans = []
@@ -49,7 +49,7 @@ def _device_summary(prof, wall_ms: float) -> dict:
             "device_ms_by_name": {k: round(v, 4) for k, v in top}}
 
 
-def _profiled(fn):
+def profiled(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -58,7 +58,7 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return _device_summary(prof, wall_ms)
+    return device_summary(prof, wall_ms)
 
 
 def main(argv=None) -> int:
@@ -83,10 +83,10 @@ def main(argv=None) -> int:
     fill_state(state, ValidatorRegistry(),
                seeded_columns(N_VALIDATORS, STATE_SEED))
     report = {"n_validators": N_VALIDATORS,
-              "build": _profiled(state.hash_tree_root), "reps": []}
+              "build": profiled(state.hash_tree_root), "reps": []}
     reps = bench_reps(N_VALIDATORS, REPS + 1)
     for rows, brows in reps[:-1]:
-        report["reps"].append(_profiled(
+        report["reps"].append(profiled(
             lambda: (apply_bench_rep(state, rows, brows),
                      state.hash_tree_root())))
     rows, brows = reps[-1]

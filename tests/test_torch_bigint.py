@@ -1,0 +1,149 @@
+"""The port's field layer (ops/bigint.py, plain versions on the CPU)
+against the JAX package's ``ops/bigint`` and Python ints: the same seeded
+inputs, carried across by ``convert.limbs_from_numpy``; field values equal
+after ``canonical`` (tolerance zero), including the edge values 0, 1, p-1,
+p, p+1 and 2p-1 and borrow-heavy subtractions."""
+import numpy as np
+import pytest
+import torch
+
+from lighthouse_tpu.ops import bigint as jbi
+from lighthouse_tpu_torch import convert
+from lighthouse_tpu_torch.device import set_device
+from lighthouse_tpu_torch.ops import bigint as tbi
+
+P = tbi.P_INT
+R_INV = pow(tbi.R_INT, -1, P)
+EDGES = [0, 1, P - 1, P, P + 1, 2 * P - 1]
+N = 16
+
+
+@pytest.fixture(autouse=True)
+def cpu_device():
+    prev = set_device("cpu")
+    yield
+    set_device(prev)
+
+
+def _values(seed, n=N):
+    """n values in [0, 2p): the edges, then seeded random ones."""
+    rng = np.random.default_rng(seed)
+    rand = [int.from_bytes(rng.bytes(48), "little") % (2 * P)
+            for _ in range(n - len(EDGES))]
+    return EDGES + rand
+
+
+def _jax_limbs(vals):
+    return np.stack([jbi.to_limbs(v) for v in vals])
+
+
+def _ints(t):
+    return tbi.limbs_to_ints(convert.limbs_to_numpy(t))
+
+
+def _same_canonical(got, want_jax):
+    want = np.asarray(jbi.canonical(np.asarray(want_jax)))
+    np.testing.assert_array_equal(
+        convert.limbs_to_numpy(tbi.canonical(got)), want)
+
+
+def test_limb_conversions_match_jax():
+    vals = _values(0)
+    arr = _jax_limbs(vals)
+    np.testing.assert_array_equal(tbi.ints_to_limbs(vals), arr)
+    assert tbi.limbs_to_ints(arr) == vals
+    for v in vals:
+        np.testing.assert_array_equal(tbi.to_limbs(v), jbi.to_limbs(v))
+        assert tbi.from_limbs(tbi.to_limbs(v)) == v
+
+
+@pytest.mark.parametrize("op", ["mont_mul", "add_mod", "sub_mod"])
+def test_binary_ops_match_jax_and_ints(op):
+    vals_a, vals_b = _values(1), _values(2)[::-1]
+    a_np, b_np = _jax_limbs(vals_a), _jax_limbs(vals_b)
+    a, b = convert.limbs_from_numpy(a_np), convert.limbs_from_numpy(b_np)
+    got = getattr(tbi, op)(a, b)
+    _same_canonical(got, getattr(jbi, op)(a_np, b_np))
+    for x, y, v in zip(vals_a, vals_b, _ints(got)):
+        assert 0 <= v < 2 * P
+        want = {"mont_mul": x * y * R_INV, "add_mod": x + y,
+                "sub_mod": x - y}[op]
+        assert v % P == want % P
+
+
+def test_borrow_heavy_subtraction_and_negation():
+    vals = _values(3)
+    a_np = _jax_limbs(vals)
+    a = convert.limbs_from_numpy(a_np)
+    zero = tbi.sub_mod(a, a)
+    assert bool(tbi.is_zero_mod(zero).all())
+    np.testing.assert_array_equal(convert.limbs_to_numpy(tbi.canonical(zero)),
+                                  np.zeros_like(a_np))
+    neg = tbi.neg_mod(a)
+    _same_canonical(neg, jbi.neg_mod(a_np))
+    assert bool(tbi.is_zero_mod(tbi.add_mod(a, neg)).all())
+
+
+def test_normalize_matches_jax_on_signed_limbs():
+    rng = np.random.default_rng(4)
+    x = rng.integers(-(2**29), 2**29, size=(N, 64)).astype(np.int32)
+    x[0] = -1                          # every limb borrows
+    x[1] = tbi.LIMB_MASK               # every limb at the carry edge
+    x[2, :] = 0
+    x[2, 0] = -1
+    got = tbi.normalize(convert.limbs_from_numpy(x))
+    np.testing.assert_array_equal(convert.limbs_to_numpy(got),
+                                  np.asarray(jbi.normalize(x)))
+
+
+def test_canonical_eq_and_zero_match_jax():
+    vals = _values(5)
+    a_np = _jax_limbs(vals)
+    b_np = _jax_limbs([(v + P) % (2 * P) for v in vals])   # same residues
+    a, b = convert.limbs_from_numpy(a_np), convert.limbs_from_numpy(b_np)
+    np.testing.assert_array_equal(
+        convert.limbs_to_numpy(tbi.canonical(a)),
+        np.asarray(jbi.canonical(a_np)))
+    assert tbi.eq_mod(a, b).tolist() == np.asarray(
+        jbi.eq_mod(a_np, b_np)).tolist() == [True] * N
+    assert tbi.is_zero_mod(a).tolist() == np.asarray(
+        jbi.is_zero_mod(a_np)).tolist()
+    assert tbi.is_zero_mod(a).tolist()[:4] == [True, False, False, True]
+
+
+def test_montgomery_round_trip_and_wide_reduction():
+    rng = np.random.default_rng(6)
+    vals = [v % P for v in _values(6)]
+    x_np = _jax_limbs(vals)
+    x = convert.limbs_from_numpy(x_np)
+    mont = tbi.mont_from_int_limbs(x)
+    _same_canonical(mont, jbi.mont_from_int_limbs(x_np))
+    back = tbi.mont_to_int_limbs(mont)
+    assert _ints(back) == vals
+    wide_vals = [int.from_bytes(rng.bytes(96), "little") for _ in range(N)]
+    wide_vals[0] = 2**768 - 1
+    w_np = np.stack([jbi.to_limbs(v, 64) for v in wide_vals])
+    got = tbi.reduce_wide_mod_p(convert.limbs_from_numpy(w_np))
+    _same_canonical(got, jbi.reduce_wide_mod_p(w_np))
+    for v, g in zip(wide_vals, _ints(got)):
+        assert g % P == v * tbi.R_INT % P
+
+
+def test_plain_mont_mul_counts_rows():
+    a = convert.limbs_from_numpy(_jax_limbs(_values(7)))
+    tbi.MONT_MUL_ROWS.reset()
+    tbi.mont_mul(a, a)
+    tbi.mont_mul(a[:3], a[:3])
+    assert tbi.MONT_MUL_ROWS.rows == N + 3
+
+
+def test_kernel_wrapper_takes_only_card_tensors():
+    a = convert.limbs_from_numpy(_jax_limbs(_values(8)))
+    with pytest.raises(ValueError):
+        tbi.fp_ops_kernel(tbi.FP_MUL, a, a)
+    # on the CPU the public op is the plain version, with no kernel launch
+    from lighthouse_tpu_torch import kernels
+    before = kernels.FP_OPS.launches
+    tbi.mont_mul(a, a)
+    assert kernels.FP_OPS.launches == before
+    assert torch.equal(tbi.mont_mul(a, a), tbi._mont_mul_plain(a, a))

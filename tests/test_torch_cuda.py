@@ -130,3 +130,145 @@ def test_merkleize_words_card_equals_cpu(cuda_device):
     leaves = _words(rng, 1000, 8)
     assert sh.root_bytes(sh.merkleize_words(leaves, 2**38, cuda_device)) \
         == sh.root_bytes(sh.merkleize_words(leaves, 2**38, "cpu"))
+
+
+# --- BLS12-381 (csrc/bls/): each kernel against its plain version on the
+# card, at odd lane counts and with infinity inputs. Field values compare
+# canonically (the kernel's CIOS multiply and the plain 12-bit-limb
+# multiply return different representatives in [0, 2p)); tolerance zero.
+
+def _bls():
+    from lighthouse_tpu_torch.ops import bigint as bi
+    from lighthouse_tpu_torch.ops import bls12_381 as k
+    return bi, k
+
+
+def _canon_equal(got, want):
+    bi, _ = _bls()
+    if isinstance(got, (tuple, list)):
+        return all(_canon_equal(g, w) for g, w in zip(got, want))
+    if got.dtype == torch.bool:
+        return torch.equal(got.cpu(), want.cpu())
+    return torch.equal(bi.canonical(got.cpu()), bi.canonical(want.cpu()))
+
+
+def _points(n, seed, g2):
+    """n Jacobian points k_i * G (k_i from ``seed``), lane 0 at infinity."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import (
+        G1_GENERATOR, G2_GENERATOR,
+    )
+    _, k = _bls()
+    rng = np.random.default_rng(seed)
+    gen = G2_GENERATOR if g2 else G1_GENERATOR
+    pts = [gen.mul(int(rng.integers(1, 2**62))) for _ in range(n)]
+    xs, ys = zip(*(p.to_affine() for p in pts))
+    if g2:
+        x, y = k.fp2_encode(xs), k.fp2_encode(ys)
+        z = np.array(np.broadcast_to(k.FP2_ONE, (n, 2, 32)))
+    else:
+        x, y = k.fp_encode(xs), k.fp_encode(ys)
+        z = np.array(np.broadcast_to(k.FP_ONE, (n, 32)))
+    z[0] = 0
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (x, y, z))
+
+
+@pytest.mark.parametrize("n", [1, 3, 130])
+def test_fp_ops_kernel(cuda_device, n):
+    bi, _ = _bls()
+    rng = np.random.default_rng(n)
+    vals = [int.from_bytes(rng.bytes(48), "little") % (2 * bi.P_INT)
+            for _ in range(n)]
+    vals[0] = 2 * bi.P_INT - 1
+    a = torch.from_numpy(bi.ints_to_limbs(vals))
+    b = torch.from_numpy(bi.ints_to_limbs(vals[::-1]))
+    for op in (bi.FP_MUL, bi.FP_ADD, bi.FP_SUB):
+        got = bi.fp_ops_kernel(op, a.to(cuda_device), b.to(cuda_device))
+        assert _canon_equal(got, bi._PLAIN[op](a, b))
+    # borrow-heavy: a - a is zero
+    got = bi.fp_ops_kernel(bi.FP_SUB, a.to(cuda_device), a.to(cuda_device))
+    assert bool(bi.is_zero_mod(got.cpu()).all())
+
+
+@pytest.mark.parametrize("n", [1, 3, 130])
+@pytest.mark.parametrize("g2", [False, True])
+def test_scalar_mul_and_affine_kernels(cuda_device, n, g2):
+    _, k = _bls()
+    x, y, z = _points(n, n, g2)
+    rng = np.random.default_rng(n + 1)
+    scalars = [int(s) for s in rng.integers(0, 2**63, size=n)]
+    scalars[-1] = 0
+    bits = k.scalars_to_bits(scalars, 64)
+    mul = k.g2_scalar_mul if g2 else k.g1_scalar_mul
+    aff = k.jacobian_to_affine_fp2 if g2 else k.jacobian_to_affine_fp
+    want = mul(x, y, z, bits)
+    got = mul(*(t.to(cuda_device) for t in (x, y, z)), bits)
+    assert _canon_equal(got, want)
+    assert _canon_equal(aff(*got), aff(*want))
+
+
+@pytest.mark.parametrize("n", [1, 3, 130])
+def test_aggregate_kernels(cuda_device, n):
+    _, k = _bls()
+    x, y, z = _points(n, 100 + n, False)
+    starts = np.zeros(n, np.int32)
+    starts[::2] = 1                      # segments of two lanes
+    ends = np.array(sorted({min(i + 1, n - 1) for i in range(0, n, 2)})
+                    + [0], np.int32)     # the last one a padding group
+    want = k.g1_segment_sum(x, y, z, starts, ends)
+    got = k.g1_segment_sum(*(t.to(cuda_device) for t in (x, y, z)),
+                           starts, ends)
+    assert _canon_equal(got, want)
+    x2, y2, z2 = _points(n, 200 + n, True)
+    want = k.g2_sum(x2, y2, z2)
+    got = k.g2_sum(*(t.to(cuda_device) for t in (x2, y2, z2)))
+    assert _canon_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_pairing_kernels(cuda_device, n):
+    _, k = _bls()
+    px, py, _ = _points(n, 300 + n, False)
+    qx, qy, _ = _points(n, 400 + n, True)
+    px[0], py[0] = px[-1], py[-1]        # lane 0 was at infinity
+    qx[0], qy[0] = qx[-1], qy[-1]
+    mask = np.ones(n, bool)
+    mask[-1] = False
+    want = k.miller_loop_batch(px, py, qx, qy, mask)
+    dev = [t.to(cuda_device) for t in (px, py, qx, qy)]
+    got = k.miller_loop_batch(*dev, mask)
+    assert _canon_equal(got, want)
+    assert _canon_equal(k.fp12_product(got), k.fp12_product(want))
+    assert _canon_equal(k.final_exponentiation(got[0]),
+                        k.final_exponentiation(want[0]))
+    assert k.pairing_check_batch(*dev, mask) == \
+        k.pairing_check_batch(px, py, qx, qy, mask)
+
+
+@pytest.mark.parametrize("n", [1, 3, 130])
+def test_g2_intake_kernel(cuda_device, n):
+    bi, k = _bls()
+    x, y, z = _points(n, 500 + n, True)
+    rng = np.random.default_rng(n)
+    xs = x.clone()
+    xs[-1] = torch.from_numpy(k.fp_encode(
+        [int(v) for v in rng.integers(0, 2**62, size=2)]))  # maybe no root
+    flags = rng.integers(0, 2, size=n).astype(bool)
+    want = k.g2_decompress_batch(xs, flags)
+    got = k.g2_decompress_batch(xs.to(cuda_device), flags)
+    assert _canon_equal(got, want)
+    want = k.g2_in_subgroup_batch(x, y, z)
+    got = k.g2_in_subgroup_batch(*(t.to(cuda_device) for t in (x, y, z)))
+    assert _canon_equal(got, want)
+    assert bool(want.all())
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_hash_to_g2_kernel(cuda_device, n):
+    from lighthouse_tpu_torch.crypto.bls12_381.hash_to_curve import DST_POP
+    _, k = _bls()
+    u0, u1 = k.hash_to_field_host([bytes([i]) * i for i in range(n)],
+                                  DST_POP)
+    u0, u1 = torch.from_numpy(u0), torch.from_numpy(u1)
+    want = k.hash_to_g2_batch_from_u(u0, u1)
+    got = k.hash_to_g2_batch_from_u(u0.to(cuda_device), u1.to(cuda_device))
+    assert _canon_equal(got, want)

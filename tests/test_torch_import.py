@@ -23,7 +23,12 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "lighthouse_tpu" or m.startswith("lighthouse_tpu."))
-print(len(names), bad)
+need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
+        "lighthouse_tpu_torch.ops.bls_consts", "lighthouse_tpu_torch.bls_batch",
+        "lighthouse_tpu_torch.crypto.bls", "lighthouse_tpu_torch.crypto.bls.gpu_backend",
+        "lighthouse_tpu_torch.crypto.bls.cpp_backend",
+        "lighthouse_tpu_torch.crypto.bls12_381.sig"}
+print(len(names), sorted(need - set(names)), bad)
 """
 
 
@@ -32,9 +37,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20
-    assert bad == "[]"
+    count, rest = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 30
+    assert rest == "[] []"
 
 
 def test_default_device_is_cuda_and_never_falls_back():
@@ -63,5 +68,39 @@ def test_explicit_device_argument_wins_over_default():
             with pytest.raises(RuntimeError):
                 DeviceTree(4, 16, device="cuda")
         assert DeviceTree(4, 16, device="cpu").device.type == "cpu"
+    finally:
+        device.set_device(prev)
+
+
+def test_bls_backend_needs_the_card_by_default(monkeypatch):
+    """The gpu backend, the BLS module's default, runs on the port's
+    device: with the default (``cuda``) and no card it raises instead of
+    verifying on the CPU, through the backend and the module entry."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import SignatureSet
+    from lighthouse_tpu_torch.crypto.bls import gpu_backend
+    monkeypatch.delenv("LHTPU_BLS_LANES", raising=False)
+    prev = device.set_device("cuda")
+    try:
+        if torch.cuda.is_available():
+            assert gpu_backend.lane_options() == (128, 10240)
+            return
+        with pytest.raises(RuntimeError):
+            gpu_backend.lane_options()
+        backend = gpu_backend.GpuBackend()
+        sig = bytes([0xA0]) + bytes(95)
+        pk = bytes([0x97]) + bytes.fromhex(
+            "f1d3a73197d7942695638c4fa9ac0fc3688c4f9774b905a14e3a3f171bac58"
+            "6c55e83ff97a1aeffb3af00adb22c6bb")
+        with pytest.raises(RuntimeError):
+            backend.verify_signature_sets([SignatureSet(sig, [pk], b"m")])
+        # the module entry's default backend is gpu: no silent host path
+        prev_backend = bls._current
+        try:
+            bls._current = None
+            with pytest.raises(RuntimeError):
+                bls.verify_signature_sets([SignatureSet(sig, [pk], b"m")])
+        finally:
+            bls._current = prev_backend
     finally:
         device.set_device(prev)
