@@ -33,6 +33,17 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    negative batches False on both; a 100-set batch True; every BLS kernel
    launched on that path; the first call and the median of three warm
    calls, sets/s, host prep.
+5. The sharded paths on every card (``n = torch.cuda.device_count()``, one
+   rank a card, NCCL; ``lighthouse_tpu_torch/entry.py``): the dryrun's
+   four checks (a sharded state-root step, a sharded pairing check, the
+   sharded ``verify_signature_sets``, a 2^17-leaf sharded tree), then at
+   full width the 1M-validator columns' sharded validator and balance
+   roots (equal to the single-GPU roots; median of 3 after a warm-up) and
+   the 10k batch verified sharded at 10,240 lanes (True, and False with
+   set 1 corrupted, each equal to the single-GPU verdict; warm median of
+   3), the bytes each ``all_gather`` moved, and each sharded program
+   against the single-device composition on the same inputs (roots
+   byte-equal, Fp12 values canonically equal).
 
 The two expected roots are the JAX package's, pinned by
 tests/test_torch_state_root.py. Importing this module touches no CUDA.
@@ -42,13 +53,15 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
 
+from lighthouse_tpu_torch.measure import (
+    Bounds, field_err, max_abs_err, nvidia_smi, time_cuda,
+)
 from lighthouse_tpu_torch.seeded_state import N_VALIDATORS, REPS, STATE_SEED
 
 #: hash_tree_root() of the seeded 1M-validator Deneb mainnet-preset state,
@@ -57,11 +70,6 @@ EXPECTED_STATE_ROOT_1M = (
     "59e47648a621b500758fe08b6de5ab2739568ac9204bac064a7082abbf709b2a")
 EXPECTED_STATE_ROOT_1M_AFTER_REPS = (
     "b8fa02b5aad146b8cefc2e4210cb338f476f2e884b477a89e8b0ba5043c47cdd")
-
-#: H100 SXM: HBM3 at 3.35 TB/s; 132 SMs, 64 INT32 lanes each per clock.
-HBM_BYTES_PER_S = 3.35e12
-SMS = 132
-INT32_LANES_PER_SM = 64
 
 REPLACES = {
     "hash64": "lighthouse_tpu/ops/sha256.py:102",
@@ -79,11 +87,6 @@ REPLACES = {
     "final_exp": "lighthouse_tpu/ops/bls12_381.py:806",
 }
 
-#: integer ops of one 12-word CIOS Montgomery product: 288 32x32->64-bit
-#: multiply-adds (144 for a*b, 144 for m*p), each a low and a high half.
-#: Additions and carries are left out, so the bound stays a lower bound.
-FP_MUL_INT_OPS = 2 * 288
-
 
 class SmokeFailure(RuntimeError):
     pass
@@ -92,51 +95,6 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def nvidia_smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0].strip()
-
-
-def time_cuda(fn, repeats: int, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn()`` over ``repeats`` CUDA-event timings."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def max_abs_err(a, b) -> int:
-    import torch
-    if a.numel() == 0:
-        return 0
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
-
-
-class Bounds:
-    """Least time the card could take: the larger of bytes over the memory
-    rate and integer ops over the INT32 rate at the card's max SM clock."""
-
-    def __init__(self, sm_clock_mhz: float):
-        self.int_ops_per_s = SMS * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
-
-    def __call__(self, n_bytes: float, n_ops: float) -> tuple[float, str]:
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / self.int_ops_per_s * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                            "operations")
 
 
 def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
@@ -437,6 +395,7 @@ class BlsKernelCheck:
 
         from lighthouse_tpu_torch import kernels
         from lighthouse_tpu_torch.ops import bigint as bi
+        from lighthouse_tpu_torch.ops.bls_cost import FP_MUL_INT_OPS
         got = kernel_fn()
         torch.cuda.synchronize()
         bi.MONT_MUL_ROWS.reset()
@@ -445,15 +404,7 @@ class BlsKernelCheck:
         if callable(muls):
             muls = muls(got)
         got_t = got if isinstance(got, tuple) else (got,)
-        want_t = want if isinstance(want, tuple) else (want,)
-        err = 0
-        for g, w in zip(got_t, want_t):
-            if g.dtype == torch.bool or w.dtype == torch.bool:
-                ok = torch.equal(g.to(torch.bool), w.to(torch.bool))
-                err = max(err, 0 if ok else 1)
-            else:
-                err = max(err, max_abs_err(bi.canonical(g),
-                                           bi.canonical(w)))
+        err = field_err(got, want)
         label = name if mode is None else f"{name} [{mode}]"
         check(err == 0, f"{label}: kernel != plain (max_abs_err {err} on "
                         f"canonical values)")
@@ -743,6 +694,89 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
 
 
 
+def multigpu_phase(bounds: Bounds, setup: dict, card: str):
+    """The sharded paths on every card of the machine (``n`` ranks, one
+    process a card, NCCL): ``entry.dryrun_multigpu(n)`` (the four checks
+    of the JAX dryrun against the single-device results), then the
+    full-width run (the 1M-validator columns' sharded roots and the 10k
+    batch's sharded verification, each against the single-GPU result,
+    with the pubkey cache of phase 4), each sharded program against the
+    single-device composition, and rank 0's kernel launches on the
+    full-width path against their plain versions at that path's shapes.
+    Returns the programs' JSON rows and their modes, the kernels' further
+    modes, and the report."""
+    import torch
+
+    from lighthouse_tpu_torch import entry
+
+    n = torch.cuda.device_count()
+    print(f"multigpu: n = {n} ranks, one a card [{card}]", flush=True)
+    dry = entry.dryrun_multigpu(n)
+    print(f"multigpu dryrun: {dry['checks']} in {dry['seconds']:.1f} s "
+          f"({dry['sets']} sets on {dry['lanes']} lanes); launches per "
+          f"rank {dry['launches']['programs']}; all_gather bytes "
+          f"{dry['gathered']}", flush=True)
+    full = entry.multigpu_run(n, sets=setup["sets"], gpu=setup["gpu"])
+    print(f"multigpu full width: {full['checks']} in {full['seconds']:.1f} "
+          f"s; roots {full['roots']} equal the single-GPU roots",
+          flush=True)
+    print(f"multigpu full width: sharded state root (copy to the cards "
+          f"included) median {full['root_ms']:.2f} ms of "
+          f"{[round(x, 2) for x in full['root_ms_all']]}, the step on "
+          f"resident shards {full['root_step_ms']:.2f} ms; first "
+          f"{full['root_first_ms']:.1f} ms [{card}]", flush=True)
+    sets_per_s = len(setup["sets"]) / full["verify_ms"] * 1e3
+    print(f"multigpu full width: sharded verify of {len(setup['sets'])} "
+          f"sets at {full['lanes']} lanes {full['verify']} (single GPU "
+          f"{full['single_verify']}), set 1 corrupted {full['verify_bad']} "
+          f"(single GPU {full['single_verify_bad']}); warm median "
+          f"{full['verify_ms']:.1f} ms of "
+          f"{[round(x, 1) for x in full['verify_ms_all']]} = "
+          f"{sets_per_s:.0f} sets/s; first {full['verify_first_ms']:.1f} "
+          f"ms; host prepare on rank 0 {full['prep_ms']:.1f} ms; single "
+          f"GPU verify {full['single_verify_ms']:.1f} ms [{card}]",
+          flush=True)
+    print(f"multigpu full width: launches per rank "
+          f"{full['launches']['programs']}; kernels on rank 0 "
+          f"{full['launches']['kernels']}; all_gather bytes "
+          f"{full['gathered']}", flush=True)
+    on_path = ("hash64", "fp_ops", "g2_intake", "hash_to_g2", "rlc_scale",
+               "g1_segment_sum", "g2_sum", "affine", "miller_loop",
+               "final_exp")
+    for name in on_path:
+        check(full["launches"]["kernels"][name] > 0,
+              f"kernel {name} was not launched on the sharded path")
+    path_modes = entry.kernel_modes(full, bounds)
+    for name, recs in path_modes.items():
+        for m in recs:
+            label = f"{name} [{m['mode']}]"
+            check(m["max_abs_err"] == 0, f"{label}: kernel != plain "
+                                         f"(max_abs_err {m['max_abs_err']})")
+            print(f"kernel {label}: ok equal to the plain version, "
+                  f"{m['ms']:.4f} ms (plain {m['plain_ms']:.1f} ms, bound "
+                  f"{m['bound_ms']:.4f} ms by {m['bound_by']})", flush=True)
+    parts = full["subtree_parts_ms"]
+    print(f"multigpu full width: the validators' subtree program in parts "
+          f"on rank 0: local subtree {parts['local_subtree']:.4f} ms, "
+          f"all_gather {parts['all_gather']:.4f} ms, top tree "
+          f"{parts['top_tree']:.4f} ms [{card}]", flush=True)
+    rows, modes = entry.program_rows(dry, full, bounds)
+    for row in rows:
+        check(row["launches"] > 0, f"{row['name']} was not launched on the "
+                                   f"sharded path")
+        check(row["max_abs_err"] == 0, f"{row['name']} != its single-device "
+                                       f"composition")
+        extra = "; ".join(f"{m['mode']} {m['ms']:.4f} ms (plain "
+                          f"{m['plain_ms']:.3f}, bound {m['bound_ms']:.4f})"
+                          for m in modes.get(row["name"], []))
+        print(f"kernel {row['name']}: ok equal to the single-device "
+              f"composition, {row['ms']:.4f} ms (plain {row['plain_ms']:.3f} "
+              f"ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}), "
+              f"launches a rank {row['launches_by_path']}"
+              + (f"; {extra}" if extra else ""), flush=True)
+    return rows, modes, path_modes, {"dryrun": dry, "full_width": full}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -791,10 +825,21 @@ def main(argv=None) -> int:
     rows += bls_check.rows
     modes.update(bls_check.modes)
 
+    # phase 5: the sharded paths over every card (n = device_count)
+    par_rows, par_modes, path_modes, multigpu = multigpu_phase(
+        bounds, setup, card_line)
+    for name, recs in path_modes.items():
+        row = next(r for r in rows if r["name"] == name)
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [m["max_abs_err"] for m in recs])
+        modes.setdefault(name, []).extend(recs)
+    rows += par_rows
+    modes.update(par_modes)
+
     report = {"card": card_line, "sm_clock_max_mhz": sm_clock,
               "build_s": build_s, "build": summary, "kernels": rows,
               "kernel_modes": modes, "bls_field_muls": bls_check.muls,
-              "slice": sl, "bls": bls}
+              "slice": sl, "bls": bls, "multigpu": multigpu}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

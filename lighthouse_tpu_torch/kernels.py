@@ -133,7 +133,16 @@ def reset_counts() -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current stream of ``device``, for a launch. The C entries
+    launch on the CUDA runtime's current device, so a tensor on another
+    card raises here instead of running a kernel with another card's
+    stream and pointers."""
     import torch
+    device = torch.device(device)
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise ValueError(f"launch on {device} while the current device is "
+                         f"cuda:{current}: call torch.cuda.set_device first")
     return torch.cuda.current_stream(device).cuda_stream
 
 

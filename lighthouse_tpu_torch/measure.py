@@ -1,0 +1,93 @@
+"""Measurement on the card: CUDA-event timing, errors, and the least time
+the card could take for a piece of work (the bound beside each kernel's
+time in ``chip_smoke.py`` and ``entry.py``).
+
+The rates are NVIDIA's data-sheet figures for one H100 SXM at its full
+power limit: HBM3 at 3.35 TB/s; 132 SMs with 64 INT32 lanes each per
+clock (the clock is the card's maximum SM clock, read by the caller);
+NVLink at 450 GB/s each way to the other cards of the host.
+"""
+from __future__ import annotations
+
+import statistics
+import subprocess
+
+HBM_BYTES_PER_S = 3.35e12
+SMS = 132
+INT32_LANES_PER_SM = 64
+NVLINK_BYTES_PER_S = 450e9
+
+
+class Bounds:
+    """Least time the card could take: the larger of bytes over the memory
+    rate and integer ops over the INT32 rate at the card's max SM clock,
+    plus the bytes a collective brings in from the other cards over
+    NVLink."""
+
+    def __init__(self, sm_clock_mhz: float):
+        self.int_ops_per_s = SMS * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+
+    def __call__(self, n_bytes: float, n_ops: float,
+                 link_bytes: float = 0) -> tuple[float, str]:
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / self.int_ops_per_s * 1e3
+        t_link = link_bytes / NVLINK_BYTES_PER_S * 1e3
+        if t_bytes >= t_ops:
+            return t_bytes + t_link, "bytes"
+        return t_ops + t_link, ("operations" if t_ops >= t_link
+                                else "bytes")
+
+
+def time_cuda(fn, repeats: int, warmup: int = 1) -> float:
+    """Median milliseconds of ``fn()`` over ``repeats`` CUDA-event timings."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs_err(a, b) -> int:
+    import torch
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def field_err(got, want, canonical: bool = True) -> int:
+    """Largest absolute difference over the tensors of ``got`` and
+    ``want`` (each a tensor or a tuple of them): of canonical field values
+    when ``canonical``, else of the raw words; a pair of flag tensors
+    counts 1 where the flags differ."""
+    import torch
+
+    from .ops import bigint as bi
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        w = w.to(g.device)
+        if g.dtype == torch.bool or w.dtype == torch.bool:
+            same = torch.equal(g.to(torch.bool), w.to(torch.bool))
+            err = max(err, 0 if same else 1)
+        elif canonical:
+            err = max(err, max_abs_err(bi.canonical(g), bi.canonical(w)))
+        else:
+            err = max(err, max_abs_err(g, w))
+    return err
+
+
+def nvidia_smi(query: str) -> str:
+    """The first card's answer to ``nvidia-smi --query-gpu=QUERY``."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0].strip()

@@ -694,11 +694,13 @@ def _mask_to_one(fs, mask):
 
 
 def _fp12_product_plain(fs):
-    """Product over the batch axis (a field value: any order gives it)."""
-    out = fs[0]
-    for i in range(1, fs.shape[0]):
-        out = fp12_mul(out, fs[i])
-    return out
+    """Product over the batch axis (a field value: any order gives it),
+    as a pairwise tree: n - 1 multiplies in log2(n) batched steps."""
+    while fs.shape[0] > 1:
+        half = fs.shape[0] // 2
+        prod = fp12_mul(fs[:half], fs[half:2 * half])
+        fs = torch.cat([prod, fs[2 * half:]]) if fs.shape[0] % 2 else prod
+    return fs[0]
 
 
 _R_SUBGROUP = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001

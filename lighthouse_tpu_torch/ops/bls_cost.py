@@ -65,6 +65,10 @@ _ISO_HORNER = sum(len(k._H2C[n]) - (0 if n in ("XD", "YD") else 1)
                   for n in ("XN", "XD", "YN", "YD"))
 ISO = (_ISO_HORNER + 7) * FP2_MUL + 2 * FP2_SQR
 FINAL_EXP_THREADS = 64
+#: integer ops of one 12-word CIOS Montgomery product: 288 32x32->64-bit
+#: multiply-adds (144 for a*b, 144 for m*p), each a low and a high half.
+#: Additions and carries are left out, so a bound stays a lower bound.
+FP_MUL_INT_OPS = 2 * 288
 
 
 def scalar_mul_const(scalar: int, degree: int) -> int:

@@ -43,6 +43,23 @@ def test_hash64_odd_sizes(cuda_device, n):
     assert torch.equal(got.cpu(), sh.hash64(blocks))
 
 
+def test_launch_guard_checks_the_current_device(cuda_device):
+    """A launch goes to the CUDA runtime's current device: a tensor there
+    launches (hash64, equal to the plain version), and a stream asked
+    for another card raises instead of mixing two cards' contexts."""
+    current = torch.device("cuda", torch.cuda.current_device())
+    blocks = sh.words_to_tensor(_words(np.random.default_rng(9), 33, 16),
+                                "cpu")
+    got = sh.hash64(blocks.to(current))
+    assert got.device == current
+    assert torch.equal(got.cpu(), sh.hash64(blocks))
+    assert kernels.stream_ptr(current) == \
+        torch.cuda.current_stream(current).cuda_stream
+    other = torch.device("cuda", current.index + 1)
+    with pytest.raises(ValueError, match="current device"):
+        kernels.stream_ptr(other)
+
+
 @pytest.mark.parametrize("pre_levels", [0, 3])
 @pytest.mark.parametrize("with_pk", [False, True])
 def test_fold_pre_build_and_scatter(cuda_device, pre_levels, with_pk):

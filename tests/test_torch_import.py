@@ -27,7 +27,12 @@ need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
         "lighthouse_tpu_torch.ops.bls_consts", "lighthouse_tpu_torch.bls_batch",
         "lighthouse_tpu_torch.crypto.bls", "lighthouse_tpu_torch.crypto.bls.gpu_backend",
         "lighthouse_tpu_torch.crypto.bls.cpp_backend",
-        "lighthouse_tpu_torch.crypto.bls12_381.sig"}
+        "lighthouse_tpu_torch.crypto.bls12_381.sig",
+        "lighthouse_tpu_torch.entry", "lighthouse_tpu_torch.measure",
+        "lighthouse_tpu_torch.parallel", "lighthouse_tpu_torch.parallel.mesh",
+        "lighthouse_tpu_torch.parallel.launch",
+        "lighthouse_tpu_torch.parallel.merkle",
+        "lighthouse_tpu_torch.parallel.bls"}
 print(len(names), sorted(need - set(names)), bad)
 """
 
