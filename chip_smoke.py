@@ -44,6 +44,23 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    3), the bytes each ``all_gather`` moved, and each sharded program
    against the single-device composition on the same inputs (roots
    byte-equal, Fp12 values canonically equal).
+6. The multiply lowerings 1 and 2 of ``ops/bigint.py`` (the JAX package's
+   ``LHTPU_BIGINT_MXU`` modes), then mode 0 again: their variants of every
+   BLS kernel built (``-DLH_FP_MODE``); the ``bench.py`` ``mxu`` workload
+   (``measure.mont_mul_modes``: 32 dependent products over 65,536 lanes,
+   mont_mul/s per mode, the modes' results equal as field values and each
+   equal to its plain chain); under each mode every variant on the inputs
+   phase 4 gave its kernel (the flagship shapes: 10,240 / 128 lanes, 129
+   Miller pairs), held canonical-exact against phase 4's plain outputs on
+   those inputs (every lowering gives the same canonical values) and
+   timed, its bound the function's need (``bls_cost.FP_MUL_INT_OPS`` a
+   field multiply) with its lowering's own issue count printed beside;
+   and the 10k batch through
+   ``verify_signature_sets`` (True; the five negatives False, as on the
+   C++ backend; every variant launched); ``sha256_messages`` against
+   hashlib and its plain version (2^20 messages of 200 bytes),
+   ``fp12_pow_const`` (1,024 lanes, exponent |x|) and
+   ``reduce_wide_mod_p`` (10,240 rows) under each mode.
 
 The two expected roots are the JAX package's, pinned by
 tests/test_torch_state_root.py. Importing this module touches no CUDA.
@@ -85,6 +102,8 @@ REPLACES = {
     "affine": "lighthouse_tpu/ops/bls12_381.py:558",
     "miller_loop": "lighthouse_tpu/ops/bls12_381.py:674",
     "final_exp": "lighthouse_tpu/ops/bls12_381.py:806",
+    "sha256_messages": "lighthouse_tpu/ops/sha256.py:211",
+    "fp12_pow": "lighthouse_tpu/ops/bls12_381.py:337",
 }
 
 
@@ -372,54 +391,96 @@ def build_summary(logs: dict) -> dict:
 
 class BlsKernelCheck:
     """Each BLS kernel against its plain version on the card, on the lane
-    inputs of the flagship batch, stage after stage: every kernel reads
-    what the kernel before it wrote, as on the main path. Equality is of
-    canonical field values (max_abs_err over canonical limbs, 0 required)
-    and of flags. Times: the kernel's median over ``repeats`` CUDA-event
-    runs, the plain version's one run. The bound is the larger of the
-    bytes over the memory rate and the field multiplies of the kernel's
-    own algorithm on these inputs (``muls``: a count, or a function of the
-    kernel's output) x FP_MUL_INT_OPS over the INT32 rate. The plain
-    version's count (its mont_mul counter) is printed beside it: it is
-    branch-free, so it computes more."""
+    inputs of a batch, stage after stage (``bls_stage_chain``): every
+    kernel reads what the kernel before it wrote, as on the main path.
+    Equality is of canonical field values (max_abs_err over canonical
+    limbs, 0 required) and of flags. Times: the kernel's median over
+    ``repeats`` CUDA-event runs, the plain version's one run. The bound is
+    the larger of the bytes over the memory rate and the field multiplies
+    of the kernel's own algorithm on these inputs (``muls``: a count, or a
+    function of the kernel's output) x the integer ops the function needs
+    for one (``bls_cost.FP_MUL_INT_OPS``, whatever the multiply lowering)
+    over the INT32 rate. The plain version's count (its mont_mul counter)
+    is printed beside it: it is branch-free, so it computes more.
 
-    def __init__(self, bounds: Bounds):
+    ``run`` keeps each check's inputs and plain output (``calls``).
+    ``rerun`` holds the kernel of the current multiply lowering ``mxu``
+    (rows named ``<kernel>_mxu<n>`` for n > 0) to a kept check: the same
+    inputs, the same plain output. Every lowering gives the same canonical
+    field values, so the plain versions need not run again. Beside a
+    variant's bound it prints the bound its lowering's own issue count
+    would give (``bls_cost.fp_mul_pipe_ops``), a diagnostic."""
+
+    def __init__(self, bounds: Bounds, mxu: int = 0):
         self.bounds = bounds
+        self.mxu = mxu
         self.rows: list[dict] = []
         self.modes: dict[str, list] = {}
         self.muls: dict[str, dict] = {}
+        self.calls: list[dict] = []
 
-    def run(self, name, kernel_fn, plain_fn, inputs, muls, mode=None,
+    def run(self, kernel, kernel_fn, plain_fn, args, muls, mode=None,
             repeats=3):
         import torch
 
-        from lighthouse_tpu_torch import kernels
         from lighthouse_tpu_torch.ops import bigint as bi
-        from lighthouse_tpu_torch.ops.bls_cost import FP_MUL_INT_OPS
-        got = kernel_fn()
+        got = kernel_fn(*args)
         torch.cuda.synchronize()
         bi.MONT_MUL_ROWS.reset()
-        want, plain_ms = timed(plain_fn)
-        plain_muls = bi.MONT_MUL_ROWS.rows
-        if callable(muls):
-            muls = muls(got)
-        got_t = got if isinstance(got, tuple) else (got,)
-        err = field_err(got, want)
+        want, plain_ms = timed(lambda: plain_fn(*args))
+        call = {"kernel": kernel, "kernel_fn": kernel_fn, "args": args,
+                "want": want, "plain_ms": plain_ms,
+                "plain_muls": bi.MONT_MUL_ROWS.rows, "muls": muls,
+                "mode": mode, "repeats": repeats}
+        self.calls.append(call)
+        self._record(call, got)
+        return got
+
+    def rerun(self, call: dict) -> None:
+        import torch
+
+        from lighthouse_tpu_torch.ops import bigint as bi
+        check(bi.mxu_mode() == self.mxu, f"multiply lowering {bi.mxu_mode()}"
+                                         f" in force, not {self.mxu}")
+        got = call["kernel_fn"](*call["args"])
+        torch.cuda.synchronize()
+        self._record(call, got)
+
+    def _record(self, call: dict, got) -> None:
+        import torch
+
+        from lighthouse_tpu_torch import kernels
+        from lighthouse_tpu_torch.ops import bls_cost as cost
+        kernel, args, mode = call["kernel"], call["args"], call["mode"]
+        name = kernel if self.mxu == 0 else f"{kernel}_mxu{self.mxu}"
         label = name if mode is None else f"{name} [{mode}]"
+        err = field_err(got, call["want"])
         check(err == 0, f"{label}: kernel != plain (max_abs_err {err} on "
                         f"canonical values)")
-        ms = time_cuda(kernel_fn, repeats)
+        muls = call["muls"](got) if callable(call["muls"]) else call["muls"]
+        ms = time_cuda(lambda: call["kernel_fn"](*args), call["repeats"])
+        got_t = got if isinstance(got, tuple) else (got,)
         n_bytes = sum(t.numel() * t.element_size()
-                      for t in (*inputs, *got_t))
-        bound_ms, bound_by = self.bounds(n_bytes, muls * FP_MUL_INT_OPS)
-        print(f"kernel {label}: ok canonical-exact, {ms:.4f} ms (plain "
-              f"{plain_ms:.1f} ms; {muls} field multiplies, the plain "
-              f"version {plain_muls}; bound {bound_ms:.4f} ms by "
-              f"{bound_by})", flush=True)
+                      for t in (*args, *got_t) if isinstance(t, torch.Tensor))
+        bound_ms, bound_by = self.bounds(n_bytes, muls * cost.FP_MUL_INT_OPS)
+        alg_ms = self.bounds(
+            n_bytes, muls * cost.fp_mul_pipe_ops(self.mxu)["issue"])[0]
+        lanes = int(args[0].shape[0])
+        plain_ms, plain_muls = call["plain_ms"], call["plain_muls"]
+        against = ("its plain version" if self.mxu == 0 else
+                   "phase 4's plain output on the same inputs")
+        print(f"kernel {label} at {lanes} lanes: ok canonical-exact against "
+              f"{against} (plain {plain_ms:.1f} ms, {plain_muls} field "
+              f"multiplies); {ms:.4f} ms; {muls} field multiplies; bound "
+              f"{bound_ms:.4f} ms by {bound_by}"
+              + (f" (the lowering's own issue count: {alg_ms:.4f} ms)"
+                 if self.mxu else ""), flush=True)
         rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "field_muls": muls,
-               "plain_field_muls": plain_muls}
-        self.muls[label] = {"field_muls": muls, "plain_field_muls": plain_muls}
+               "bound_by": bound_by, "algorithm_bound_ms": alg_ms,
+               "field_muls": muls, "plain_field_muls": plain_muls,
+               "lanes": lanes}
+        self.muls[label] = {"field_muls": muls, "plain_field_muls": plain_muls,
+                            "algorithm_bound_ms": alg_ms}
         if mode is not None:
             row = next(r for r in self.rows if r["name"] == name)
             row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -428,12 +489,11 @@ class BlsKernelCheck:
             self.rows.append({
                 "name": name, "route": "cuda",
                 "source": "lighthouse_tpu_torch/csrc/"
-                          + kernels.KERNELS[name].source,
-                "replaces": REPLACES[name], "launches": 0,
+                          + kernels.KERNELS[kernel].source,
+                "replaces": REPLACES[kernel], "launches": 0,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None})
-        return got
 
 
 def bls_setup() -> dict:
@@ -463,10 +523,24 @@ def bls_setup() -> dict:
             "pubkey_warm_s": warm_s}
 
 
-def bls_kernel_phase(bounds: Bounds, setup: dict) -> BlsKernelCheck:
-    """The BLS kernels against their plain versions at the flagship
-    batch's shapes: L = 10,240 signature and pubkey lanes, M = 128 message
-    lanes, M + 1 Miller pairs."""
+def bls_prep(setup: dict, sets, lanes: int, small: int) -> dict:
+    """The lane inputs of ``sets`` at ``lanes`` / ``small`` lanes."""
+    from lighthouse_tpu_torch.crypto.bls import gpu_backend as gb
+    parsed = gb.parse_sets(setup["gpu"], sets)
+    check(parsed is not None, "the batch did not parse")
+    prep = gb.host_prepare(*parsed, lanes, small)
+    n_msgs = len({s.message for s in sets})
+    check(prep["msg_lanes"] == small and prep["n_groups"] == n_msgs,
+          f"batch layout: {prep['n_groups']} groups on "
+          f"{prep['msg_lanes']} message lanes")
+    return prep
+
+
+def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
+    """The BLS stages on a batch's lane inputs (``prep`` at ``lanes`` /
+    ``small`` lanes), each kernel reading what the kernel before it wrote:
+    ``run(kernel, kernel_fn, plain_fn, args, muls, ...)`` checks and times
+    one (``BlsKernelCheck.run``). The batch must verify on the kernels."""
     import torch
 
     from lighthouse_tpu_torch.crypto.bls import gpu_backend as gb
@@ -475,83 +549,61 @@ def bls_kernel_phase(bounds: Bounds, setup: dict) -> BlsKernelCheck:
     from lighthouse_tpu_torch.ops import bls_cost as cost
 
     dev = torch.device("cuda")
-    parsed = gb.parse_sets(setup["gpu"], setup["sets"])
-    check(parsed is not None, "the flagship batch did not parse")
-    lanes, small = 10240, 128
-    prep = gb.host_prepare(*parsed, lanes, small)
-    check(prep["msg_lanes"] == small and prep["n_groups"] == 127,
-          f"flagship layout: {prep['n_groups']} groups on "
-          f"{prep['msg_lanes']} message lanes")
 
     def put(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
-    c = BlsKernelCheck(bounds)
     sx_int, r2 = put(prep["sig_x"]), put(np.broadcast_to(
         bi.R2_LIMBS, (lanes, 2, bi.NLIMBS)))
-    sig_x = c.run("fp_ops", lambda: bi.fp_ops_kernel(bi.FP_MUL, sx_int, r2),
-                  lambda: bi._mont_mul_plain(sx_int, r2), (sx_int, r2),
-                  2 * lanes)
+    sig_x = run("fp_ops", lambda a, b: bi.fp_ops_kernel(bi.FP_MUL, a, b),
+                bi._mont_mul_plain, (sx_int, r2), 2 * lanes)
     for mode, op, plain in (("add", bi.FP_ADD, bi._add_mod_plain),
                             ("sub", bi.FP_SUB, bi._sub_mod_plain)):
-        c.run("fp_ops", lambda op=op: bi.fp_ops_kernel(op, sig_x, sig_x),
-              lambda plain=plain: plain(sig_x, sig_x), (sig_x, sig_x), 0,
-              mode=mode)
+        run("fp_ops", lambda a, b, op=op: bi.fp_ops_kernel(op, a, b), plain,
+            (sig_x, sig_x), 0, mode=mode)
     pk_x = bi.mont_from_int_limbs(put(prep["pk_x"]))
     pk_y = bi.mont_from_int_limbs(put(prep["pk_y"]))
     flags = put(prep["flags"].astype(np.int32))
 
-    sig_y, _ = c.run(
-        "g2_intake", lambda: k.g2_decompress_batch(sig_x, flags),
-        lambda: k._g2_decompress_plain(sig_x, flags), (sig_x, flags),
-        cost.g2_decompress(lanes), repeats=2)
+    sig_y, _ = run("g2_intake", k.g2_decompress_batch,
+                   k._g2_decompress_plain, (sig_x, flags),
+                   cost.g2_decompress(lanes), repeats=2)
     one2 = put(np.broadcast_to(k.FP2_ONE, (lanes, 2, bi.NLIMBS)))
-    ok = c.run("g2_intake", lambda: k.g2_in_subgroup_batch(sig_x, sig_y,
-                                                           one2),
-               lambda: k._g2_in_subgroup_plain(sig_x, sig_y, one2),
-               (sig_x, sig_y, one2),
-               lambda ok: cost.g2_subgroup(np.zeros(lanes, bool),
-                                           ok.cpu().numpy()),
-               mode="subgroup", repeats=2)
-    check(bool(ok.all()), "a flagship signature failed the subgroup check")
+    ok = run("g2_intake", k.g2_in_subgroup_batch, k._g2_in_subgroup_plain,
+             (sig_x, sig_y, one2),
+             lambda ok: cost.g2_subgroup(np.zeros(lanes, bool),
+                                         ok.cpu().numpy()),
+             mode="subgroup", repeats=2)
+    check(bool(ok.all()), "a signature of the batch failed the subgroup "
+                          "check")
 
     u0, u1 = put(prep["u0"]), put(prep["u1"])
-    mx, my, mz = c.run("hash_to_g2", lambda: k.hash_to_g2_batch_from_u(u0,
-                                                                       u1),
-                       lambda: k._hash_to_g2_plain(u0, u1), (u0, u1),
-                       cost.hash_to_g2(small), repeats=2)
-    msg_x, msg_y = c.run(
-        "affine", lambda: k.jacobian_to_affine_fp2(mx, my, mz),
-        lambda: k._jacobian_to_affine_fp2_plain(mx, my, mz), (mx, my, mz),
-        cost.affine(small, 2))
+    mx, my, mz = run("hash_to_g2", k.hash_to_g2_batch_from_u,
+                     k._hash_to_g2_plain, (u0, u1), cost.hash_to_g2(small),
+                     repeats=2)
+    msg_x, msg_y = run("affine", k.jacobian_to_affine_fp2,
+                       k._jacobian_to_affine_fp2_plain, (mx, my, mz),
+                       cost.affine(small, 2))
 
     one1 = put(np.broadcast_to(k.FP_ONE, (lanes, bi.NLIMBS)))
     pk_bits_np = k.scalars_to_bits(prep["pk_rands"], 64)
     sig_bits_np = k.scalars_to_bits(prep["sig_rands"], 64)
     pk_bits, sig_bits = put(pk_bits_np), put(sig_bits_np)
-    spx, spy, spz = c.run(
-        "rlc_scale", lambda: k.g1_scalar_mul(pk_x, pk_y, one1, pk_bits),
-        lambda: k._g1_scalar_mul_plain(pk_x, pk_y, one1, pk_bits),
-        (pk_x, pk_y, one1, pk_bits), cost.scalar_mul(pk_bits_np, 1))
-    ssx, ssy, ssz = c.run(
-        "rlc_scale", lambda: k.g2_scalar_mul(sig_x, sig_y, one2, sig_bits),
-        lambda: k._g2_scalar_mul_plain(sig_x, sig_y, one2, sig_bits),
-        (sig_x, sig_y, one2, sig_bits), cost.scalar_mul(sig_bits_np, 2),
-        mode="G2")
+    spx, spy, spz = run("rlc_scale", k.g1_scalar_mul, k._g1_scalar_mul_plain,
+                        (pk_x, pk_y, one1, pk_bits),
+                        cost.scalar_mul(pk_bits_np, 1))
+    ssx, ssy, ssz = run("rlc_scale", k.g2_scalar_mul,
+                        k._g2_scalar_mul_plain, (sig_x, sig_y, one2, sig_bits),
+                        cost.scalar_mul(sig_bits_np, 2), mode="G2")
     starts, ends = put(prep["starts"]), put(prep["ends"])
-    gpx, gpy, gpz = c.run(
-        "g1_segment_sum", lambda: k.g1_segment_sum(spx, spy, spz, starts,
-                                                   ends),
-        lambda: k._g1_segment_sum_plain(spx, spy, spz, starts, ends),
-        (spx, spy, spz, starts, ends),
-        cost.g1_segment_sum(prep["starts"], prep["ends"]))
-    ax, ay, az = c.run("g2_sum", lambda: k.g2_sum(ssx, ssy, ssz),
-                       lambda: k._g2_sum_plain(ssx, ssy, ssz),
-                       (ssx, ssy, ssz), cost.g2_sum(lanes))
-    apx, apy = c.run(
-        "affine", lambda: k.jacobian_to_affine_fp(gpx, gpy, gpz),
-        lambda: k._jacobian_to_affine_fp_plain(gpx, gpy, gpz),
-        (gpx, gpy, gpz), cost.affine(small, 1), mode="G1")
+    gpx, gpy, gpz = run("g1_segment_sum", k.g1_segment_sum,
+                        k._g1_segment_sum_plain, (spx, spy, spz, starts, ends),
+                        cost.g1_segment_sum(prep["starts"], prep["ends"]))
+    ax, ay, az = run("g2_sum", k.g2_sum, k._g2_sum_plain, (ssx, ssy, ssz),
+                     cost.g2_sum(lanes))
+    apx, apy = run("affine", k.jacobian_to_affine_fp,
+                   k._jacobian_to_affine_fp_plain, (gpx, gpy, gpz),
+                   cost.affine(small, 1), mode="G1")
     aax, aay = k.jacobian_to_affine_fp2(ax, ay, az)
 
     pad = gb._pad_cache()
@@ -560,25 +612,69 @@ def bls_kernel_phase(bounds: Bounds, setup: dict) -> BlsKernelCheck:
     qx = torch.cat([msg_x, aax[None]])
     qy = torch.cat([msg_y, aay[None]])
     mask = put(prep["mask"].astype(np.int32))
-    fs = c.run("miller_loop",
-               lambda: k.miller_loop_batch(px, py, qx, qy, mask),
-               lambda: k._mask_to_one(k._miller_loop_plain(px, py, qx, qy),
-                                      mask),
-               (px, py, qx, qy, mask), cost.miller_loop(prep["mask"]),
-               repeats=2)
-    out, flag = c.run(
-        "final_exp", lambda: k._final_exp_kernel(1, fs),
-        lambda: (lambda v: (v, k.fp12_eq(v, k.fp12_one_like((), v))
-                            .reshape(1)))(
-            k._final_exponentiation_plain(k._fp12_product_plain(fs))),
-        (fs,), cost.final_exp(fs.shape[0], 1), repeats=2)
-    check(int(flag.item()) == 1, "the flagship batch's pairing product "
-                                 "is not one on the kernels")
-    c.run("final_exp", lambda: k.fp12_product(fs),
-          lambda: k._fp12_product_plain(fs), (fs,),
-          cost.final_exp(fs.shape[0], 0), mode="product")
+    fs = run("miller_loop", k.miller_loop_batch,
+             lambda *a: k._mask_to_one(k._miller_loop_plain(*a[:4]), a[4]),
+             (px, py, qx, qy, mask), cost.miller_loop(prep["mask"]),
+             repeats=2)
+
+    def final_plain(f):
+        v = k._final_exponentiation_plain(k._fp12_product_plain(f))
+        return v, k.fp12_eq(v, k.fp12_one_like((), v)).reshape(1)
+
+    out, flag = run("final_exp", lambda f: k._final_exp_kernel(1, f),
+                    final_plain, (fs,), cost.final_exp(fs.shape[0], 1),
+                    repeats=2)
+    check(int(flag.item()) == 1, "the batch's pairing product is not one "
+                                 "on the kernels")
+    run("final_exp", k.fp12_product, k._fp12_product_plain, (fs,),
+        cost.final_exp(fs.shape[0], 0), mode="product")
     torch.cuda.synchronize()
+
+
+def bls_kernel_phase(bounds: Bounds, setup: dict) -> BlsKernelCheck:
+    """The BLS kernels against their plain versions at the flagship
+    batch's shapes: L = 10,240 signature and pubkey lanes, M = 128 message
+    lanes, M + 1 Miller pairs."""
+    c = BlsKernelCheck(bounds)
+    bls_stage_chain(c.run, bls_prep(setup, setup["sets"], 10240, 128),
+                    10240, 128)
     return c
+
+
+def negative_batches(sets) -> dict:
+    """The flagship batch with its middle set spoiled five ways, by
+    label."""
+    from lighthouse_tpu_torch.crypto.bls import SignatureSet
+    from lighthouse_tpu_torch.crypto.bls12_381 import Fp2
+    from lighthouse_tpu_torch.crypto.bls12_381.curve import B_G2, G2Point
+    from lighthouse_tpu_torch.crypto.bls12_381.sig import g2_compress
+    mid = len(sets) // 2
+    s = sets[mid]
+    xx = 1
+    while True:
+        yy = (Fp2(xx, 0) * Fp2(xx, 0) * Fp2(xx, 0) + B_G2).sqrt()
+        if yy is not None:
+            break
+        xx += 1
+    outside = g2_compress(G2Point(Fp2(xx, 0), yy))
+    spoiled = {
+        "one message changed": SignatureSet(s.signature, s.pubkeys,
+                                            b"\xee" * 32),
+        "signature of another message": SignatureSet(
+            sets[mid + 1].signature, s.pubkeys, s.message),
+        "infinity signature": SignatureSet(bytes([0xC0]) + bytes(95),
+                                           s.pubkeys, s.message),
+        "G2 point outside the subgroup": SignatureSet(outside, s.pubkeys,
+                                                      s.message),
+        "malformed bytes": SignatureSet(s.signature[:95], s.pubkeys,
+                                        s.message),
+    }
+    out = {}
+    for label, bad_set in spoiled.items():
+        bad = list(sets)
+        bad[mid] = bad_set
+        out[label] = bad
+    return out
 
 
 def bls_slice_phase(setup: dict, card: str) -> dict:
@@ -590,10 +686,7 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
     from lighthouse_tpu_torch import kernels
     from lighthouse_tpu_torch.bls_batch import N_SETS
     from lighthouse_tpu_torch.crypto import bls
-    from lighthouse_tpu_torch.crypto.bls import SignatureSet, gpu_backend
-    from lighthouse_tpu_torch.crypto.bls12_381 import Fp2
-    from lighthouse_tpu_torch.crypto.bls12_381.curve import B_G2, G2Point
-    from lighthouse_tpu_torch.crypto.bls12_381.sig import g2_compress
+    from lighthouse_tpu_torch.crypto.bls import gpu_backend
     from lighthouse_tpu_torch.profile_state_root import profiled
 
     cpp, gpu, sets = setup["cpp"], setup["gpu"], setup["sets"]
@@ -642,37 +735,15 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
           f"parse {parse_s * 1e3:.1f} ms + prepare {prep_s * 1e3:.1f} ms; "
           f"C++ host backend {cpp_s:.2f} s, agrees [{card}]", flush=True)
 
-    mid = N_SETS // 2
-    s = sets[mid]
-    xx = 1
-    while True:
-        yy = (Fp2(xx, 0) * Fp2(xx, 0) * Fp2(xx, 0) + B_G2).sqrt()
-        if yy is not None:
-            break
-        xx += 1
-    outside = g2_compress(G2Point(Fp2(xx, 0), yy))
-    negatives = {
-        "one message changed": SignatureSet(s.signature, s.pubkeys,
-                                            b"\xee" * 32),
-        "signature of another message": SignatureSet(
-            sets[mid + 1].signature, s.pubkeys, s.message),
-        "infinity signature": SignatureSet(bytes([0xC0]) + bytes(95),
-                                           s.pubkeys, s.message),
-        "G2 point outside the subgroup": SignatureSet(outside, s.pubkeys,
-                                                      s.message),
-        "malformed bytes": SignatureSet(s.signature[:95], s.pubkeys,
-                                        s.message),
-    }
-    neg_s = {}
-    for label, bad_set in negatives.items():
-        bad = list(sets)
-        bad[mid] = bad_set
+    negatives = negative_batches(sets)
+    neg_s, neg_cpp = {}, {}
+    for label, bad in negatives.items():
         t0 = time.perf_counter()
         got = verify(bad)
         neg_s[label] = time.perf_counter() - t0
-        want = cpp.verify_signature_sets(bad)
-        check(got is False and want is False,
-              f"negative batch '{label}': gpu {got}, C++ {want}")
+        neg_cpp[label] = cpp.verify_signature_sets(bad)
+        check(got is False and neg_cpp[label] is False,
+              f"negative batch '{label}': gpu {got}, C++ {neg_cpp[label]}")
     print(f"bls slice: the five negative batches verify False on the card "
           f"and on the C++ backend ({', '.join(f'{l} {t:.3f} s' for l, t in neg_s.items())})",
           flush=True)
@@ -688,7 +759,8 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
     return {"launches": launches, "cold_s": cold_s, "warm_s": warm,
             "warm_median_s": warm_s, "sets_per_s": N_SETS / warm_s,
             "host_parse_s": parse_s, "host_prepare_s": prep_s,
-            "cpp_verify_s": cpp_s, "negative_s": neg_s, "profile": prof,
+            "cpp_verify_s": cpp_s, "negative_s": neg_s,
+            "negative_cpp": neg_cpp, "profile": prof,
             "small_batch_s": small_s, "sign_s": setup["sign_s"],
             "pubkey_warm_s": setup["pubkey_warm_s"]}
 
@@ -777,6 +849,288 @@ def multigpu_phase(bounds: Bounds, setup: dict, card: str):
     return rows, modes, path_modes, {"dryrun": dry, "full_width": full}
 
 
+def mxu_build() -> dict:
+    """Build the mode-1 and mode-2 variants of every kernel that has
+    them, all at once; print the time and each variant's registers, stack
+    and spills."""
+    from lighthouse_tpu_torch import kernels
+    variants = [k.variant(m) for m in (1, 2) for k in kernels.KERNELS.values()
+                if k.mxu_variants]
+    build_s = kernels.build_all(variants)
+    keys = {k.build_key for k in variants}
+    summary = build_summary({key: log for key, log in
+                             kernels.BUILD_LOGS.items() if key in keys})
+    print(f"mxu build: {len(variants)} variants from {len(keys)} libraries "
+          f"in {build_s:.1f} s (nvcc -DLH_FP_MODE=1,2, one process each)",
+          flush=True)
+    for src, entries in summary.items():
+        for e in entries:
+            print(f"mxu build: {src} {e['entry']}: {e.get('registers')} "
+                  f"registers, {e.get('stack')} B stack, "
+                  f"{e.get('spill_stores')}/{e.get('spill_loads')} B spill "
+                  f"stores/loads", flush=True)
+    return {"build_s": build_s, "build": summary}
+
+
+def mxu_kernel_checks(bounds: Bounds, base: BlsKernelCheck,
+                      mxu: int) -> BlsKernelCheck:
+    """Every BLS kernel's mode-``mxu`` variant on the inputs phase 4 gave
+    each kernel (the flagship batch's shapes: 10,240 signature and pubkey
+    lanes, 128 message lanes, 129 Miller pairs), held canonical-exact
+    against phase 4's plain outputs on those inputs, and timed."""
+    c = BlsKernelCheck(bounds, mxu=mxu)
+    for call in base.calls:
+        c.rerun(call)
+    return c
+
+
+def mxu_batch(setup: dict, negative_cpp: dict, mxu: int, card: str) -> dict:
+    """``crypto.bls.verify_signature_sets`` (backend ``gpu``) on the 10k
+    batch under multiply lowering ``mxu``: True, every mode-``mxu``
+    variant of the path launched (and no mode-0 kernel); the warm median
+    of 3, sets/s, the device time by kernel for one call; the five
+    negative batches False, as the C++ backend's verdicts of phase 4."""
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch.bls_batch import N_SETS
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.profile_state_root import profiled
+
+    sets, verify = setup["sets"], bls.verify_signature_sets
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    ok = verify(sets)
+    cold_s = time.perf_counter() - t0
+    launches = {k.variant(mxu).name: k.variant(mxu).launches
+                for k in kernels.BLS_KERNELS}
+    mode0 = {k.name: k.launches for k in kernels.BLS_KERNELS if k.launches}
+    check(ok is True, f"the 10,000-set batch did not verify under mode {mxu}")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the mode-{mxu} "
+                         f"BLS path")
+    check(not mode0, f"mode-0 kernels launched under mode {mxu}: {mode0}")
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        check(verify(sets) is True, f"warm call failed under mode {mxu}")
+        warm.append(time.perf_counter() - t0)
+    warm_s = statistics.median(warm)
+    prof = profiled(lambda: check(verify(sets) is True,
+                                  "profiled call failed"))
+    neg_s = {}
+    for label, bad in negative_batches(sets).items():
+        t0 = time.perf_counter()
+        got = verify(bad)
+        neg_s[label] = time.perf_counter() - t0
+        check(got is False and negative_cpp[label] is False,
+              f"mode {mxu} negative batch '{label}': gpu {got}, C++ "
+              f"{negative_cpp[label]}")
+    print(f"mxu{mxu} batch: {N_SETS} sets verify True, first call "
+          f"{cold_s:.3f} s, warm {[round(w, 4) for w in warm]} s, median "
+          f"{warm_s * 1e3:.1f} ms = {N_SETS / warm_s:.0f} sets/s; five "
+          f"negatives False as on the C++ backend [{card}]", flush=True)
+    print(f"mxu{mxu} batch: launches {launches}", flush=True)
+    print(f"mxu{mxu} batch: under the profiler {prof['wall_ms']:.1f} ms "
+          f"wall, device busy {prof['device_busy_ms']:.1f} ms "
+          f"({100 * prof['device_busy_share']:.1f} %), by name "
+          f"{prof['device_ms_by_name']}", flush=True)
+    return {"launches": launches, "cold_s": cold_s, "warm_s": warm,
+            "warm_median_s": warm_s, "sets_per_s": N_SETS / warm_s,
+            "negative_s": neg_s, "profile": prof}
+
+
+def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
+    """``sha256_messages`` (against hashlib at the JAX test's lengths;
+    driven and timed at 2^20 messages of 200 bytes, 4 blocks) and
+    ``fp12_pow_const`` (1,024 lanes, exponent |x|, under each multiply
+    lowering), each against its plain version on the same inputs; and
+    ``reduce_wide_mod_p`` (three fp_ops launches) on 10,240 rows under
+    each lowering. Counts are set to 0 before each entry point is driven
+    and read after it; the checks and timings come after."""
+    import hashlib
+
+    import torch
+
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch.ops import bigint as bi
+    from lighthouse_tpu_torch.ops import bls12_381 as k
+    from lighthouse_tpu_torch.ops import bls_cost as cost
+    from lighthouse_tpu_torch.ops import sha256 as sh
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(404)
+    rows, report = [], {}
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, bound):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"lighthouse_tpu_torch/csrc/{source}",
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": None})
+
+    for length in (0, 1, 55, 56, 64, 100, 200):
+        msgs = rng.integers(0, 256, size=(4, length), dtype=np.uint8)
+        got = sh.tensor_to_words(sh.sha256_messages(
+            sh.words_to_tensor(sh.pad_messages(msgs), dev)))
+        for i in range(4):
+            check(sh.words_to_chunks(got[i]) ==
+                  hashlib.sha256(msgs[i].tobytes()).digest(),
+                  f"sha256_messages != hashlib at {length} bytes")
+    n, length = 1 << 20, 200
+    msgs = rng.integers(0, 256, size=(n, length), dtype=np.uint8)
+    words = sh.words_to_tensor(sh.pad_messages(msgs), dev)
+    nblocks = int(words.shape[1])
+    kernels.reset_counts()
+    got = sh.sha256_messages(words)
+    torch.cuda.synchronize()
+    launches = kernels.SHA256_MESSAGES.launches
+    want, plain_ms = timed(lambda: sh._sha256_messages_plain(words))
+    err = max_abs_err(got, want)
+    check(err == 0, f"sha256_messages != plain (max_abs_err {err})")
+    for i in (0, n - 1):
+        check(sh.words_to_chunks(sh.tensor_to_words(got[i])) ==
+              hashlib.sha256(msgs[i].tobytes()).digest(),
+              "sha256_messages != hashlib at 2^20 messages")
+    ms = time_cuda(lambda: sh.sha256_messages(words), 10)
+    bound = bounds(n * (nblocks * 64 + 32),
+                   n * nblocks * sh.SHA256_COMPRESS_INT_OPS)
+    print(f"kernel sha256_messages: ok bit-exact and equal to hashlib, "
+          f"{n} messages of {length} bytes ({nblocks} blocks) {ms:.4f} ms "
+          f"(plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by "
+          f"{bound[1]}) [{card}]", flush=True)
+    row("sha256_messages", "sha256_messages.cu",
+        "lighthouse_tpu/ops/sha256.py:211", launches, err, ms, plain_ms,
+        bound)
+    del msgs, words, got, want
+
+    lanes, e = 1024, k._X_ABS
+    vals = [int.from_bytes(rng.bytes(48), "little") % bi.P_INT
+            for _ in range(lanes * 12)]
+    f = torch.from_numpy(k.fp_encode(vals).reshape(lanes, 2, 3, 2,
+                                                   bi.NLIMBS)).to(dev)
+    wide_vals = [int.from_bytes(rng.bytes(96), "little")
+                 for _ in range(10240)]
+    mask = (1 << 384) - 1
+    wide = torch.from_numpy(np.concatenate(
+        [bi.ints_to_limbs([v & mask for v in wide_vals]),
+         bi.ints_to_limbs([v >> 384 for v in wide_vals])], axis=1)).to(dev)
+    r2, r3 = bi.const(bi.R2_LIMBS, wide), bi.const(bi.R3_LIMBS, wide)
+
+    def wide_plain(w):
+        lo, hi = w[:, :bi.NLIMBS], w[:, bi.NLIMBS:]
+        return bi._add_mod_plain(bi._mont_mul_plain(lo, r2),
+                                 bi._mont_mul_plain(hi, r3))
+
+    prev = bi.mxu_mode()
+    try:
+        for mxu in (0, 1, 2):
+            bi.set_mxu_mode(mxu)
+            kern = kernels.FP12_POW.variant(mxu)
+            kernels.reset_counts()
+            got = k.fp12_pow_const(f, e)
+            torch.cuda.synchronize()
+            launches = kern.launches
+            want, plain_ms = timed(lambda: k._fp12_pow_const_plain(f, e))
+            err = field_err(got, want)
+            check(err == 0, f"{kern.name} != plain (max_abs_err {err})")
+            ms = time_cuda(lambda: k.fp12_pow_const(f, e), 3)
+            muls = cost.fp12_pow(lanes, e)
+            bound = bounds(2 * f.numel() * 4, muls * cost.FP_MUL_INT_OPS)
+            alg_ms = bounds(2 * f.numel() * 4,
+                            muls * cost.fp_mul_pipe_ops(mxu)["issue"])[0]
+            report[f"{kern.name}_algorithm_bound_ms"] = alg_ms
+            print(f"kernel {kern.name}: ok canonical-exact, {lanes} lanes, "
+                  f"exponent |x|, {ms:.4f} ms (plain {plain_ms:.1f} ms, "
+                  f"bound {bound[0]:.4f} ms by {bound[1]}; the lowering's "
+                  f"own issue count: {alg_ms:.4f} ms) [{card}]", flush=True)
+            row(kern.name, "bls/fp12_pow.cu",
+                "lighthouse_tpu/ops/bls12_381.py:337", launches, err, ms,
+                plain_ms, bound)
+
+            kernels.reset_counts()
+            got = bi.reduce_wide_mod_p(wide)
+            torch.cuda.synchronize()
+            fp_launches = kernels.FP_OPS.variant(mxu).launches
+            want, plain_ms = timed(lambda: wide_plain(wide))
+            err = field_err(got, want)
+            check(err == 0 and fp_launches == 3,
+                  f"reduce_wide_mod_p under mode {mxu}: max_abs_err {err}, "
+                  f"{fp_launches} fp_ops launches")
+            ms = time_cuda(lambda: bi.reduce_wide_mod_p(wide), 10)
+            # its three launches: each reads two operands, writes one
+            n_bytes, muls = 3 * 3 * got.numel() * 4, 2 * len(wide_vals)
+            bound = bounds(n_bytes, muls * cost.FP_MUL_INT_OPS)
+            alg_ms = bounds(n_bytes,
+                            muls * cost.fp_mul_pipe_ops(mxu)["issue"])[0]
+            report[f"reduce_wide_mxu{mxu}"] = {
+                "rows": len(wide_vals), "fp_ops_launches": fp_launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "algorithm_bound_ms": alg_ms}
+            print(f"reduce_wide_mod_p mode {mxu}: ok canonical-exact, "
+                  f"{len(wide_vals)} rows, {fp_launches} fp_ops launches, "
+                  f"{ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}; the lowering's own "
+                  f"issue count: {alg_ms:.4f} ms) [{card}]", flush=True)
+    finally:
+        bi.set_mxu_mode(prev)
+    return rows, report
+
+
+def mxu_phase(bounds: Bounds, setup: dict, base: BlsKernelCheck,
+              negative_cpp: dict, card: str
+              ) -> tuple[list[dict], dict, dict]:
+    """Phase 6: the multiply lowerings 1 and 2 (``LHTPU_BIGINT_MXU``).
+    Builds their variants; the ``mxu`` bench (``measure.mont_mul_modes``
+    at B = 65,536, K = 32); under each mode every BLS kernel variant on
+    the inputs phase 4 gave its kernel, against phase 4's plain outputs
+    (``base``, the flagship shapes), and the 10k batch through
+    ``verify_signature_sets``; then ``sha256_messages``,
+    ``fp12_pow_const`` and ``reduce_wide_mod_p``. The mode is 0 again
+    after it, also on a failure. Returns the JSON rows, their modes and
+    the report."""
+    from lighthouse_tpu_torch import measure
+    from lighthouse_tpu_torch.ops import bigint as bi
+
+    t_phase = time.perf_counter()
+    rows, modes, report = [], {}, {}
+    try:
+        report.update(mxu_build())
+        mm = measure.mont_mul_modes(batch=1 << 16, k=32)
+        check(mm["modes_agree"], "the three modes' mont_mul chains differ "
+                                 "as field values")
+        for mode, err in mm["max_abs_err_vs_plain"].items():
+            check(err == 0, f"mode {mode} mont_mul chain != its plain "
+                            f"chain (max_abs_err {err})")
+        print(f"mxu bench: mont_mul/s at B = {mm['batch']}, K = {mm['k']} "
+              f"(best of 3): " + ", ".join(
+                  f"mode {m} {v:.4g}" for m, v in mm["per_sec"].items())
+              + f"; max(mode 1, mode 2) / mode 0 = "
+              f"{mm['speedup_vs_mode0']:.4f}; the three modes' chains "
+              f"equal as field values, each equal to its plain chain on "
+              f"the first 1,024 lanes [{card}]", flush=True)
+        report["mont_mul_modes"] = mm
+        for mxu in (1, 2):
+            bi.set_mxu_mode(mxu)
+            c = mxu_kernel_checks(bounds, base, mxu)
+            batch = mxu_batch(setup, negative_cpp, mxu, card)
+            bi.set_mxu_mode(0)
+            for row in c.rows:
+                row["launches"] = batch["launches"][row["name"]]
+            rows += c.rows
+            modes.update(c.modes)
+            report[f"batch_mxu{mxu}"] = batch
+            report[f"bls_field_muls_mxu{mxu}"] = c.muls
+        new_rows, new_report = new_kernel_rows(bounds, card)
+        rows += new_rows
+        report.update(new_report)
+    finally:
+        bi.set_mxu_mode(0)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"mxu phase: {report['seconds']:.1f} s", flush=True)
+    return rows, modes, report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -836,10 +1190,16 @@ def main(argv=None) -> int:
     rows += par_rows
     modes.update(par_modes)
 
+    # phase 6: the multiply lowerings 1 and 2, and the caller-less kernels
+    mxu_rows, mxu_modes, mxu = mxu_phase(bounds, setup, bls_check,
+                                         bls["negative_cpp"], card_line)
+    rows += mxu_rows
+    modes.update(mxu_modes)
+
     report = {"card": card_line, "sm_clock_max_mhz": sm_clock,
               "build_s": build_s, "build": summary, "kernels": rows,
               "kernel_modes": modes, "bls_field_muls": bls_check.muls,
-              "slice": sl, "bls": bls, "multigpu": multigpu}
+              "slice": sl, "bls": bls, "multigpu": multigpu, "mxu": mxu}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -15,8 +15,40 @@
 //
 // What bounds it: integer multiply-adds (2 x 144 32x32->64-bit products a
 // multiply). Simple first: no PTX carry chains, no sharing across threads.
+//
+// LH_FP_MODE (0, 1 or 2; kernels.py builds one library per mode) picks
+// the lowering of fp_mul, the port of the JAX package's LHTPU_BIGINT_MXU
+// modes (lighthouse_tpu/ops/bigint.py:319-356 mont_mul with :243
+// _digits6, :251 _from_digits6, :264 toeplitz6, :281 _mul_columns_digits,
+// :296 _mul_const_digits). Mode 0 is the CIOS product above. Modes 1 and 2
+// run REDC in 6-bit digit space: an Fp is 64 digits below 64, packed four
+// to a register (byte j of d[r] is digit 4r + j), and a column of a
+// product is a sum of __dp4a's (four 8-bit products added into a 32-bit
+// sum), product scanning with the carry taken as each column closes:
+//   t = a*b (mode 2: 144 word products; mode 1: 128 digit columns);
+//   m = (t mod R) * N' mod R (64 digit columns: m is exact mod R, where
+//       the JAX package keeps loose limbs, so the representative differs);
+//   (t + m*p) / R: 128 digit columns; the low 64 are zero by construction.
+// t < 4p^2 and m < R give (t + m p)/R < 2p (4p < R): [0, 2p) is kept.
+// The constants' digits are read reversed and packed four for each
+// alignment (LH_NPRIME_DREV, LH_P_DREV in consts.cuh): every thread reads
+// the same address. Mode 1 builds the reversed packs of b with
+// __byte_perm. Digits are below 64, so the signed and unsigned __dp4a
+// agree; the unsigned one is used, as every sum here is nonnegative.
+// What bounds modes 1 and 2: the FMA pipe's issue of 2,688 __dp4a's
+// (mode 1), or 1,616 __dp4a's and 288 word-product halves (mode 2),
+// beside 899 / 576 digit, carry and pack ops on the ALU pipe
+// (ops/bls_cost.py fp_mul_pipe_ops), against CIOS's 288 multiply-adds;
+// each column's __dp4a's are one dependent chain.
+// No tensor cores yet: a warp-cooperative mma.sync/wgmma s8 REDC needs
+// all 32 lanes converged at every product, which the stage kernels'
+// per-lane branches (scalar bits, masks, square roots) do not give.
 #pragma once
 #include <stdint.h>
+
+#ifndef LH_FP_MODE
+#define LH_FP_MODE 0
+#endif
 
 #define LH_DEV __device__ __forceinline__
 #define LH_NOINL __device__ __noinline__
@@ -146,6 +178,7 @@ LH_DEV bool fp_eq(const Fp& a, const Fp& b) {
     return acc == 0;
 }
 
+#if LH_FP_MODE == 0
 // CIOS Montgomery product a*b*2^-384 mod p, inputs and output in [0, 2p)
 LH_NOINL void fp_mul(Fp& r, const Fp& a, const Fp& b) {
     uint32_t t[LH_W + 2];
@@ -177,6 +210,130 @@ LH_NOINL void fp_mul(Fp& r, const Fp& a, const Fp& b) {
 #pragma unroll
     for (int j = 0; j < LH_W; ++j) r.w[j] = t[j];
 }
+#else
+#define LH_DIG 64          // 6-bit digits of an Fp
+#define LH_DREG 16         // registers of packed digits of an Fp
+#define LH_DREV 67         // reversed packs of a constant (alignments 0..66)
+
+// 12 words -> 64 digits, packed: byte j of d[r] is digit 4r + j
+LH_DEV void fp_digits(uint32_t* d, const uint32_t* w) {
+#pragma unroll
+    for (int r = 0; r < LH_DREG; ++r) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int bit = 6 * (4 * r + j), wi = bit >> 5, sh = bit & 31;
+            uint32_t x = w[wi] >> sh;
+            if (sh > 26 && wi + 1 < LH_W) x |= w[wi + 1] << (32 - sh);
+            v |= (x & 63u) << (8 * j);
+        }
+        d[r] = v;
+    }
+}
+
+// digits s, s-1, s-2, s-3 of the packed d (zero outside 0..63), in bytes
+// 0..3: the partner of d'[r] in column s + 4r
+LH_DEV uint32_t digits_rev(const uint32_t* d, int s) {
+    const int t = s >> 2;
+    const uint32_t hi = t < LH_DREG ? d[t] : 0u;
+    const uint32_t lo = t > 0 ? d[t - 1] : 0u;
+    return __byte_perm(lo, hi, 0x1234u + 0x1111u * (uint32_t)(s & 3));
+}
+
+LH_DEV uint32_t digit_at(const uint32_t* d, int k) {
+    return (d[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+}
+
+// Montgomery product a*b*2^-384 mod p in 6-bit digit space (modes 1, 2),
+// inputs and output in [0, 2p)
+LH_NOINL void fp_mul(Fp& r, const Fp& a, const Fp& b) {
+    uint32_t t[2 * LH_DREG], m[LH_DREG];
+#pragma unroll
+    for (int i = 0; i < 2 * LH_DREG; ++i) t[i] = 0;
+#if LH_FP_MODE == 1
+    // t = a*b: 128 digit columns, b's packs reversed per alignment
+    {
+        uint32_t da[LH_DREG], db[LH_DREG];
+        fp_digits(da, a.w);
+        fp_digits(db, b.w);
+        uint32_t carry = 0;
+#pragma unroll
+        for (int k = 0; k < 2 * LH_DIG; ++k) {
+            uint32_t acc = carry;
+#pragma unroll
+            for (int i = 0; i < LH_DREG; ++i) {
+                const int s = k - 4 * i;
+                if (s >= 0 && s < LH_DREV)
+                    acc = __dp4a(da[i], digits_rev(db, s), acc);
+            }
+            t[k >> 2] |= (acc & 63u) << (8 * (k & 3));
+            carry = acc >> 6;
+        }
+    }
+#else
+    // t = a*b: 144 word products, then its 128 digits
+    {
+        uint32_t w[2 * LH_W];
+#pragma unroll
+        for (int j = 0; j < 2 * LH_W; ++j) w[j] = 0;
+#pragma unroll
+        for (int i = 0; i < LH_W; ++i) {
+            uint64_t c = 0;
+#pragma unroll
+            for (int j = 0; j < LH_W; ++j) {
+                c = (uint64_t)w[i + j] + (uint64_t)a.w[j] * b.w[i]
+                    + (c >> 32);
+                w[i + j] = (uint32_t)c;
+            }
+            w[i + LH_W] = (uint32_t)(c >> 32);
+        }
+        fp_digits(t, w);
+        fp_digits(t + LH_DREG, w + LH_W);
+    }
+#endif
+    // m = (t mod R) N' mod R: the low 64 digit columns, exact
+    {
+#pragma unroll
+        for (int i = 0; i < LH_DREG; ++i) m[i] = 0;
+        uint32_t carry = 0;
+#pragma unroll
+        for (int k = 0; k < LH_DIG; ++k) {
+            uint32_t acc = carry;
+#pragma unroll
+            for (int i = 0; i <= (k >> 2); ++i)
+                acc = __dp4a(t[i], LH_NPRIME_DREV[k - 4 * i], acc);
+            m[k >> 2] |= (acc & 63u) << (8 * (k & 3));
+            carry = acc >> 6;
+        }
+    }
+    // (t + m p) / R: 128 digit columns; the high 64 digits are the result
+    {
+        uint64_t out = 0;
+        int bits = 0, wi = 0;
+        uint32_t carry = 0;
+#pragma unroll
+        for (int k = 0; k < 2 * LH_DIG; ++k) {
+            uint32_t acc = carry + digit_at(t, k);
+#pragma unroll
+            for (int i = 0; i < LH_DREG; ++i) {
+                const int s = k - 4 * i;
+                if (s >= 0 && s < LH_DREV)
+                    acc = __dp4a(m[i], LH_P_DREV[s], acc);
+            }
+            carry = acc >> 6;
+            if (k >= LH_DIG) {
+                out |= (uint64_t)(acc & 63u) << bits;
+                bits += 6;
+                if (bits >= 32) {
+                    r.w[wi++] = (uint32_t)out;
+                    out >>= 32;
+                    bits -= 32;
+                }
+            }
+        }
+    }
+}
+#endif
 
 LH_DEV void fp_sqr(Fp& r, const Fp& a) { fp_mul(r, a, a); }
 

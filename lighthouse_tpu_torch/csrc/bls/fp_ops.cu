@@ -5,8 +5,11 @@
 // normalize, :207 _mul_columns), :376 add_mod and :381 sub_mod: the card
 // check of the field layer every other BLS kernel is built on, and the
 // main path's conversion of lane inputs into the Montgomery domain
-// (mont_from_int_limbs). Bound: integer multiply-adds (a CIOS product is
-// 288 32x32->64-bit multiply-adds) for mul, bytes for add and sub.
+// (mont_from_int_limbs). Built once for each multiply lowering
+// (LH_FP_MODE, fp.cuh): the mode-1 and mode-2 variants replace :319 in
+// those modes. Bound: integer ops (a CIOS product is 288 32x32->64-bit
+// multiply-adds, ops/bls_cost.py FP_MUL_INT_OPS, in every mode) for mul,
+// bytes for add and sub.
 #include "fp.cuh"
 
 LH_DEV void fp_ops_lane(int op, const int32_t* a, const int32_t* b,

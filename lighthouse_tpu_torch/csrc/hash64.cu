@@ -9,9 +9,11 @@
 // (sha256.cuh), the second against the constant padding block. Input rows
 // are read with four 16-byte loads, the digest written with two.
 //
-// Bound: integer operations. One hash64 is ~2.3k 32-bit integer ops
-// (ops/sha256.py HASH64_INT_OPS) against 96 bytes of traffic, so a full
-// level of a 2^20-leaf tree is op-bound on an H100 by a factor of ~5.
+// Bound: integer operations. One hash64 is 1,664 ops that only the
+// integer ALU pipe issues (funnel-shift rotates and LOP3 logic; its 624
+// adds may issue on the FMA pipe beside them: ops/sha256.py
+// HASH64_INT_OPS) against 96 bytes of traffic, so a full level of a
+// 2^20-leaf tree is op-bound on an H100 by a factor of ~3.5.
 // Left for later: subtree-per-CTA builds that hash several levels from
 // shared memory in one launch (a full tree is 21 launches now).
 #include "sha256.cuh"

@@ -91,3 +91,71 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def mont_mul_modes(batch: int = 1 << 16, k: int = 32, reps: int = 3,
+                   check_lanes: int = 1024) -> dict:
+    """Montgomery products a second for each multiply lowering (0, 1, 2):
+    the port of ``bench.py`` ``bench_mont_mul_modes``. ``k`` dependent
+    products ``acc = mont_mul(acc, v)`` over a [batch, 32] batch (``k``
+    launches of ``bigint.mont_mul``), best of ``reps`` on the host clock
+    around a synchronised run, after a warm run that builds the mode's
+    variant. The input is built as the bench builds it (``default_rng(3)``,
+    top limb below 0x1A0, so values below 2p). Also: the first
+    ``check_lanes`` of each mode's chain against the plain chain of the
+    same mode (max_abs_err of the limbs: the plain version takes the JAX
+    steps, the kernel its own, so of canonical values), and whether the
+    three modes' final accumulators are canonically equal. Runs on the
+    port's device; the mode in force before the call is restored, also on
+    a failure."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from .device import resolve
+    from .ops import bigint as bi
+
+    dev = resolve(None)
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 1 << bi.LIMB_BITS, size=(batch, bi.NLIMBS),
+                     dtype=np.int32)
+    x[:, -1] = rng.integers(0, 0x1A0, size=batch)
+    v = torch.from_numpy(x).to(dev)
+    cuda = v.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def chain(mul, lanes):
+        acc = lanes
+        for _ in range(k):
+            acc = mul(acc, lanes)
+        return acc
+
+    per_sec, best_s, err, finals = {}, {}, {}, {}
+    prev = bi.mxu_mode()
+    try:
+        for mode in (0, 1, 2):
+            bi.set_mxu_mode(mode)
+            final = chain(bi.mont_mul, v)            # build, warm
+            sync()
+            best = float("inf")
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                chain(bi.mont_mul, v)
+                sync()
+                best = min(best, time.perf_counter() - t0)
+            per_sec[mode], best_s[mode] = batch * k / best, best
+            head = v[:check_lanes]
+            err[mode] = field_err(final[:check_lanes],
+                                  chain(bi._mont_mul_plain, head))
+            finals[mode] = bi.canonical(final)
+    finally:
+        bi.set_mxu_mode(prev)
+    return {"batch": batch, "k": k, "per_sec": per_sec, "best_s": best_s,
+            "speedup_vs_mode0": max(per_sec[1], per_sec[2]) / per_sec[0],
+            "max_abs_err_vs_plain": err,
+            "modes_agree": all(torch.equal(finals[0], finals[m])
+                               for m in (1, 2))}

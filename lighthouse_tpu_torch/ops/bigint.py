@@ -1,7 +1,7 @@
 """Batched 384-bit modular arithmetic on the card (int32 limb tensors).
 
-The port of ``lighthouse_tpu/ops/bigint.py`` (mode 0): the foundation of
-the BLS12-381 stages (ops/bls12_381.py).
+The port of ``lighthouse_tpu/ops/bigint.py``: the foundation of the
+BLS12-381 stages (ops/bls12_381.py).
 
 - representation: 32 little-endian limbs of 12 bits in int32 ``[..., 32]``,
   the JAX package's interchange layout, so limbs carry across unchanged;
@@ -10,17 +10,27 @@ the BLS12-381 stages (ops/bls12_381.py).
   edges.
 
 ``mont_mul``, ``add_mod`` and ``sub_mod`` are the wrappers of the
-``fp_ops`` CUDA kernel (csrc/bls/fp_ops.cu, CIOS Montgomery over 12
-32-bit words; R is 2^384 in both layouts, so the Montgomery domain is the
-same): a CUDA tensor launches the kernel, a CPU tensor takes the plain
+``fp_ops`` CUDA kernel (csrc/bls/fp_ops.cu; in mode 0 CIOS Montgomery
+over 12 32-bit words; R is 2^384 in both layouts, so the Montgomery
+domain is the same): a CUDA tensor launches the kernel, a CPU tensor takes the plain
 version. The plain versions (``_mont_mul_plain`` and friends) follow the
 JAX algorithm: Toeplitz column products, two carry passes, and
 ``normalize``'s log-depth scan over {-1, 0, 1} carry triples. They run on
 any device: the tower, curve and pairing plain versions are built on
 them, and ``chip_smoke.py`` compares the kernels with them on the card.
 
-The kernel and the plain multiply return different representatives in
-[0, 2p): compare ``canonical`` values, never raw limbs.
+The multiply lowering follows ``LHTPU_BIGINT_MXU`` (0, 1 or 2; read at
+import as the JAX package reads it, switched by ``set_mxu_mode``): modes 1
+and 2 compute the two REDC products, by the constants N' and p, in 6-bit
+digit space (int8 digits, int32 sums), and mode 1 the product a*b too.
+The plain multiply takes the JAX package's steps in every mode and
+returns its representative; every kernel launch builds (at first use) and
+runs the variant of the current mode, whose ``fp_mul`` is the digit-space
+product of ``csrc/bls/fp.cuh``.
+
+The kernels and the plain multiply return different representatives in
+[0, 2p), and so do the modes: compare ``canonical`` values, never raw
+limbs.
 
 ``MONT_MUL_ROWS`` counts the field products the plain ``mont_mul`` (and
 the plain conversion out of the Montgomery domain, a product by 1) has
@@ -30,12 +40,52 @@ to it.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 LIMB_BITS = 12
 NLIMBS = 32
 LIMB_MASK = (1 << LIMB_BITS) - 1
+
+
+# The multiply lowering, as lighthouse_tpu/ops/bigint.py reads it:
+#   0 - schoolbook limb columns (CIOS over 32-bit words in the kernels);
+#   1 - all three products of mont_mul in 6-bit digit space;
+#   2 - the product a*b on limbs, the two REDC products (by N' and p) in
+#       digit space.
+# All modes give the same field values; representatives in [0, 2p) differ.
+def _mxu_mode_from_env() -> int:
+    raw = os.environ.get("LHTPU_BIGINT_MXU", "0") or "0"
+    try:
+        mode = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"LHTPU_BIGINT_MXU must be 0, 1 or 2, got {raw!r}") from None
+    if mode not in (0, 1, 2):
+        raise ValueError(f"LHTPU_BIGINT_MXU must be 0, 1 or 2, got {mode}")
+    return mode
+
+
+_MXU_MODE = _mxu_mode_from_env()
+
+
+def mxu_mode() -> int:
+    return _MXU_MODE
+
+
+def set_mxu_mode(mode: int) -> None:
+    """Switch the multiply lowering (0/1/2). Every later plain product and
+    kernel launch reads it; PyTorch keeps no trace to invalidate. A
+    process spawned later reads only ``LHTPU_BIGINT_MXU``:
+    ``parallel.launch.run_ranks`` passes this mode to its ranks."""
+    global _MXU_MODE
+    mode = int(mode)
+    if mode not in (0, 1, 2):
+        raise ValueError(f"LHTPU_BIGINT_MXU mode must be 0/1/2, got {mode}")
+    _MXU_MODE = mode
+
 
 P_INT = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
 R_INT = 1 << (LIMB_BITS * NLIMBS)          # Montgomery radix 2^384
@@ -277,26 +327,31 @@ def _cond_sub_exact(xp, x, m):
     return xp.where(neg, _normalize(xp, x), d)
 
 
-def _mul_columns(xp, a, b, out_len: int):
-    """Schoolbook column products: out[k] = sum_i a[i] * b[k-i], un-carried,
-    in int64 (the JAX Toeplitz contraction, computed without the gather).
-    Small CPU batches skew the outer product so that row i starts at column
-    i (pad each row to 65, view the first 32*64 entries as [32, 64]) and sum
-    the rows; larger ones, and the card, add 32 shifted row products."""
+def _columns(xp, a, b, n: int):
+    """Schoolbook column products of two n-entry vectors, un-carried, in
+    int64: out[k] = sum_i a[i] * b[k-i], k < 2n (the JAX Toeplitz
+    contraction, computed without the gather). Small CPU batches skew the
+    outer product so that row i starts at column i (pad each row to 2n+1,
+    view the first 2n*n entries as [n, 2n]) and sum the rows; larger ones,
+    and the card, add n shifted row products."""
     a, b = xp.i64(a), xp.i64(b)
     lead = a.shape[:-1]
     rows = int(np.prod(lead)) if lead else 1
     if xp is _NUMPY and rows <= 64:
-        o = np.zeros(lead + (NLIMBS, 2 * NLIMBS + 1), dtype=np.int64)
-        np.multiply(a[..., :, None], b[..., None, :], out=o[..., :NLIMBS])
-        o = o.reshape(lead + (NLIMBS * (2 * NLIMBS + 1),))
-        o = o[..., :NLIMBS * 2 * NLIMBS].reshape(
-            lead + (NLIMBS, 2 * NLIMBS))
-        return xp.sum(o, -2)[..., :out_len]
-    out = xp.zeros(lead + (2 * NLIMBS,), a)
-    for i in range(NLIMBS):
-        out[..., i:i + NLIMBS] += a[..., i:i + 1] * b
-    return out[..., :out_len]
+        o = np.zeros(lead + (n, 2 * n + 1), dtype=np.int64)
+        np.multiply(a[..., :, None], b[..., None, :], out=o[..., :n])
+        o = o.reshape(lead + (n * (2 * n + 1),))
+        o = o[..., :2 * n * n].reshape(lead + (n, 2 * n))
+        return xp.sum(o, -2)
+    out = xp.zeros(lead + (2 * n,), a)
+    for i in range(n):
+        out[..., i:i + n] += a[..., i:i + 1] * b
+    return out
+
+
+def _mul_columns(xp, a, b, out_len: int):
+    """Limb column products: out[k] = sum_i a[i] * b[k-i], un-carried."""
+    return _columns(xp, a, b, NLIMBS)[..., :out_len]
 
 
 def _toeplitz(limbs: np.ndarray, out_len: int) -> np.ndarray:
@@ -314,22 +369,97 @@ _P_T = _toeplitz(P_LIMBS, 2 * NLIMBS)             # full product
 
 
 def _mul_const(xp, x, t: np.ndarray):
-    """Column products of x with a shared constant (its Toeplitz matrix)."""
+    """Column products of x with a shared constant (its float64 Toeplitz
+    matrix)."""
     tt = xp.const(t, x)
     if xp is _NUMPY:
         return np.rint(x.astype(np.float64) @ tt).astype(np.int64)
     return torch.round(x.to(torch.float64) @ tt).to(torch.int64)
 
 
+# --- 6-bit digit space (modes 1 and 2), as the JAX package's -------------
+#
+# Each 12-bit limb splits into two 6-bit digits, so a field element is 64
+# little-endian digits; limbs up to 2^13 - 1 give int8-safe digits (lo <=
+# 63, hi <= 127). Digit products summed over <= 64 columns stay < 2^21;
+# merged back to limb columns (even + (odd << 6)) < 2^27.
+
+NDIGITS = 2 * NLIMBS
+DIGIT_BITS = LIMB_BITS // 2
+DIGIT_MASK = (1 << DIGIT_BITS) - 1
+
+
+def _digits6(xp, x):
+    """[..., 32] limbs (in [0, 2^13)) -> [..., 64] digits (int64)."""
+    x = xp.i64(x)
+    out = xp.zeros(x.shape[:-1] + (NDIGITS,), x)
+    out[..., 0::2] = x & DIGIT_MASK
+    out[..., 1::2] = x >> DIGIT_BITS
+    return out
+
+
+def _from_digits6(cols):
+    """Un-carried digit columns [..., 2L] -> limb columns [..., L]."""
+    return cols[..., 0::2] + (cols[..., 1::2] << DIGIT_BITS)
+
+
+def _digits6_host(limbs: np.ndarray) -> np.ndarray:
+    out = np.zeros(NDIGITS, dtype=np.int64)
+    for i, l in enumerate(np.asarray(limbs, dtype=np.int64)):
+        out[2 * i] = l & DIGIT_MASK
+        out[2 * i + 1] = l >> DIGIT_BITS
+    return out
+
+
+def toeplitz6(limbs: np.ndarray, out_digits: int) -> np.ndarray:
+    """Constant-operand digit Toeplitz matrix T[i, k] = digit[k-i]: the
+    column product with the constant c is x_digits @ T."""
+    d = _digits6_host(limbs)
+    assert int(d.max()) <= DIGIT_MASK  # constants are canonical
+    T = np.zeros((NDIGITS, out_digits), dtype=np.int8)
+    for i in range(NDIGITS):
+        hi = min(out_digits, i + NDIGITS)
+        T[i, i:hi] = d[:hi - i]
+    return T
+
+
+_NPRIME_T6 = toeplitz6(NPRIME_LIMBS, NDIGITS)           # low product, mod R
+_P_T6 = toeplitz6(P_LIMBS, 2 * NDIGITS)                 # full product
+#: float64 copies for the plain products (every sum is an integer < 2^21)
+_T6_F64 = {id(t): t.astype(np.float64) for t in (_NPRIME_T6, _P_T6)}
+
+
+def _mul_columns_digits(xp, a, b, out_len: int):
+    """Bilinear schoolbook columns in digit space -> limb columns."""
+    cols = _columns(xp, _digits6(xp, a), _digits6(xp, b), NDIGITS)
+    return _from_digits6(cols[..., :2 * out_len])
+
+
+def _mul_const_digits(xp, x, t: np.ndarray):
+    """Shared-constant product: the digits times a Toeplitz constant
+    (``_NPRIME_T6`` or ``_P_T6``)."""
+    return _from_digits6(_mul_const(xp, _digits6(xp, x), _T6_F64[id(t)]))
+
+
 def _mont_mul_limbs(xp, a, b):
     """Montgomery product a*b*R^-1 mod p, inputs/outputs in [0, 2p): the
-    JAX mode-0 REDC with one exact normalize (t and m need only bounded
-    limbs)."""
-    t = _carry_pass(xp, _carry_pass(xp, _mul_columns(xp, a, b, 2 * NLIMBS)))
-    m = _carry_pass(xp, _carry_pass(xp, _mul_const(xp, t[..., :NLIMBS],
-                                                   _NPRIME_T)))
+    JAX REDC of the current mode with one exact normalize (t and m need
+    only bounded limbs). The N' product is truncated at 32 limb columns in
+    mode 0 and at 64 digit columns in modes 1 and 2: two values of m
+    congruent mod R, hence two representatives of one field value."""
+    mode = _MXU_MODE
+    if mode == 1:
+        t_cols = _mul_columns_digits(xp, a, b, 2 * NLIMBS)
+    else:
+        t_cols = _mul_columns(xp, a, b, 2 * NLIMBS)
+    t = _carry_pass(xp, _carry_pass(xp, t_cols))
+    if mode:
+        m_cols = _mul_const_digits(xp, t[..., :NLIMBS], _NPRIME_T6)
+    else:
+        m_cols = _mul_const(xp, t[..., :NLIMBS], _NPRIME_T)
+    m = _carry_pass(xp, _carry_pass(xp, m_cols))
     m[..., -1] &= LIMB_MASK                         # value mod R
-    mp = _mul_const(xp, m, _P_T)
+    mp = _mul_const_digits(xp, m, _P_T6) if mode else _mul_const(xp, m, _P_T)
     return xp.i32(_normalize(xp, t + mp)[..., NLIMBS:])
 
 

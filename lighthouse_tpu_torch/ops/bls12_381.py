@@ -21,7 +21,8 @@ Three layers:
 - the stage wrappers (``g2_decompress_batch``, ``g2_in_subgroup_batch``,
   ``hash_to_g2_batch_from_u``, ``g1/g2_scalar_mul``, ``g1_segment_sum``,
   ``g2_sum``, ``jacobian_to_affine_fp{,2}``, ``miller_loop_batch``,
-  ``fp12_product``, ``final_exponentiation``, ``pairing_check_batch``): a
+  ``fp12_product``, ``final_exponentiation``, ``pairing_check_batch``,
+  ``fp12_pow_const``): a
   CUDA tensor launches the stage's kernel (csrc/bls/*.cu), a CPU tensor
   takes the plain version.
 
@@ -392,13 +393,21 @@ def _bits(exponent: int) -> list[int]:
     return [int(b) for b in bin(exponent)[2:]]
 
 
-def fp_pow_const(a, exponent: int):
+def _pow_const(a, exponent: int, square, mul):
+    """a^exponent from a, over the bits after the leading one: square,
+    then multiply by a where the bit is set (exponent 0 gives a, as the
+    JAX scans do; the exponent is one constant for all lanes, so the unset
+    bits skip the product the JAX scans compute and discard)."""
     out = a
     for bit in _bits(exponent)[1:]:
-        out = fp_mul(out, out)
+        out = square(out)
         if bit:
-            out = fp_mul(out, a)
+            out = mul(out, a)
     return out
+
+
+def fp_pow_const(a, exponent: int):
+    return _pow_const(a, exponent, lambda x: fp_mul(x, x), fp_mul)
 
 
 def fp_inv(a):
@@ -437,13 +446,13 @@ def fp12_inv(a):
     return _f12(ot[..., 0, :, :, :], fp6_neg(ot[..., 1, :, :, :]))
 
 
+def _fp12_pow_const_plain(f, exponent: int):
+    """f^exponent as the JAX ``fp12_pow_const`` scan."""
+    return _pow_const(f, exponent, fp12_square, fp12_mul)
+
+
 def fp2_pow_const(a, exponent: int):
-    out = a
-    for bit in _bits(exponent)[1:]:
-        out = fp2_square(out)
-        if bit:
-            out = fp2_mul(out, a)
-    return out
+    return _pow_const(a, exponent, fp2_square, fp2_mul)
 
 
 # ---------------------------------------------------------------------------
@@ -1228,6 +1237,24 @@ def final_exponentiation(f):
     if _on_cpu(f):
         return _final_exponentiation_plain(f)
     return _final_exp_kernel(1, f[None])[0]
+
+
+def fp12_pow_const(f, exponent: int):
+    """f^exponent for a constant exponent, elementwise over Fp12 values
+    [n, 2, 3, 2, 32] (exponent 0 gives f, as the JAX scan does)."""
+    if _on_cpu(f):
+        return _fp12_pow_const_plain(f, exponent)
+    from .. import kernels
+    n = f.shape[0]
+    f = _arg(f, "f", (n, 2, 3, 2, bi.NLIMBS))
+    bits = torch.tensor(_bits(exponent)[1:] or [0], dtype=torch.int32,
+                        device=f.device)
+    nbits = len(_bits(exponent)) - 1
+    out = _empty(f.shape, f)
+    if n:
+        kernels.FP12_POW.launch(f.data_ptr(), bits.data_ptr(), nbits,
+                                out.data_ptr(), n, _stream(f))
+    return out
 
 
 def pairing_check_batch(px, py, qx, qy, mask=None) -> bool:

@@ -44,6 +44,21 @@ def _table(name: str, dims: tuple, words: list[list[int]]) -> str:
     return f"__constant__ uint32_t {name}{shape}[12] = {{\n    {body}}};"
 
 
+def _digits_rev(v: int) -> list[int]:
+    """The 6-bit digits of v reversed and packed for each alignment s in
+    0..66: byte j of word s is digit s - j (zero outside 0..63)."""
+    d = [(v >> (6 * i)) & 63 for i in range(bi.NDIGITS)]
+    return [sum((d[s - j] if 0 <= s - j < bi.NDIGITS else 0) << (8 * j)
+                for j in range(4)) for s in range(bi.NDIGITS + 3)]
+
+
+def _packs(name: str, words: list[int]) -> str:
+    rows = [", ".join(f"0x{w:08x}u" for w in words[i:i + 6])
+            for i in range(0, len(words), 6)]
+    body = ",\n    ".join(rows)
+    return f"__constant__ uint32_t {name}[{len(words)}] = {{\n    {body}}};"
+
+
 def _limb_words(arr) -> list[int]:
     return _words(bi.from_limbs(arr))
 
@@ -67,6 +82,10 @@ def render() -> str:
         _fp("LH_2P", _words(2 * P)),
         _fp("LH_ONE", _mont(1)),
         _fp("LH_HALF_P_INT", _words((P - 1) // 2)),
+        "// digit-space fp_mul (LH_FP_MODE 1, 2): N' = -p^-1 mod 2^384 and p",
+        "// as reversed packs of their 6-bit digits, one for each alignment",
+        _packs("LH_NPRIME_DREV", _digits_rev(bi.NPRIME)),
+        _packs("LH_P_DREV", _digits_rev(P)),
         "// exponents (integers, read MSB first)",
         _fp("LH_EXP_INV", _words(P - 2)),
         _fp("LH_EXP_SQRT", _words((P - 3) // 4)),

@@ -68,7 +68,47 @@ FINAL_EXP_THREADS = 64
 #: integer ops of one 12-word CIOS Montgomery product: 288 32x32->64-bit
 #: multiply-adds (144 for a*b, 144 for m*p), each a low and a high half.
 #: Additions and carries are left out, so a bound stays a lower bound.
+#: The need of the function, so the bound of every multiply lowering.
 FP_MUL_INT_OPS = 2 * 288
+
+
+def _dp4a(columns: int, packs: int) -> int:
+    """__dp4a's of a digit product: columns k < ``columns``, register i of
+    the left operand (digits 4i..4i+3), wherever its partner pack
+    k - 4i lies in 0..packs-1 (csrc/bls/fp.cuh)."""
+    return sum(1 for k in range(columns) for i in range(16)
+               if 0 <= k - 4 * i < packs)
+
+
+def fp_mul_pipe_ops(mxu: int) -> dict[str, int]:
+    """Integer ops of one field multiply as the kernels built for multiply
+    lowering ``mxu`` issue it (csrc/bls/fp.cuh), by pipe: ``fma`` the
+    word multiply-adds (IMAD, a low and a high half each) and the
+    __dp4a's, ``alu`` the digit splits off a word (one each), a closed
+    column of t and m (its digit and its carry), a column of the last
+    product (its carry and the t digit it reads), an output digit packed,
+    and in mode 1 one __byte_perm a reversed pack of b. ``issue`` is what
+    bounds one thread's multiply at the 64-lane INT32 rate: the two pipes
+    issue side by side, and all of the ops share the SM's issue slots (4
+    schedulers x 32 lanes), so it is the largest of the two pipes' counts
+    and half their sum. Carry adds inside the sums are left out, and
+    mode 0's additions too: a lower bound of the lowering's own cost.
+
+    This describes the algorithm, not the function: a bound (``chip_smoke``)
+    charges every lowering the function's need, FP_MUL_INT_OPS."""
+    if mxu == 0:
+        fma, alu = FP_MUL_INT_OPS, 0
+    elif mxu in (1, 2):
+        m_fma, m_alu = _dp4a(64, 64), 2 * 64                 # m = t N' mod R
+        r_fma, r_alu = _dp4a(128, 67), 2 * 128 + 64          # (t + m p) / R
+        if mxu == 1:
+            ab_fma, ab_alu = _dp4a(128, 67), 2 * 64 + 67 + 2 * 128
+        else:
+            ab_fma, ab_alu = 2 * 144, 128
+        fma, alu = ab_fma + m_fma + r_fma, ab_alu + m_alu + r_alu
+    else:
+        raise ValueError(f"no multiply lowering {mxu}")
+    return {"fma": fma, "alu": alu, "issue": max(fma, alu, -(-(fma + alu) // 2))}
 
 
 def scalar_mul_const(scalar: int, degree: int) -> int:
@@ -136,6 +176,12 @@ def affine(n: int, degree: int) -> int:
 
 def miller_loop(mask) -> int:
     return int(np.count_nonzero(np.asarray(mask)) * MILLER_LANE)
+
+
+def fp12_pow(n: int, exponent: int) -> int:
+    """fp12_pow: a square every bit after the leading one, a product on
+    the set ones, per lane."""
+    return n * _pow(exponent, FP12_SQR, FP12_MUL)
 
 
 def final_exp(n: int, mode: int) -> int:

@@ -14,6 +14,8 @@ beside it:
 
 - ``hash64``: SHA-256 of 64-byte blocks (``hash64.cu``).
 - ``cap_fold``: the serial zero-subtree cap fold (``cap_fold.cu``).
+- ``sha256_messages``: SHA-256 of pre-padded equal-length messages
+  (``sha256_messages.cu``); ``pad_messages`` pads on the host, as in JAX.
 
 A wrapper launches its CUDA kernel for a CUDA tensor, takes the plain version
 for a CPU tensor, and raises on anything else: it never falls back.
@@ -55,13 +57,22 @@ _PAD64 = (0x80000000,) + (0,) * 14 + (512,)
 
 _M32 = 0xFFFFFFFF
 
-#: 32-bit integer operations of one hash64 as csrc/sha256.cuh issues them on
-#: Hopper (three-input LOP3 logic, funnel-shift rotates, three-input IADD3):
-#: a round is 14 (Sigma1 4, ch 1, t1 2, Sigma0 4, maj 1, e 1, a 1), a
-#: schedule word 10 (sigma0 4, sigma1 4, sum 2); the first compression is
-#: 64 rounds + 48 schedule words + 8 feed-forward adds = 1,384, the second
-#: (constant padding block, schedule folded away) 64 rounds + 8 = 904.
-HASH64_INT_OPS = 1384 + 904
+#: 32-bit integer operations of SHA-256 as csrc/sha256.cuh issues them on
+#: Hopper, counted for a lower bound at the INT32 rate (64 lanes/SM/clock):
+#: only the ops that issue on the integer ALU pipe alone, the funnel-shift
+#: rotates and shifts (SHF) and three-input logic (LOP3). A round has 10
+#: (Sigma1 and Sigma0: three SHF and one LOP3 each; ch and maj one LOP3
+#: each), a schedule word 8 (sigma0 and sigma1: two rotates, a shift and a
+#: LOP3 each). The adds (four IADD3 a round, two a schedule word, eight in
+#: the feed-forward; 360 a compression with its schedule, 264 without)
+#: may issue as IMAD on the FMA pipe beside them, and all the ops together
+#: (2,288 a hash64) over the SM's issue rate (four schedulers x 32 lanes a
+#: clock) take less than the ALU-only ops over 64 lanes: so the ALU-only
+#: count is the bound. A compression with its schedule: 64 x 10 + 48 x 8 =
+#: 1,024; the second of hash64 (constant padding block, schedule folded
+#: away): 640.
+SHA256_COMPRESS_INT_OPS = 64 * 10 + 48 * 8
+HASH64_INT_OPS = SHA256_COMPRESS_INT_OPS + 64 * 10
 
 
 # -- host <-> device words ----------------------------------------------------
@@ -198,6 +209,20 @@ def _hash64_plain(blocks: torch.Tensor) -> torch.Tensor:
     return out.clone()
 
 
+def _sha256_messages_plain(msgs: torch.Tensor) -> torch.Tensor:
+    """Plain version of the sha256_messages kernel: int32 [N, B, 16] ->
+    [N, 8], B compressions from the IV."""
+    with torch.inference_mode():
+        x = _u64(msgs)
+        state = [torch.full((x.shape[0],), v, dtype=torch.int64,
+                            device=x.device) for v in _IV]
+        for b in range(x.shape[1]):
+            w = _schedule([x[:, b, i] for i in range(16)])
+            state = _compress_plain(state, [wt + k for wt, k in zip(w, _K)])
+        out = _i32(torch.stack(state, dim=-1).reshape(x.shape[0], 8))
+    return out.clone()
+
+
 def _cap_fold_plain(root: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
     """Plain version of the cap_fold kernel."""
     with torch.inference_mode():
@@ -268,6 +293,39 @@ def cap_fold(root: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
                             int(zeros.shape[0]), out.data_ptr(),
                             kernels.stream_ptr(root.device))
     return out
+
+
+def sha256_messages(msgs: torch.Tensor) -> torch.Tensor:
+    """SHA-256 of a batch of equal-length padded messages: int32 words
+    [N, B, 16] (``pad_messages``) -> [N, 8]."""
+    _check_words(msgs, 16, "sha256_messages")
+    if msgs.ndim != 3:
+        raise ValueError(f"sha256_messages: expected [N, B, 16], got "
+                         f"{tuple(msgs.shape)}")
+    if msgs.device.type == "cpu":
+        return _sha256_messages_plain(msgs)
+    n, nblocks = int(msgs.shape[0]), int(msgs.shape[1])
+    out = torch.empty((n, 8), dtype=torch.int32, device=msgs.device)
+    if n:
+        kernels.SHA256_MESSAGES.launch(msgs.data_ptr(), out.data_ptr(), n,
+                                       nblocks,
+                                       kernels.stream_ptr(msgs.device))
+    return out
+
+
+def pad_messages(msgs: np.ndarray) -> np.ndarray:
+    """Pad a batch of equal-length byte messages u8[N, L] to u32[N, B, 16]
+    (FIPS 180-4: 0x80, zeros, the 64-bit big-endian bit length)."""
+    n, length = msgs.shape
+    bit_len = length * 8
+    total = ((length + 9 + 63) // 64) * 64
+    out = np.zeros((n, total), dtype=np.uint8)
+    out[:, :length] = msgs
+    out[:, length] = 0x80
+    out[:, -8:] = np.frombuffer(
+        np.uint64(bit_len).byteswap().tobytes(), dtype=np.uint8)
+    words = out.reshape(n, total // 64, 16, 4).view(">u4")[..., 0]
+    return words.astype(np.uint32)
 
 
 def hash_pairs(nodes: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ mesh. The port runs one process per card. ``run_ranks`` spawns ``n``
 processes (spawn context: a child starts from a fresh import, never from
 a fork of a process that holds CUDA state), joins them into a
 ``torch.distributed`` group through a ``file://`` store in a fresh
-temporary directory (no TCP port to clash with another run), calls
+temporary directory (no TCP port to clash with another run), sets every
+rank's multiply lowering to the caller's (``ops.bigint.mxu_mode()``: a
+spawned rank would read only ``LHTPU_BIGINT_MXU``), calls
 ``fn(mesh, *args)`` in every rank and returns rank 0's result.
 
 A rank that raises sends its traceback to the parent, which stops the
@@ -35,13 +37,15 @@ class RankFailure(RuntimeError):
     """A rank raised, or died; carries its traceback."""
 
 
-def _rank_main(rank: int, n: int, backend: str, dev: str, init: str,
-               fn, args, results) -> None:
+def _rank_main(rank: int, n: int, backend: str, dev: str, mxu: int,
+               init: str, fn, args, results) -> None:
     try:
         import torch
         import torch.distributed as dist
 
         from .. import device
+        from ..ops.bigint import set_mxu_mode
+        set_mxu_mode(mxu)
         if dev == "cuda":
             torch.cuda.set_device(rank)
         else:
@@ -66,10 +70,12 @@ def run_ranks(fn, n: int, backend: str = "nccl", device: str = "cuda",
     result. ``fn`` and ``args`` must pickle (a module-level function).
     ``device`` "cuda" puts rank r on card r (``torch.cuda.set_device``
     before anything is allocated); "cpu" switches each rank's port
-    device to the CPU. Raises ``RankFailure`` with the first failing
+    device to the CPU. Every rank runs the caller's multiply lowering
+    (``mxu_mode()``). Raises ``RankFailure`` with the first failing
     rank's traceback, or when the run outlasts ``timeout_s``."""
     import torch.multiprocessing as mp
 
+    from ..ops.bigint import mxu_mode
     if device == "cuda":
         import torch
         if torch.cuda.device_count() < n:
@@ -82,8 +88,8 @@ def run_ranks(fn, n: int, backend: str = "nccl", device: str = "cuda",
     with tempfile.TemporaryDirectory(prefix="lh_ranks_") as tmp:
         init = "file://" + os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, n, backend, device, init, fn, args,
-                                   results))
+                             args=(r, n, backend, device, mxu_mode(), init,
+                                   fn, args, results))
                  for r in range(n)]
         for p in procs:
             p.start()

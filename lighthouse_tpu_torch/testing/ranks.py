@@ -20,10 +20,24 @@ def rlc_digests(mesh, sets, lanes: int) -> list[str]:
     return every
 
 
+def mxu_modes(mesh) -> list[int]:
+    """Every rank's multiply lowering (``ops.bigint.mxu_mode()``),
+    gathered in rank order."""
+    import torch.distributed as dist
+
+    from ..ops.bigint import mxu_mode
+    every = [None] * mesh.size
+    dist.all_gather_object(every, mxu_mode(), group=mesh.group)
+    return every
+
+
 def run_checks(mesh, tasks):
-    """``launch.run_tasks``, with one more task kind:
-    ``("rlc_digests", (sets, lanes))`` gives ``rlc_digests``."""
+    """``launch.run_tasks``, with two more task kinds:
+    ``("rlc_digests", (sets, lanes))`` gives ``rlc_digests``, and
+    ``("mxu_modes", None)`` gives ``mxu_modes``."""
     from ..parallel.launch import run_tasks
-    return [rlc_digests(mesh, *arg) if kind == "rlc_digests"
+    probes = {"rlc_digests": lambda arg: rlc_digests(mesh, *arg),
+              "mxu_modes": lambda arg: mxu_modes(mesh)}
+    return [probes[kind](arg) if kind in probes
             else run_tasks(mesh, [(kind, arg)])[0]
             for kind, arg in tasks]

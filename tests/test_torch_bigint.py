@@ -147,3 +147,118 @@ def test_kernel_wrapper_takes_only_card_tensors():
     tbi.mont_mul(a, a)
     assert kernels.FP_OPS.launches == before
     assert torch.equal(tbi.mont_mul(a, a), tbi._mont_mul_plain(a, a))
+
+
+# -- the multiply lowerings (LHTPU_BIGINT_MXU modes 1 and 2) ---------------
+#
+# The JAX side runs its unjitted mont_mul under a patched mode: its
+# set_mxu_mode clears every compiled program of the process.
+
+@pytest.fixture
+def port_mode():
+    """Set the port's lowering for one test; mode 0 again after it."""
+    def set_mode(mode):
+        tbi.set_mxu_mode(mode)
+    yield set_mode
+    tbi.set_mxu_mode(0)
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+def test_mont_mul_modes_match_jax_limb_for_limb(mode, monkeypatch,
+                                                port_mode):
+    """The plain product takes the JAX steps of each mode: the same limbs
+    (hence the same representative) as the JAX mode-n mont_mul, at the
+    edge values and at random ones; the field value is a*b/R."""
+    vals_a, vals_b = _values(11), _values(12)[::-1]
+    a_np, b_np = _jax_limbs(vals_a), _jax_limbs(vals_b)
+    monkeypatch.setattr(jbi, "_MXU_MODE", mode)
+    want = np.asarray(jbi.mont_mul.__wrapped__(a_np, b_np))
+    port_mode(mode)
+    got = tbi.mont_mul(convert.limbs_from_numpy(a_np),
+                       convert.limbs_from_numpy(b_np))
+    np.testing.assert_array_equal(convert.limbs_to_numpy(got), want)
+    for x, y, v in zip(vals_a, vals_b, _ints(got)):
+        assert 0 <= v < 2 * P and v % P == x * y * R_INV % P
+
+
+def test_digits_and_toeplitz_match_jax():
+    """Digit split (loose limbs up to 2^13 - 1), merge and the constant
+    Toeplitz matrices equal the JAX package's."""
+    rng = np.random.default_rng(13)
+    x = rng.integers(0, 1 << 13, size=(N, tbi.NLIMBS)).astype(np.int32)
+    x[0] = (1 << 13) - 1
+    got = tbi._plain(tbi._digits6, convert.limbs_from_numpy(x))
+    want = np.asarray(jbi._digits6(x)).astype(np.int64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    cols = rng.integers(0, 1 << 21, size=(N, 2 * tbi.NDIGITS))
+    np.testing.assert_array_equal(tbi._from_digits6(cols),
+                                  np.asarray(jbi._from_digits6(cols)))
+    for name in ("_NPRIME_T6", "_P_T6"):
+        np.testing.assert_array_equal(getattr(tbi, name),
+                                      getattr(jbi, name))
+    np.testing.assert_array_equal(tbi.toeplitz6(tbi.R2_LIMBS, 96),
+                                  jbi.toeplitz6(jbi.R2_LIMBS, 96))
+    assert (tbi.NDIGITS, tbi.DIGIT_BITS, tbi.DIGIT_MASK) == \
+        (jbi.NDIGITS, jbi.DIGIT_BITS, jbi.DIGIT_MASK)
+
+
+@pytest.mark.parametrize("raw", ["0", "1", "2", "", "x", "3"])
+def test_mxu_env_parsing_matches_jax(raw, monkeypatch):
+    monkeypatch.setenv("LHTPU_BIGINT_MXU", raw)
+    outcomes = []
+    for mod in (jbi, tbi):
+        try:
+            outcomes.append(("mode", mod._mxu_mode_from_env()))
+        except ValueError as e:
+            outcomes.append(("error", str(e)))
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[0][0] == ("mode" if raw in ("0", "1", "2", "")
+                              else "error")
+
+
+def test_set_mxu_mode_switches_plain_and_kernel_variant(port_mode):
+    from lighthouse_tpu_torch import kernels
+    assert tbi.mxu_mode() == 0 and kernels.FP_OPS.current() is \
+        kernels.FP_OPS
+    for mode in (1, 2):
+        port_mode(mode)
+        assert tbi.mxu_mode() == mode
+        k = kernels.FP_OPS.current()
+        assert k is kernels.FP_OPS.variant(mode)
+        assert k.name == f"fp_ops_mxu{mode}"
+        assert f"-DLH_FP_MODE={mode}" in k.flags()
+        assert k.library_path() != kernels.FP_OPS.library_path()
+        assert k.build_key == f"bls/fp_ops.cu@mxu{mode}"
+    with pytest.raises(ValueError):
+        tbi.set_mxu_mode(3)
+    assert tbi.mxu_mode() == 2
+    with pytest.raises(ValueError):
+        kernels.HASH64.variant(1)          # no field multiply inside
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+def test_reduce_wide_and_round_trip_under_modes(mode, port_mode):
+    rng = np.random.default_rng(14)
+    wide_vals = [int.from_bytes(rng.bytes(96), "little") for _ in range(4)]
+    wide_vals[0] = 2**768 - 1
+    w_np = np.stack([jbi.to_limbs(v, 64) for v in wide_vals])
+    port_mode(mode)
+    got = tbi.reduce_wide_mod_p(convert.limbs_from_numpy(w_np))
+    for v, g in zip(wide_vals, _ints(got)):
+        assert 0 <= g < 2 * P and g % P == v * tbi.R_INT % P
+    vals = [v % P for v in _values(15, 8)]
+    x = convert.limbs_from_numpy(_jax_limbs(vals))
+    assert _ints(tbi.mont_to_int_limbs(tbi.mont_from_int_limbs(x))) == vals
+
+
+def test_mont_mul_modes_measure_runs_every_mode_and_restores(port_mode):
+    """measure.mont_mul_modes (the port of bench.py's mxu workload) on the
+    CPU at a tiny batch: all three modes, their results equal as field
+    values, the mode in force before it back after it."""
+    from lighthouse_tpu_torch import measure
+    port_mode(2)
+    got = measure.mont_mul_modes(batch=8, k=2, reps=1, check_lanes=4)
+    assert tbi.mxu_mode() == 2
+    assert got["modes_agree"]
+    assert got["max_abs_err_vs_plain"] == {0: 0, 1: 0, 2: 0}
+    assert set(got["per_sec"]) == {0, 1, 2} and got["k"] == 2

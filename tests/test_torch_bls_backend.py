@@ -111,3 +111,30 @@ def test_module_entry_point_runs_the_gpu_backend(monkeypatch):
     finally:
         bls._current = prev
     assert calls == [2]
+
+
+@pytest.mark.parametrize("mode,corrupt", [(1, False), (2, True)])
+def test_verdicts_under_digit_modes(mode, corrupt):
+    """Under LHTPU_BIGINT_MXU modes 1 and 2 the pipeline gives the mode-0
+    verdicts (those of the Python backends): a valid batch True in mode 1,
+    one wrong message False in mode 2. The pad and pubkey caches are
+    filled under mode 0 first: they hold integers and [0, 2p) Montgomery
+    limbs, valid in every mode."""
+    from lighthouse_tpu_torch.ops import bigint as bi
+    sets = _sets(3)
+    if corrupt:
+        s = sets[1]
+        sets[1] = JaxSignatureSet(s.signature, s.pubkeys, b"\xee" * 32)
+    port_sets = convert.signature_sets_from(sets)
+    gpu = gpu_backend.GpuBackend()
+    assert bi.mxu_mode() == 0
+    gpu_backend._pad_cache()
+    assert gpu_backend.parse_sets(gpu, port_sets) is not None
+    try:
+        bi.set_mxu_mode(mode)
+        got = gpu.verify_signature_sets(port_sets)
+    finally:
+        bi.set_mxu_mode(0)
+    assert got is (not corrupt)
+    assert got == bls.PythonBackend().verify_signature_sets(port_sets)
+    assert got == SIGNER.verify_signature_sets(sets)

@@ -158,6 +158,14 @@ def _from_words(ws: list[int]) -> int:
     return sum(w << (32 * i) for i, w in enumerate(ws))
 
 
+def _digit_packs(v: int) -> list[int]:
+    """v's 64 six-bit digits reversed and packed for alignments 0..66:
+    byte j of pack s is digit s - j (the digit-space fp_mul's constants)."""
+    d = [(v >> (6 * i)) & 63 for i in range(64)]
+    return [sum((d[s - j] if 0 <= s - j < 64 else 0) << (8 * j)
+                for j in range(4)) for s in range(67)]
+
+
 def test_cuda_constants_header_matches_oracle():
     """consts.cuh is render()'s output, and every constant in it is the
     one derived here from the JAX package's oracle (psi's by its defining
@@ -197,6 +205,8 @@ def test_cuda_constants_header_matches_oracle():
         "LH_BP_K1_HI": [(x * x - x - 1) >> 64],
         "LH_BP_K1_LO": [(x * x - x - 1) & (2**64 - 1)],
         "LH_BP_K2": [abs(x - 1)],
+        "LH_NPRIME_DREV": _digit_packs((-pow(P, -1, 2**384)) % 2**384),
+        "LH_P_DREV": _digit_packs(P),
     }
     assert sorted(got) == sorted([*want, "LH_H2C_PSI_CX", "LH_H2C_PSI_CY"])
     for name, vals in want.items():
@@ -415,3 +425,60 @@ def test_stage_wrappers_refuse_mixed_devices():
         tk.g2_in_subgroup_batch(x, x, torch.zeros((2, 2, 32),
                                                   dtype=torch.int32,
                                                   device="meta"))
+
+
+# -- the digit multiply lowerings (modes 1, 2) and fp12_pow_const ----------
+
+def _rand_fp2(seed, n):
+    rng = np.random.default_rng(seed)
+    return [Fp2(int.from_bytes(rng.bytes(48), "little") % P,
+                int.from_bytes(rng.bytes(48), "little") % P)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+def test_digit_modes_through_curve_ops(mode):
+    """The port of tests/test_bls_kernel.py's digit-mode test: under
+    LHTPU_BIGINT_MXU modes 1 and 2 the tower and curve layers (Fp2
+    product and inverse, a G1 scalar multiply and its affine form) equal
+    the oracle, on the plain versions (four and two lanes)."""
+    a, b = _rand_fp2(21, 4), _rand_fp2(22, 4)
+    try:
+        tbi.set_mxu_mode(mode)
+        prod = tk.fp2_mul(_t(tk.fp2_encode(a)), _t(tk.fp2_encode(b)))
+        inv = tk.fp2_inv(_t(tk.fp2_encode(a)))
+        for i in range(4):
+            want = a[i] * b[i]
+            assert tk.fp_decode(prod[i]) == _fp2_ints(want)
+            assert tk.fp_decode(inv[i]) == _fp2_ints(a[i].inv())
+        scalars = [5, 2**61 - 1]
+        x, y = _enc_g1([G1_GENERATOR] * 2)
+        z = _t(np.broadcast_to(tk.FP_ONE, (2, 32)))
+        sx, sy, sz = tk.g1_scalar_mul(x, y, z,
+                                      tk.scalars_to_bits(scalars, 64))
+        ax, ay = tk.jacobian_to_affine_fp(sx, sy, sz)
+        for i, sc in enumerate(scalars):
+            w = G1_GENERATOR.mul(sc).to_affine()
+            assert tk.fp_decode(ax[i]) + tk.fp_decode(ay[i]) == \
+                [int(w[0]), int(w[1])]
+    finally:
+        tbi.set_mxu_mode(0)
+
+
+@pytest.mark.parametrize("exponent", [0b1011, jf.X_PARAM * -1])
+def test_fp12_pow_const_matches_oracle(exponent):
+    """fp12_pow_const (plain version) equals the oracle's Fp12 power on
+    two lanes, at a small exponent and at |x| (the BLS parameter); its
+    field products are bls_cost.fp12_pow's (the plain version, like the
+    kernel, skips the product on unset bits)."""
+    c = _rand_fp2(23, 12)
+    vals = [jo.Fp12(jo.Fp6(*c[6 * i:6 * i + 3]), jo.Fp6(*c[6 * i + 3:6 * i + 6]))
+            for i in range(2)]
+    f = _t(tk.fp_encode([v for e in vals for v in _f12_ints(e)])
+           .reshape(2, 2, 3, 2, 32))
+    got, rows = _rows(tk.fp12_pow_const, f, exponent)
+    assert rows == cost.fp12_pow(2, exponent)
+    for i, e in enumerate(vals):
+        assert tk.fp_decode(got[i]) == _f12_ints(e.pow(exponent))
+    # exponent 0 gives f back, as the JAX scan over no bits does
+    assert torch.equal(tk.fp12_pow_const(f, 0), f)

@@ -289,3 +289,59 @@ def test_hash_to_g2_kernel(cuda_device, n):
     want = k.hash_to_g2_batch_from_u(u0, u1)
     got = k.hash_to_g2_batch_from_u(u0.to(cuda_device), u1.to(cuda_device))
     assert _canon_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+def test_bls_kernels_under_digit_modes(cuda_device, mode):
+    """Every BLS kernel's mode-n variant (the digit-space fp_mul of
+    csrc/bls/fp.cuh) against the mode-n plain versions, at the sizes of
+    the tests above; each variant launched, the mode-0 kernels not."""
+    bi, _ = _bls()
+    kernels.build_all(kernels.variants(mode))
+    kernels.reset_counts()
+    try:
+        bi.set_mxu_mode(mode)
+        test_fp_ops_kernel(cuda_device, 130)
+        for g2 in (False, True):
+            test_scalar_mul_and_affine_kernels(cuda_device, 3, g2)
+        test_aggregate_kernels(cuda_device, 3)
+        test_pairing_kernels(cuda_device, 3)
+        test_g2_intake_kernel(cuda_device, 3)
+        test_hash_to_g2_kernel(cuda_device, 3)
+    finally:
+        bi.set_mxu_mode(0)
+    for k in kernels.BLS_KERNELS:
+        assert k.variant(mode).launches > 0, k.name
+        assert k.launches == 0, k.name
+
+
+@pytest.mark.parametrize("n", [1, 257])
+def test_sha256_messages_kernel(cuda_device, n):
+    import hashlib
+    rng = np.random.default_rng(n)
+    for length in (0, 1, 55, 56, 64, 100, 200):
+        msgs = rng.integers(0, 256, size=(n, length), dtype=np.uint8)
+        words = sh.words_to_tensor(sh.pad_messages(msgs), "cpu")
+        want = sh.sha256_messages(words)
+        got = sh.sha256_messages(words.to(cuda_device))
+        assert torch.equal(got.cpu(), want)
+        assert sh.words_to_chunks(sh.tensor_to_words(got)[-1]) == \
+            hashlib.sha256(msgs[-1].tobytes()).digest()
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_fp12_pow_kernel(cuda_device, mode):
+    bi, k = _bls()
+    kernels.build_all(kernels.variants(mode))
+    px, py, _ = _points(3, 600, False)
+    qx, qy, _ = _points(3, 700, True)
+    px[0], py[0], qx[0], qy[0] = px[1], py[1], qx[1], qy[1]
+    try:
+        bi.set_mxu_mode(mode)
+        f = k.miller_loop_batch(px, py, qx, qy)
+        for e in (0, 1, 0b1011, 0xD201000000010000):
+            want = k.fp12_pow_const(f, e)
+            got = k.fp12_pow_const(f.to(cuda_device), e)
+            assert _canon_equal(got, want)
+    finally:
+        bi.set_mxu_mode(0)

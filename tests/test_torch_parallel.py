@@ -140,6 +140,21 @@ def test_rank_failure_is_raised_with_its_traceback():
                          args=([("merkleize", leaves)],))
 
 
+def test_ranks_run_the_callers_multiply_lowering():
+    """A spawned rank reads only LHTPU_BIGINT_MXU at import; ``run_ranks``
+    hands it the caller's ``set_mxu_mode`` too, so the sharded programs
+    launch the caller's variants."""
+    from lighthouse_tpu_torch.ops import bigint as bi
+    prev = bi.mxu_mode()
+    try:
+        bi.set_mxu_mode(2)
+        got = launch.run_ranks(ranks.run_checks, 2, "gloo", "cpu",
+                               args=([("mxu_modes", None)],))
+    finally:
+        bi.set_mxu_mode(prev)
+    assert got == [[2, 2]]
+
+
 def test_mesh_rows_and_sharding_checks():
     m = pmesh.Mesh(None, 1, 4, torch.device("cpu"))
     assert m.rows(16) == (4, 8)

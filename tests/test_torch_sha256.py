@@ -107,3 +107,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         tk.cap_fold(torch.zeros(8, dtype=torch.int32),
                     torch.zeros(8, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("length", [0, 1, 55, 56, 64, 100, 200])
+def test_sha256_messages_matches_jax_and_hashlib(length):
+    """pad_messages and sha256_messages (plain version) at the lengths and
+    shapes of tests/test_sha256_kernel.py (4 messages): the same padded
+    words and digests as the JAX package's, and hashlib's digests."""
+    rng = np.random.default_rng(2)
+    msgs = rng.integers(0, 256, size=(4, length), dtype=np.uint8)
+    padded = tk.pad_messages(msgs)
+    np.testing.assert_array_equal(padded, jk.pad_messages(msgs))
+    got = tk.tensor_to_words(tk.sha256_messages(tk.words_to_tensor(padded)))
+    np.testing.assert_array_equal(got, np.asarray(jk.sha256_messages(padded)))
+    for i in range(4):
+        assert tk.words_to_chunks(got[i]) == \
+            hashlib.sha256(msgs[i].tobytes()).digest()
+
+
+def test_sha256_messages_refuses_other_shapes():
+    with pytest.raises(ValueError):
+        tk.sha256_messages(torch.zeros((4, 16), dtype=torch.int32))
+    with pytest.raises(TypeError):
+        tk.sha256_messages(torch.zeros((4, 1, 16), dtype=torch.int64))
