@@ -27,7 +27,10 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    warmed into the cache. Each BLS kernel against its plain version on the
    batch's own lane inputs (10,240 lanes, 128 message lanes), canonical
    field values equal (max_abs_err 0); bound from the field multiplies of
-   the kernel's own algorithm on those inputs (``ops/bls_cost.py``). Then
+   the kernel's own algorithm on those inputs (``ops/bls_cost.py``); for
+   the two thread-cooperative kernels (``final_exp``, ``hash_to_g2``) also
+   their critical path in dependent field multiplies and the card's time
+   per level of it, a diagnostic. Then
    the module entry ``crypto.bls.verify_signature_sets`` on its default
    backend (``gpu``): True on the batch and equal to the C++ backend; five
    negative batches False on both; a 100-set batch True; every BLS kernel
@@ -420,7 +423,7 @@ class BlsKernelCheck:
         self.calls: list[dict] = []
 
     def run(self, kernel, kernel_fn, plain_fn, args, muls, mode=None,
-            repeats=3):
+            repeats=3, depth=None):
         import torch
 
         from lighthouse_tpu_torch.ops import bigint as bi
@@ -431,7 +434,7 @@ class BlsKernelCheck:
         call = {"kernel": kernel, "kernel_fn": kernel_fn, "args": args,
                 "want": want, "plain_ms": plain_ms,
                 "plain_muls": bi.MONT_MUL_ROWS.rows, "muls": muls,
-                "mode": mode, "repeats": repeats}
+                "mode": mode, "repeats": repeats, "depth": depth}
         self.calls.append(call)
         self._record(call, got)
         return got
@@ -469,18 +472,24 @@ class BlsKernelCheck:
         plain_ms, plain_muls = call["plain_ms"], call["plain_muls"]
         against = ("its plain version" if self.mxu == 0 else
                    "phase 4's plain output on the same inputs")
+        depth = call["depth"]
+        per_level = None if depth is None else ms * 1e3 / depth
         print(f"kernel {label} at {lanes} lanes: ok canonical-exact against "
               f"{against} (plain {plain_ms:.1f} ms, {plain_muls} field "
               f"multiplies); {ms:.4f} ms; {muls} field multiplies; bound "
               f"{bound_ms:.4f} ms by {bound_by}"
               + (f" (the lowering's own issue count: {alg_ms:.4f} ms)"
-                 if self.mxu else ""), flush=True)
+                 if self.mxu else "")
+              + ("" if depth is None else
+                 f"; critical path {depth} dependent field multiplies, "
+                 f"{per_level:.3f} us a level"), flush=True)
         rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "algorithm_bound_ms": alg_ms,
                "field_muls": muls, "plain_field_muls": plain_muls,
-               "lanes": lanes}
+               "lanes": lanes, "depth": depth, "us_per_level": per_level}
         self.muls[label] = {"field_muls": muls, "plain_field_muls": plain_muls,
-                            "algorithm_bound_ms": alg_ms}
+                            "algorithm_bound_ms": alg_ms, "ms": ms,
+                            "depth": depth, "us_per_level": per_level}
         if mode is not None:
             row = next(r for r in self.rows if r["name"] == name)
             row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -580,7 +589,7 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
     u0, u1 = put(prep["u0"]), put(prep["u1"])
     mx, my, mz = run("hash_to_g2", k.hash_to_g2_batch_from_u,
                      k._hash_to_g2_plain, (u0, u1), cost.hash_to_g2(small),
-                     repeats=2)
+                     repeats=2, depth=cost.hash_to_g2_depth(small))
     msg_x, msg_y = run("affine", k.jacobian_to_affine_fp2,
                        k._jacobian_to_affine_fp2_plain, (mx, my, mz),
                        cost.affine(small, 2))
@@ -623,11 +632,12 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
 
     out, flag = run("final_exp", lambda f: k._final_exp_kernel(1, f),
                     final_plain, (fs,), cost.final_exp(fs.shape[0], 1),
-                    repeats=2)
+                    repeats=2, depth=cost.final_exp_depth(fs.shape[0], 1))
     check(int(flag.item()) == 1, "the batch's pairing product is not one "
                                  "on the kernels")
     run("final_exp", k.fp12_product, k._fp12_product_plain, (fs,),
-        cost.final_exp(fs.shape[0], 0), mode="product")
+        cost.final_exp(fs.shape[0], 0), mode="product",
+        depth=cost.final_exp_depth(fs.shape[0], 0))
     torch.cuda.synchronize()
 
 

@@ -178,9 +178,12 @@ LH_DEV bool fp_eq(const Fp& a, const Fp& b) {
     return acc == 0;
 }
 
+// fp_mul_inl is the multiply's body, force-inlined where a kernel wants
+// it in line (coop.cuh's co_step, the block layer's one product site);
+// fp_mul is the same code out of line, one copy per library.
 #if LH_FP_MODE == 0
 // CIOS Montgomery product a*b*2^-384 mod p, inputs and output in [0, 2p)
-LH_NOINL void fp_mul(Fp& r, const Fp& a, const Fp& b) {
+LH_DEV void fp_mul_inl(Fp& r, const Fp& a, const Fp& b) {
     uint32_t t[LH_W + 2];
 #pragma unroll
     for (int j = 0; j < LH_W + 2; ++j) t[j] = 0;
@@ -246,7 +249,7 @@ LH_DEV uint32_t digit_at(const uint32_t* d, int k) {
 
 // Montgomery product a*b*2^-384 mod p in 6-bit digit space (modes 1, 2),
 // inputs and output in [0, 2p)
-LH_NOINL void fp_mul(Fp& r, const Fp& a, const Fp& b) {
+LH_DEV void fp_mul_inl(Fp& r, const Fp& a, const Fp& b) {
     uint32_t t[2 * LH_DREG], m[LH_DREG];
 #pragma unroll
     for (int i = 0; i < 2 * LH_DREG; ++i) t[i] = 0;
@@ -335,6 +338,10 @@ LH_NOINL void fp_mul(Fp& r, const Fp& a, const Fp& b) {
 }
 #endif
 
+LH_NOINL void fp_mul(Fp& r, const Fp& a, const Fp& b) {
+    fp_mul_inl(r, a, b);
+}
+
 LH_DEV void fp_sqr(Fp& r, const Fp& a) { fp_mul(r, a, a); }
 
 // a^e for a constant exponent e (12 words, MSB first from its top bit);
@@ -352,6 +359,107 @@ LH_NOINL void fp_pow(Fp& r, const Fp& a, const uint32_t* e) {
 
 // a^(p-2): the inverse, with 0 -> 0
 LH_DEV void fp_inv(Fp& r, const Fp& a) { fp_pow(r, a, LH_EXP_INV); }
+
+// ------------------------------------------------ binary inverse, Legendre
+// Variable-time (the inputs are public): a few hundred word shifts and
+// subtractions where fp_pow runs 600 dependent multiplies.
+
+LH_DEV bool words_is_zero(const uint32_t* a) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int i = 0; i < LH_W; ++i) acc |= a[i];
+    return acc == 0;
+}
+
+LH_DEV bool words_is_one(const uint32_t* a) {
+    uint32_t acc = a[0] ^ 1u;
+#pragma unroll
+    for (int i = 1; i < LH_W; ++i) acc |= a[i];
+    return acc == 0;
+}
+
+// a >>= 1, the carry shifted in at the top
+LH_DEV void words_shr1(uint32_t* a, uint32_t top) {
+#pragma unroll
+    for (int i = 0; i < LH_W - 1; ++i) a[i] = (a[i] >> 1) | (a[i + 1] << 31);
+    a[LH_W - 1] = (a[LH_W - 1] >> 1) | (top << 31);
+}
+
+// x / 2 mod p for x in [0, p)
+LH_DEV void fp_int_half(uint32_t* x) {
+    uint32_t c = 0;
+    if (x[0] & 1u) c = words_add(x, x, LH_P);     // x + p < 2^382
+    words_shr1(x, c);
+}
+
+// x - y mod p for x, y in [0, p)
+LH_DEV void fp_int_sub(uint32_t* x, const uint32_t* y) {
+    if (words_sub(x, x, y)) words_add(x, x, LH_P);
+}
+
+// the Montgomery form of a^-1 (0 -> 0), a in [0, 2p): binary extended
+// Euclid on the integer A = aR mod p (u = x1 A, v = x2 A mod p throughout),
+// which gives A^-1 = a^-1 R^-1; then fp_mul by R^2 (LH_R2, in Montgomery
+// form) gives a^-1 R. The value of fp_inv; one multiply where fp_pow runs
+// 608.
+LH_DEV void fp_inv_binary(Fp& r, const Fp& a) {
+    Fp u, v, x1, x2, r2;
+    fp_canon(u, a);
+    if (words_is_zero(u.w)) {
+        fp_zero(r);
+        return;
+    }
+    fp_set_const(v, LH_P);
+    fp_zero(x1);
+    x1.w[0] = 1;
+    fp_zero(x2);
+    while (!words_is_one(u.w) && !words_is_one(v.w)) {
+        while (!(u.w[0] & 1u)) {
+            words_shr1(u.w, 0);
+            fp_int_half(x1.w);
+        }
+        while (!(v.w[0] & 1u)) {
+            words_shr1(v.w, 0);
+            fp_int_half(x2.w);
+        }
+        Fp d;
+        if (!words_sub(d.w, u.w, v.w)) {              // u >= v
+            u = d;
+            fp_int_sub(x1.w, x2.w);
+        } else {
+            words_sub(v.w, v.w, u.w);
+            fp_int_sub(x2.w, x1.w);
+        }
+    }
+    fp_set_const(r2, LH_R2);
+    const Fp inv = words_is_one(u.w) ? x1 : x2;
+    fp_mul(r, inv, r2);
+}
+
+// the Legendre symbol (a / p) as 1, -1 or 0, by the binary Jacobi symbol
+// algorithm on the integer aR mod p: R = 2^384 is a square, so (aR / p) =
+// (a / p), the value of a^((p-1)/2)
+LH_DEV int fp_legendre_binary(const Fp& a) {
+    Fp x, n;
+    fp_canon(x, a);
+    fp_set_const(n, LH_P);
+    int t = 1;
+    while (!words_is_zero(x.w)) {
+        while (!(x.w[0] & 1u)) {
+            words_shr1(x.w, 0);
+            const uint32_t m8 = n.w[0] & 7u;
+            if (m8 == 3u || m8 == 5u) t = -t;
+        }
+        Fp d;
+        if (words_sub(d.w, x.w, n.w)) {                // x < n: swap
+            if ((x.w[0] & 3u) == 3u && (n.w[0] & 3u) == 3u) t = -t;
+            words_sub(d.w, n.w, x.w);
+            n = x;
+        }
+        x = d;                                        // even, or zero
+    }
+    return words_is_one(n.w) ? t : 0;
+}
 
 // the integer value in [0, p) (out of the Montgomery domain)
 LH_DEV void fp_to_int(Fp& r, const Fp& a) {

@@ -2,9 +2,10 @@
 // JAX package's tower (lighthouse_tpu/ops/bls12_381.py:189-403, 743-776),
 // one element per thread. Field values in the tower are unique, so the
 // kernel and the plain version agree on them whatever the formula; the
-// formulas follow the JAX ones all the same. Multiply, square and inverse
-// are out of line: an Fp12 is 144 words, and inlining a Miller loop or a
-// final exponentiation whole costs nvcc minutes and registers.
+// formulas follow the JAX ones all the same. Multiply and square are out
+// of line: an Fp12 is 144 words, and inlining a Miller loop whole costs
+// nvcc minutes and registers. The final exponentiation's inverse and
+// Frobenius maps run on the cooperative layer (coop.cuh).
 #pragma once
 #include "fp.cuh"
 
@@ -60,30 +61,6 @@ LH_NOINL void fp6_mul(Fp6& r, const Fp6& a, const Fp6& b) {
     fp2_add(r.c2, x, t1);
 }
 
-LH_NOINL void fp6_inv(Fp6& r, const Fp6& a) {
-    Fp2 s00, s12, s22, s01, s11, s02, t0, t1, t2, d0, d1, d2, den, dinv, x;
-    fp2_sqr(s00, a.c0);
-    fp2_mul(s12, a.c1, a.c2);
-    fp2_sqr(s22, a.c2);
-    fp2_mul(s01, a.c0, a.c1);
-    fp2_sqr(s11, a.c1);
-    fp2_mul(s02, a.c0, a.c2);
-    fp2_mul_by_xi(x, s12); fp2_sub(t0, s00, x);
-    fp2_mul_by_xi(x, s22); fp2_sub(t1, x, s01);
-    fp2_sub(t2, s11, s02);
-    fp2_mul(d0, a.c0, t0);
-    fp2_mul(d1, a.c2, t1);
-    fp2_mul(d2, a.c1, t2);
-    fp2_mul_by_xi(d1, d1);
-    fp2_mul_by_xi(d2, d2);
-    fp2_add(x, d1, d2);
-    fp2_add(den, d0, x);
-    fp2_inv(dinv, den);
-    fp2_mul(r.c0, t0, dinv);
-    fp2_mul(r.c1, t1, dinv);
-    fp2_mul(r.c2, t2, dinv);
-}
-
 // ---------------------------------------------------------------- Fp12
 
 LH_DEV void fp12_one(Fp12& r) {
@@ -130,18 +107,6 @@ LH_NOINL void fp12_sqr(Fp12& r, const Fp12& a) {
     fp6_add(r.c1, t, t);
 }
 
-LH_NOINL void fp12_inv(Fp12& r, const Fp12& a) {
-    Fp6 s0, s1, x, t;
-    fp6_mul(s0, a.c0, a.c0);
-    fp6_mul(s1, a.c1, a.c1);
-    fp6_mul_by_v(x, s1);
-    fp6_sub(x, s0, x);
-    fp6_inv(t, x);
-    fp6_mul(r.c0, a.c0, t);
-    fp6_mul(x, a.c1, t);
-    fp6_neg(r.c1, x);
-}
-
 // sparse multiply by g = (c0 + c1 v) + (c4 v) w: the Miller line shape,
 // with the 15 Fp2 products of fp12_mul_by_014
 LH_NOINL void fp12_mul_by_014(Fp12& r, const Fp12& f, const Fp2& c0,
@@ -174,24 +139,6 @@ LH_NOINL void fp12_mul_by_014(Fp12& r, const Fp12& f, const Fp2& c0,
     fp2_sub(x, u0, t00); fp2_sub(r.c1.c0, x, t10);
     fp2_sub(x, u1, t01); fp2_sub(r.c1.c1, x, q0);
     fp2_sub(x, u2, t02); fp2_sub(r.c1.c2, x, q1);
-}
-
-// f^(p^n), n in 1..3: coefficient (i, j) of w^i v^j, conjugated for odd
-// n, times gamma_n^(i + 2j)
-LH_NOINL void fp12_frobenius(Fp12& r, const Fp12& f, int n) {
-    const Fp2* src[6] = {&f.c0.c0, &f.c0.c1, &f.c0.c2,
-                         &f.c1.c0, &f.c1.c1, &f.c1.c2};
-    Fp2 out[6];
-    for (int i = 0; i < 2; ++i) {
-        for (int j = 0; j < 3; ++j) {
-            Fp2 c = *src[3 * i + j], g;
-            if (n & 1) fp2_conj(c, c);
-            fp2_set_const(g, LH_FROB[n - 1][i + 2 * j]);
-            fp2_mul(out[3 * i + j], c, g);
-        }
-    }
-    r.c0.c0 = out[0]; r.c0.c1 = out[1]; r.c0.c2 = out[2];
-    r.c1.c0 = out[3]; r.c1.c1 = out[4]; r.c1.c2 = out[5];
 }
 
 LH_DEV bool fp12_is_one(const Fp12& a) {

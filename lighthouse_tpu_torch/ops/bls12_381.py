@@ -13,9 +13,11 @@ Three layers:
   ``fp2_encode``, ``scalars_to_bits``, ``hash_to_field_host``;
 - plain PyTorch versions of the tower, the Jacobian point ops and every
   stage, copying the JAX formulas one for one (``_make_point_ops``, the
-  Miller steps and ``_ell``, ``fp12_mul_by_014``, the final
-  exponentiation's Frobenius table and hard-part scan, ``fp2_sqrt``,
-  SSWU/iso, Budroni-Pintore). They run on any device on the plain field
+  Miller steps and ``_ell``, ``fp12_mul_by_014``, ``fp2_sqrt``,
+  SSWU/iso, Budroni-Pintore), but for the final exponentiation's hard
+  part, which follows the kernel's x-chain with cyclotomic squares (the
+  JAX package's base-p scan gives the same value; the CPU tests hold the
+  two equal). They run on any device on the plain field
   ops of ops/bigint.py; ``chip_smoke.py`` compares the kernels with them on
   the card;
 - the stage wrappers (``g2_decompress_batch``, ``g2_in_subgroup_batch``,
@@ -712,10 +714,6 @@ def _fp12_product_plain(fs):
     return fs[0]
 
 
-_R_SUBGROUP = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
-_HARD_EXP = (P_INT**4 - P_INT**2 + 1) // _R_SUBGROUP
-
-
 def _frob_consts():
     from ..crypto.bls12_381.fields import Fp2 as OF
     xi = OF(1, 1)
@@ -746,44 +744,71 @@ def fp12_frobenius(f, n: int):
                 _f6(prods[3], prods[4], prods[5]))
 
 
-def _hard_digits() -> list[int]:
-    e = _HARD_EXP
-    digits = []
-    for _ in range(4):
-        digits.append(e % P_INT)
-        e //= P_INT
-    assert e == 0
-    return digits
+def fp12_cyclotomic_square(a):
+    """Granger-Scott square of an element of the cyclotomic subgroup (any
+    f^((p^6-1)(p^2+1))): three Fp4 squares, 9 Fp2 squares in one call.
+    Equal to ``fp12_square`` there, and only there. With z0..z5 the Fp2
+    coefficients (c0.c0, c1.c1), (c1.c0, c0.c2), (c0.c1, c1.c2) paired as
+    Fp4 = Fp2[w^3] values (a, b): (a, b)^2 = (a^2 + xi b^2, 2ab), and each
+    z becomes 3 t -/+ 2 z."""
+    g, h = a[..., 0, :, :, :], a[..., 1, :, :, :]
+    z0, z4, z3 = g[..., 0, :, :], g[..., 1, :, :], g[..., 2, :, :]
+    z2, z1, z5 = h[..., 0, :, :], h[..., 1, :, :], h[..., 2, :, :]
+    s01, s23, s45 = _fused(fp2_add, [(z0, z1), (z2, z3), (z4, z5)])
+    sq = fp2_square(torch.stack([z0, z1, s01, z2, z3, s23, z4, z5, s45],
+                                dim=-3))
+
+    def fp4(i):
+        """(a^2 + xi b^2, (a + b)^2 - a^2 - b^2) of pair i."""
+        aa, bb, ss = sq[..., 3 * i, :, :], sq[..., 3 * i + 1, :, :], \
+            sq[..., 3 * i + 2, :, :]
+        return (fp2_add(aa, fp2_mul_by_xi(bb)),
+                fp2_sub(fp2_sub(ss, aa), bb))
+
+    def three_t(t, z, sign):
+        """2 (t - z) + t, or 2 (t + z) + t."""
+        d = fp2_sub(t, z) if sign < 0 else fp2_add(t, z)
+        return fp2_add(fp2_add(d, d), t)
+
+    t0, t1 = fp4(0)
+    u0, u1 = fp4(1)
+    v0, v1 = fp4(2)
+    return _f12(_f6(three_t(t0, z0, -1), three_t(u0, z4, -1),
+                    three_t(v0, z3, -1)),
+                _f6(three_t(fp2_mul_by_xi(v1), z2, +1), three_t(t1, z1, +1),
+                    three_t(u1, z5, +1)))
 
 
-_HARD_DIGITS = _hard_digits()
-_HARD_NBITS = max(d.bit_length() for d in _HARD_DIGITS)
-# idx[t] = bit pattern (c3 c2 c1 c0) at bit (nbits-1-t), MSB first
-_HARD_IDX = np.zeros(_HARD_NBITS, dtype=np.int32)
-for _t in range(_HARD_NBITS):
-    _bitpos = _HARD_NBITS - 1 - _t
-    _HARD_IDX[_t] = sum(((d >> _bitpos) & 1) << _i
-                        for _i, d in enumerate(_HARD_DIGITS))
+def _cyclotomic_pow_plain(f, exponent: int):
+    """f^exponent for f in the cyclotomic subgroup: square-and-multiply
+    with cyclotomic squares (the kernel walks the same bits from the
+    bottom, squaring and multiplying at once: the same products)."""
+    return _pow_const(f, exponent, fp12_cyclotomic_square, fp12_mul)
+
+
+_R_SUBGROUP = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
+#: |(x - 1)/3| = (|x| + 1)/3 (x < 0; 3 divides x - 1)
+_X13 = (_X_ABS + 1) // 3
 
 
 def _final_exponentiation_plain(f):
-    """f^((p^12-1)/r): the easy part, then the hard part as a base-p
-    multi-exponentiation over the 16-entry Frobenius subset table."""
+    """f^((p^12-1)/r): the easy part f^((p^6-1)(p^2+1)), then the hard
+    part (p^4 - p^2 + 1)/r = ((x-1)^2/3)(x+p)(x^2+p^2-1) + 1 as the x-chain.
+    After the easy part f is cyclotomic: a square is Granger-Scott's, an
+    inverse a conjugate, so x < 0 costs conjugations only:
+      u = f^((|x|+1)/3), a = u^|x| u = f^((x-1)^2/3),
+      b = conj(a^|x|) frob1(a) = a^(x+p),
+      c = (b^|x|)^|x| frob2(b) conj(b) = b^(x^2+p^2-1), and c f."""
     f = fp12_mul(fp12_conj(f), fp12_inv(f))       # easy: f^(p^6-1)
     f = fp12_mul(fp12_frobenius(f, 2), f)         # easy: ^(p^2+1)
-    g0, g1, g2, g3 = (f, fp12_frobenius(f, 1), fp12_frobenius(f, 2),
-                      fp12_frobenius(f, 3))
-    t3, t5, t9, t6, t10, t12 = _fp12_products([
-        (g0, g1), (g0, g2), (g0, g3), (g1, g2), (g1, g3), (g2, g3)])
-    t7, t11, t13, t14 = _fp12_products([
-        (t3, g2), (t3, g3), (t5, g3), (t6, g3)])
-    (t15,) = _fp12_products([(t7, g3)])
-    table = [fp12_one_like(f.shape[:-4], f), g0, g1, t3, g2, t5, t6, t7,
-             g3, t9, t10, t11, t12, t13, t14, t15]
-    out = fp12_one_like(f.shape[:-4], f)
-    for idx in _HARD_IDX.tolist():
-        out = fp12_mul(fp12_square(out), table[idx])
-    return out
+    u = _cyclotomic_pow_plain(f, _X13)
+    a = fp12_mul(_cyclotomic_pow_plain(u, _X_ABS), u)
+    b = fp12_mul(fp12_conj(_cyclotomic_pow_plain(a, _X_ABS)),
+                 fp12_frobenius(a, 1))
+    d = fp12_mul(fp12_frobenius(b, 2), fp12_conj(b))
+    c = fp12_mul(_cyclotomic_pow_plain(_cyclotomic_pow_plain(b, _X_ABS),
+                                       _X_ABS), d)
+    return fp12_mul(c, f)
 
 
 # ---------------------------------------------------------------------------

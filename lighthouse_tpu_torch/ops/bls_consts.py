@@ -82,6 +82,9 @@ def render() -> str:
         _fp("LH_2P", _words(2 * P)),
         _fp("LH_ONE", _mont(1)),
         _fp("LH_HALF_P_INT", _words((P - 1) // 2)),
+        "// R^2 in Montgomery form: fp_mul(y, LH_R2) = y R^2 (the binary",
+        "// inversion's way back into the Montgomery domain)",
+        _fp("LH_R2", _mont(R * R)),
         "// digit-space fp_mul (LH_FP_MODE 1, 2): N' = -p^-1 mod 2^384 and p",
         "// as reversed packs of their 6-bit digits, one for each alignment",
         _packs("LH_NPRIME_DREV", _digits_rev(bi.NPRIME)),
@@ -107,13 +110,12 @@ def render() -> str:
         arr = h[name]
         lines.append(_table(f"LH_ISO_{name}", (len(arr), 2),
                             [w for c in arr for w in _fp2_words(c)]))
-    idx = ", ".join(str(int(v)) for v in k._HARD_IDX)
     lines += [
-        "// final exponentiation: hard-part digit index, MSB first",
-        f"#define LH_HARD_NBITS {k._HARD_NBITS}",
-        f"__constant__ uint8_t LH_HARD_IDX[{k._HARD_NBITS}] = {{{idx}}};",
-        "// scalars: |x| (Miller loop, subgroup check), Budroni-Pintore",
+        "// scalars: |x| (Miller loop, subgroup check, final",
+        "// exponentiation), |(x-1)/3| (final exponentiation),",
+        "// Budroni-Pintore",
         f"#define LH_X_ABS 0x{k._X_ABS:016x}ull",
+        f"#define LH_X13 0x{k._X13:016x}ull",
         f"#define LH_BP_K1_HI 0x{k._BP_K1 >> 64:016x}ull",
         f"#define LH_BP_K1_LO 0x{k._BP_K1 & (2**64 - 1):016x}ull",
         f"#define LH_BP_K2 0x{k._BP_K2:016x}ull",

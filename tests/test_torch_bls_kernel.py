@@ -175,9 +175,6 @@ def test_cuda_constants_header_matches_oracle():
     got = _header_values(text)
     x = jf.X_PARAM
     xi = jf.XI
-    hard = (P**4 - P**2 + 1) // R
-    digits = [hard // P**i % P for i in range(4)]
-    nbits = max(dv.bit_length() for dv in digits)
     want = {
         "LH_N0INV": [(-pow(P, -1, 2**32)) % 2**32],
         "LH_P": _words(P), "LH_2P": _words(2 * P), "LH_ONE": _mont(1),
@@ -197,11 +194,9 @@ def test_cuda_constants_header_matches_oracle():
         "LH_ISO_XD": [w for v in jh.ISO_X_DEN for w in _mont2(v)],
         "LH_ISO_YN": [w for v in jh.ISO_Y_NUM for w in _mont2(v)],
         "LH_ISO_YD": [w for v in jh.ISO_Y_DEN for w in _mont2(v)],
-        "LH_HARD_NBITS": [nbits],
-        "LH_HARD_IDX": [sum(((dv >> (nbits - 1 - t)) & 1) << i
-                            for i, dv in enumerate(digits))
-                        for t in range(nbits)],
+        "LH_R2": _mont(2**768),
         "LH_X_ABS": [abs(x)],
+        "LH_X13": [(abs(x) + 1) // 3],
         "LH_BP_K1_HI": [(x * x - x - 1) >> 64],
         "LH_BP_K1_LO": [(x * x - x - 1) & (2**64 - 1)],
         "LH_BP_K2": [abs(x - 1)],
@@ -324,12 +319,13 @@ def test_miller_loop_product_and_final_exp_match_oracle():
     assert tk.fp_decode(fs[2]) == tk.fp_decode(tk.fp12_one_like((), fs))
     prod, rows = _rows(tk.fp12_product, fs)
     assert rows == 2 * cost.FP12_MUL
-    assert cost.final_exp(3, 0) == (3 + 63) * cost.FP12_MUL
+    assert cost.final_exp(3, 0) == (3 - 1) * cost.FP12_MUL
     assert tk.fp_decode(prod) == _f12_ints(miller_loop(pairs))
     out, rows = _rows(tk.final_exponentiation, fs[0])
-    # + 3: the plain Fp6 inverse's squares (test_tower_matches_jax)
-    assert rows == cost.FINAL_EXP + 3
-    assert cost.final_exp(1, 1) == 64 * cost.FP12_MUL + cost.FINAL_EXP
+    # + 3: the plain Fp6 inverse's squares (test_tower_matches_jax); the
+    # plain Fp inverse is fp_pow by p - 2, the kernel's binary (one product)
+    assert rows == cost.FINAL_EXP + 3 + cost.FP_INV - cost.FP_INV_BINARY
+    assert cost.final_exp(1, 1) == 0 * cost.FP12_MUL + cost.FINAL_EXP
     assert tk.fp_decode(out) == _f12_ints(pairing(*pairs[0]))
 
 
@@ -398,7 +394,12 @@ def test_hash_to_g2_matches_oracle():
     adds = 3 + sum(bin(v).count("1") for v in (abs(jf.X_PARAM) ** 2 +
                                                abs(jf.X_PARAM) - 1,
                                                abs(jf.X_PARAM) + 1))
-    assert rows == cost.hash_to_g2(2) + 2 * adds * cost.DBL[2]
+    # each map: the plain inverse and Legendre symbol are powers (the
+    # kernel's are binary), and the plain square root checks y^2
+    plain_map = (cost.FP_INV - cost.FP_INV_BINARY + cost.FP_LEGENDRE
+                 + cost.FP2_SQR)
+    assert rows == (cost.hash_to_g2(2) + 2 * adds * cost.DBL[2]
+                    + 2 * 2 * plain_map)
     ax, ay = tk.jacobian_to_affine_fp2(x, y, z)
     axl, ayl = tk.fp_decode(ax), tk.fp_decode(ay)
     for i, m in enumerate(msgs):
@@ -482,3 +483,65 @@ def test_fp12_pow_const_matches_oracle(exponent):
         assert tk.fp_decode(got[i]) == _f12_ints(e.pow(exponent))
     # exponent 0 gives f back, as the JAX scan over no bits does
     assert torch.equal(tk.fp12_pow_const(f, 0), f)
+
+
+# -- the final exponentiation's x-chain (plain versions) --------------------
+
+def _rand_f12(seed, n):
+    """n seeded Fp12 values: oracle values and the [n, 2, 3, 2, 32]
+    tensor."""
+    c = _rand_fp2(seed, 6 * n)
+    vals = [jo.Fp12(jo.Fp6(*c[6 * i:6 * i + 3]),
+                    jo.Fp6(*c[6 * i + 3:6 * i + 6])) for i in range(n)]
+    f = _t(tk.fp_encode([v for e in vals for v in _f12_ints(e)])
+           .reshape(n, 2, 3, 2, 32))
+    return vals, f
+
+
+def _easy_part(f):
+    """f^((p^6-1)(p^2+1)): an element of the cyclotomic subgroup."""
+    g = tk.fp12_mul(tk.fp12_conj(f), tk.fp12_inv(f))
+    return tk.fp12_mul(tk.fp12_frobenius(g, 2), g)
+
+
+def test_cyclotomic_square_matches_square():
+    """Granger-Scott squares equal fp12_square on cyclotomic elements
+    (two, made by the easy part from random Fp12), with 9 Fp2 squares
+    each (bls_cost.FP12_CYC_SQR); on a random Fp12 they do not."""
+    _, f = _rand_f12(31, 2)
+    g = _easy_part(f)
+    got, rows = _rows(tk.fp12_cyclotomic_square, g)
+    assert rows == 2 * cost.FP12_CYC_SQR
+    _same(got, np.asarray(convert.limbs_to_numpy(tk.fp12_square(g))))
+    assert not bool(torch.all(tk.fp12_eq(tk.fp12_cyclotomic_square(f),
+                                         tk.fp12_square(f))))
+
+
+@pytest.mark.parametrize("exponent", [tk._X_ABS, tk._X13])
+def test_cyclotomic_pow_matches_fp12_pow_const(exponent):
+    """The x-chain's powers (by |x| and by (|x|+1)/3, with cyclotomic
+    squares) equal fp12_pow_const by the same exponent on cyclotomic
+    elements; their products are the chain's count."""
+    _, f = _rand_f12(32, 2)
+    g = _easy_part(f)
+    got, rows = _rows(tk._cyclotomic_pow_plain, g, exponent)
+    assert rows == 2 * cost._pow(exponent, cost.FP12_CYC_SQR,
+                                 cost.FP12_MUL)
+    _same(got, np.asarray(convert.limbs_to_numpy(
+        tk._fp12_pow_const_plain(g, exponent))))
+
+
+def test_final_exponentiation_matches_oracle():
+    """The plain final exponentiation (easy part, then the x-chain) equals
+    the JAX package's oracle final exponentiation (f^((p^12-1)/r), the
+    value its base-p scan computes) on two random Fp12 values; (x - 1) is
+    divisible by 3 and the chain's exponent is (p^4 - p^2 + 1)/r."""
+    from lighthouse_tpu.crypto.bls12_381.pairing import final_exponentiation
+    x = jf.X_PARAM
+    assert (x - 1) % 3 == 0
+    assert ((x - 1) ** 2 // 3 * (x + P) * (x * x + P * P - 1) + 1
+            == (P ** 4 - P ** 2 + 1) // R)
+    vals, f = _rand_f12(33, 2)
+    for i, v in enumerate(vals):
+        assert tk.fp_decode(tk._final_exponentiation_plain(f[i])) == \
+            _f12_ints(final_exponentiation(v))

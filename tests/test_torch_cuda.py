@@ -241,24 +241,99 @@ def test_aggregate_kernels(cuda_device, n):
     assert _canon_equal(got, want)
 
 
-@pytest.mark.parametrize("n", [1, 3])
-def test_pairing_kernels(cuda_device, n):
+class _mode:
+    """The multiply lowering ``mode`` in force inside the block."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        bi, _ = _bls()
+        kernels.build_all(kernels.variants(self.mode))
+        self.prev = bi.mxu_mode()
+        bi.set_mxu_mode(self.mode)
+
+    def __exit__(self, *exc):
+        bi, _ = _bls()
+        bi.set_mxu_mode(self.prev)
+
+
+#: plain outputs by lane count: every lowering gives the same canonical
+#: values, so each is computed once, in mode 0 (the Miller loop's plain
+#: version on the card, the product and final exponentiation on the host)
+_PAIRING_PLAIN: dict = {}
+
+
+def _pairing_inputs(n):
+    """n pairs (lane 0 repeats the last, whose mask is 0), the plain
+    Miller outputs, their product, its final exponentiation and that of
+    lane 0, and whether the masked product is one."""
     _, k = _bls()
-    px, py, _ = _points(n, 300 + n, False)
-    qx, qy, _ = _points(n, 400 + n, True)
-    px[0], py[0] = px[-1], py[-1]        # lane 0 was at infinity
-    qx[0], qy[0] = qx[-1], qy[-1]
-    mask = np.ones(n, bool)
-    mask[-1] = False
-    want = k.miller_loop_batch(px, py, qx, qy, mask)
-    dev = [t.to(cuda_device) for t in (px, py, qx, qy)]
+    if n not in _PAIRING_PLAIN:
+        px, py, _ = _points(n, 300 + n, False)
+        qx, qy, _ = _points(n, 400 + n, True)
+        px[0], py[0] = px[-1], py[-1]        # lane 0 was at infinity
+        qx[0], qy[0] = qx[-1], qy[-1]
+        mask = np.ones(n, bool)
+        mask[-1] = False
+        with _mode(0):
+            dev = [t.to("cuda") for t in (px, py, qx, qy)]
+            fs = k._mask_to_one(k._miller_loop_plain(*dev), mask).cpu()
+        prod = k._fp12_product_plain(fs)
+        fe = k._final_exponentiation_plain(prod)
+        is_one = bool(k.fp12_eq(fe, k.fp12_one_like((), fe)))
+        _PAIRING_PLAIN[n] = ((px, py, qx, qy), mask, fs, prod, fe,
+                             k._final_exponentiation_plain(fs[0]), is_one)
+    return _PAIRING_PLAIN[n]
+
+
+def _check_pairing(cuda_device, n):
+    """The Miller loop, the product (a tree over up to 64 slots, then
+    folded rounds past them), the final exponentiation of one value and
+    of the product, and the pairing check, each kernel against the
+    plain outputs, in the multiply lowering in force."""
+    _, k = _bls()
+    host, mask, fs, prod, fe, fe0, is_one = _pairing_inputs(n)
+    dev = [t.to(cuda_device) for t in host]
     got = k.miller_loop_batch(*dev, mask)
-    assert _canon_equal(got, want)
-    assert _canon_equal(k.fp12_product(got), k.fp12_product(want))
-    assert _canon_equal(k.final_exponentiation(got[0]),
-                        k.final_exponentiation(want[0]))
-    assert k.pairing_check_batch(*dev, mask) == \
-        k.pairing_check_batch(px, py, qx, qy, mask)
+    assert _canon_equal(got, fs)
+    assert _canon_equal(k.fp12_product(got), prod)
+    assert _canon_equal(k.final_exponentiation(got[0]), fe0)
+    out, flag = k._final_exp_kernel(1, got)
+    assert _canon_equal(out, fe)
+    assert bool(flag.item()) == is_one
+    assert k.pairing_check_batch(*dev, mask) == is_one
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("n", [1, 2, 3, 64, 65, 129, 257])
+def test_pairing_kernels(cuda_device, n, mode):
+    """n = 1 (the final exponentiation's own launch), 2, 3, 65 and 129
+    (odd; 129 the batch's Miller pairs), 64 (a full tree) and 257 (past
+    the 256 slots: a thread folds two values), one masked lane each."""
+    with _mode(mode):
+        _check_pairing(cuda_device, n)
+
+
+def test_final_exp_flags_a_valid_signature(cuda_device):
+    """The pairing check of a signature and its negated generator pair
+    is one on the kernels (the flag of a product that is one)."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import (
+        G1_GENERATOR, hash_to_g2, sign, sk_to_pk,
+    )
+    _, k = _bls()
+    msg = b"\x5a" * 32
+    sig, pk, h = sign(3, msg), sk_to_pk(3), hash_to_g2(msg)
+    px = torch.from_numpy(k.fp_encode(
+        [int(G1_GENERATOR.neg().to_affine()[0]), int(pk.to_affine()[0])]))
+    py = torch.from_numpy(k.fp_encode(
+        [int(G1_GENERATOR.neg().to_affine()[1]), int(pk.to_affine()[1])]))
+    qx = torch.from_numpy(k.fp2_encode([sig.to_affine()[0], h.to_affine()[0]]))
+    qy = torch.from_numpy(k.fp2_encode([sig.to_affine()[1], h.to_affine()[1]]))
+    for mode in (0, 1, 2):
+        with _mode(mode):
+            assert k.pairing_check_batch(
+                *(t.to(cuda_device) for t in (px, py, qx, qy))) is True
 
 
 @pytest.mark.parametrize("n", [1, 3, 130])
@@ -279,16 +354,63 @@ def test_g2_intake_kernel(cuda_device, n):
     assert bool(want.all())
 
 
-@pytest.mark.parametrize("n", [1, 3])
-def test_hash_to_g2_kernel(cuda_device, n):
-    from lighthouse_tpu_torch.crypto.bls12_381.hash_to_curve import DST_POP
+def _gx1_is_square(u):
+    """Whether SSWU takes x1 for u (oracle Fp2): g(x1) a square."""
+    from lighthouse_tpu_torch.crypto.bls12_381.hash_to_curve import (
+        ISO_A, ISO_B, SSWU_Z,
+    )
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import Fp2
+    zu2 = SSWU_Z * u.square()
+    tv1 = zu2.square() + zu2
+    if tv1.is_zero():
+        x1 = ISO_B * (SSWU_Z * ISO_A).inv()
+    else:
+        x1 = (-ISO_B) * ISO_A.inv() * (Fp2(1, 0) + tv1.inv())
+    return (x1 * x1 * x1 + ISO_A * x1 + ISO_B).is_square()
+
+
+#: plain outputs of hash-to-G2 by lane count (as _PAIRING_PLAIN)
+_H2G_PLAIN: dict = {}
+
+
+def _h2g_inputs(n):
+    """u0, u1 of n messages: lane 0's u0 is 0 (SSWU's exceptional case,
+    tv1 = 0) and its u1 one whose g(x1) is not a square; the plain
+    Jacobian outputs."""
+    from lighthouse_tpu_torch.crypto.bls12_381.hash_to_curve import (
+        DST_POP, hash_to_field_fp2,
+    )
     _, k = _bls()
-    u0, u1 = k.hash_to_field_host([bytes([i]) * i for i in range(n)],
-                                  DST_POP)
-    u0, u1 = torch.from_numpy(u0), torch.from_numpy(u1)
-    want = k.hash_to_g2_batch_from_u(u0, u1)
+    if n not in _H2G_PLAIN:
+        j = 0
+        while _gx1_is_square(hash_to_field_fp2(bytes([j]), 2, DST_POP)[1]):
+            j += 1
+        msgs = [bytes([j])] + [b"message %d" % i for i in range(1, n)]
+        u0, u1 = (np.ascontiguousarray(a)
+                  for a in k.hash_to_field_host(msgs, DST_POP))
+        u0[0] = 0
+        u0, u1 = torch.from_numpy(u0), torch.from_numpy(u1)
+        with _mode(0):
+            want = k._hash_to_g2_plain(u0.to("cuda"), u1.to("cuda"))
+        _H2G_PLAIN[n] = (u0, u1, tuple(t.cpu() for t in want))
+    return _H2G_PLAIN[n]
+
+
+def _check_hash_to_g2(cuda_device, n):
+    _, k = _bls()
+    u0, u1, want = _h2g_inputs(n)
     got = k.hash_to_g2_batch_from_u(u0.to(cuda_device), u1.to(cuda_device))
     assert _canon_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("n", [1, 3, 128, 1025])
+def test_hash_to_g2_kernel(cuda_device, n, mode):
+    """n = 1, 3 and 128 (the batch's message lanes) on the cooperative
+    design, 1,025 past LH_H2G_COOP_MAX on the one-thread design; lane 0
+    maps u = 0 (tv1 = 0) and a u whose g(x1) is not a square."""
+    with _mode(mode):
+        _check_hash_to_g2(cuda_device, n)
 
 
 @pytest.mark.parametrize("mode", [1, 2])
@@ -305,9 +427,9 @@ def test_bls_kernels_under_digit_modes(cuda_device, mode):
         for g2 in (False, True):
             test_scalar_mul_and_affine_kernels(cuda_device, 3, g2)
         test_aggregate_kernels(cuda_device, 3)
-        test_pairing_kernels(cuda_device, 3)
+        _check_pairing(cuda_device, 3)
         test_g2_intake_kernel(cuda_device, 3)
-        test_hash_to_g2_kernel(cuda_device, 3)
+        _check_hash_to_g2(cuda_device, 3)
     finally:
         bi.set_mxu_mode(0)
     for k in kernels.BLS_KERNELS:
