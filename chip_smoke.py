@@ -28,9 +28,16 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    batch's own lane inputs (10,240 lanes, 128 message lanes), canonical
    field values equal (max_abs_err 0); bound from the field multiplies of
    the kernel's own algorithm on those inputs (``ops/bls_cost.py``); for
-   the two thread-cooperative kernels (``final_exp``, ``hash_to_g2``) also
-   their critical path in dependent field multiplies and the card's time
-   per level of it, a diagnostic. Then
+   the latency-bound kernels (``final_exp``, ``hash_to_g2``,
+   ``miller_loop``, ``g2_sum``) also their critical path in dependent
+   field multiplies and the card's time per level of it, a diagnostic,
+   and for the two with two designs (``hash_to_g2``, ``miller_loop``) the
+   design the batch's n picked; the Miller loop also at 10,241 pairs (the
+   129 tiled), with 128 live (run on the live pairs alone, a block a
+   pair) and all live (a thread a pair). ``g2_sum`` is held as a point
+   (``measure.g2_projective_err``: its tree adds in another order than
+   the JAX one, so another Jacobian representative of the same point).
+   Then
    the module entry ``crypto.bls.verify_signature_sets`` on its default
    backend (``gpu``): True on the batch and equal to the C++ backend; five
    negative batches False on both; a 100-set batch True; every BLS kernel
@@ -44,9 +51,12 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    roots (equal to the single-GPU roots; median of 3 after a warm-up) and
    the 10k batch verified sharded at 10,240 lanes (True, and False with
    set 1 corrupted, each equal to the single-GPU verdict; warm median of
-   3), the bytes each ``all_gather`` moved, and each sharded program
+   3), the bytes each ``all_gather`` moved, each sharded program
    against the single-device composition on the same inputs (roots
-   byte-equal, Fp12 values canonically equal).
+   byte-equal, Fp12 values canonically equal), the sharded aggregate
+   signature limb for limb against one GPU's, and rank 0's kernels on the
+   path against their plain versions (the Miller loop at 10,241 pairs on
+   one card: its 128 live pairs, a block a pair).
 6. The multiply lowerings 1 and 2 of ``ops/bigint.py`` (the JAX package's
    ``LHTPU_BIGINT_MXU`` modes), then mode 0 again: their variants of every
    BLS kernel built (``-DLH_FP_MODE``); the ``bench.py`` ``mxu`` workload
@@ -54,7 +64,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    mont_mul/s per mode, the modes' results equal as field values and each
    equal to its plain chain); under each mode every variant on the inputs
    phase 4 gave its kernel (the flagship shapes: 10,240 / 128 lanes, 129
-   Miller pairs), held canonical-exact against phase 4's plain outputs on
+   Miller pairs, and the Miller loop's two checks at 10,241 pairs, one on
+   each design), held canonical-exact against phase 4's plain outputs on
    those inputs (every lowering gives the same canonical values) and
    timed, its bound the function's need (``bls_cost.FP_MUL_INT_OPS`` a
    field multiply) with its lowering's own issue count printed beside;
@@ -80,7 +91,7 @@ from pathlib import Path
 import numpy as np
 
 from lighthouse_tpu_torch.measure import (
-    Bounds, field_err, max_abs_err, nvidia_smi, time_cuda,
+    Bounds, field_err, g2_projective_err, max_abs_err, nvidia_smi, time_cuda,
 )
 from lighthouse_tpu_torch.seeded_state import N_VALIDATORS, REPS, STATE_SEED
 
@@ -423,7 +434,7 @@ class BlsKernelCheck:
         self.calls: list[dict] = []
 
     def run(self, kernel, kernel_fn, plain_fn, args, muls, mode=None,
-            repeats=3, depth=None):
+            repeats=3, depth=None, design=None, projective=False):
         import torch
 
         from lighthouse_tpu_torch.ops import bigint as bi
@@ -434,7 +445,8 @@ class BlsKernelCheck:
         call = {"kernel": kernel, "kernel_fn": kernel_fn, "args": args,
                 "want": want, "plain_ms": plain_ms,
                 "plain_muls": bi.MONT_MUL_ROWS.rows, "muls": muls,
-                "mode": mode, "repeats": repeats, "depth": depth}
+                "mode": mode, "repeats": repeats, "depth": depth,
+                "design": design, "projective": projective}
         self.calls.append(call)
         self._record(call, got)
         return got
@@ -457,9 +469,14 @@ class BlsKernelCheck:
         kernel, args, mode = call["kernel"], call["args"], call["mode"]
         name = kernel if self.mxu == 0 else f"{kernel}_mxu{self.mxu}"
         label = name if mode is None else f"{name} [{mode}]"
-        err = field_err(got, call["want"])
+        if call["projective"]:
+            err = g2_projective_err(got, call["want"])
+            what = "the canonical affine points"
+        else:
+            err = field_err(got, call["want"])
+            what = "canonical values"
         check(err == 0, f"{label}: kernel != plain (max_abs_err {err} on "
-                        f"canonical values)")
+                        f"{what})")
         muls = call["muls"](got) if callable(call["muls"]) else call["muls"]
         ms = time_cuda(lambda: call["kernel_fn"](*args), call["repeats"])
         got_t = got if isinstance(got, tuple) else (got,)
@@ -472,9 +489,13 @@ class BlsKernelCheck:
         plain_ms, plain_muls = call["plain_ms"], call["plain_muls"]
         against = ("its plain version" if self.mxu == 0 else
                    "phase 4's plain output on the same inputs")
-        depth = call["depth"]
+        depth, design = call["depth"], call["design"]
         per_level = None if depth is None else ms * 1e3 / depth
-        print(f"kernel {label} at {lanes} lanes: ok canonical-exact against "
+        exact = ("equal as a point (projectively)" if call["projective"]
+                 else "canonical-exact")
+        print(f"kernel {label} at {lanes} lanes"
+              + ("" if design is None else f" ({design})")
+              + f": ok {exact} against "
               f"{against} (plain {plain_ms:.1f} ms, {plain_muls} field "
               f"multiplies); {ms:.4f} ms; {muls} field multiplies; bound "
               f"{bound_ms:.4f} ms by {bound_by}"
@@ -486,10 +507,12 @@ class BlsKernelCheck:
         rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "algorithm_bound_ms": alg_ms,
                "field_muls": muls, "plain_field_muls": plain_muls,
-               "lanes": lanes, "depth": depth, "us_per_level": per_level}
+               "lanes": lanes, "depth": depth, "us_per_level": per_level,
+               "design": design}
         self.muls[label] = {"field_muls": muls, "plain_field_muls": plain_muls,
                             "algorithm_bound_ms": alg_ms, "ms": ms,
-                            "depth": depth, "us_per_level": per_level}
+                            "depth": depth, "us_per_level": per_level,
+                            "design": design}
         if mode is not None:
             row = next(r for r in self.rows if r["name"] == name)
             row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -502,7 +525,8 @@ class BlsKernelCheck:
                 "replaces": REPLACES[kernel], "launches": 0,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None})
+                "library_ms": None,
+                **({} if design is None else {"design": design})})
 
 
 def bls_setup() -> dict:
@@ -609,7 +633,10 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
                         k._g1_segment_sum_plain, (spx, spy, spz, starts, ends),
                         cost.g1_segment_sum(prep["starts"], prep["ends"]))
     ax, ay, az = run("g2_sum", k.g2_sum, k._g2_sum_plain, (ssx, ssy, ssz),
-                     cost.g2_sum(lanes))
+                     cost.g2_sum(lanes), depth=cost.g2_sum_depth(lanes),
+                     design=f"a tree over {min(-(-lanes // 128), 128)} "
+                            f"blocks of 128 threads, then one",
+                     projective=True)
     apx, apy = run("affine", k.jacobian_to_affine_fp,
                    k._jacobian_to_affine_fp_plain, (gpx, gpy, gpz),
                    cost.affine(small, 1), mode="G1")
@@ -621,10 +648,32 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
     qx = torch.cat([msg_x, aax[None]])
     qy = torch.cat([msg_y, aay[None]])
     mask = put(prep["mask"].astype(np.int32))
+    n_pairs = px.shape[0]
     fs = run("miller_loop", k.miller_loop_batch,
              lambda *a: k._mask_to_one(k._miller_loop_plain(*a[:4]), a[4]),
              (px, py, qx, qy, mask), cost.miller_loop(prep["mask"]),
-             repeats=2)
+             repeats=2, depth=cost.miller_loop_depth(n_pairs),
+             design=cost.miller_loop_design(n_pairs))
+    # the verification past 128 messages: its pairs tiled to 10,241 lanes,
+    # with the live lanes of 127 messages (the message lanes and the
+    # aggregate lane, as the sharded path on one card sends: run on the
+    # live pairs alone) and with every lane live (a thread a pair)
+    wide = lanes + 1
+    tile = torch.arange(wide, device=dev) % n_pairs
+    pairs = tuple(t[tile].contiguous() for t in (px, py, qx, qy))
+    live = np.zeros(wide, bool)
+    live[:127] = live[-1] = True
+    for label, m in ((f"{wide} pairs, {int(live.sum())} live", live),
+                     (f"{wide} pairs, all live", None)):
+        ran = cost.miller_loop_pairs(wide, wide if m is None
+                                     else int(m.sum()))
+        args = pairs if m is None else pairs + (put(m.astype(np.int32)),)
+        run("miller_loop", k.miller_loop_batch,
+            lambda *a: (k._miller_loop_plain(*a[:4]) if len(a) == 4 else
+                        k._mask_to_one(k._miller_loop_plain(*a[:4]), a[4])),
+            args, cost.miller_loop(np.ones(wide, bool) if m is None else m),
+            mode=label, repeats=2, depth=cost.miller_loop_depth(ran),
+            design=cost.miller_loop_design(ran))
 
     def final_plain(f):
         v = k._final_exponentiation_plain(k._fp12_product_plain(f))
@@ -886,7 +935,8 @@ def mxu_kernel_checks(bounds: Bounds, base: BlsKernelCheck,
                       mxu: int) -> BlsKernelCheck:
     """Every BLS kernel's mode-``mxu`` variant on the inputs phase 4 gave
     each kernel (the flagship batch's shapes: 10,240 signature and pubkey
-    lanes, 128 message lanes, 129 Miller pairs), held canonical-exact
+    lanes, 128 message lanes, 129 Miller pairs; the Miller loop also at
+    10,241 pairs on each of its designs), held canonical-exact
     against phase 4's plain outputs on those inputs, and timed."""
     c = BlsKernelCheck(bounds, mxu=mxu)
     for call in base.calls:

@@ -1,8 +1,9 @@
 // The cooperative tower layer: a group of threads performs one tower
 // operation together, each thread one of its independent Fp products.
 //
-// Shared by the two thread-cooperative kernels (pairing.cu final_exp,
-// hash_to_g2.cu). Each computes the field operations of the sequential
+// Shared by the thread-cooperative kernels (pairing.cu final_exp and the
+// cooperative Miller loop, hash_to_g2.cu, aggregate.cu g2_sum's top
+// levels). Each computes the field operations of the sequential
 // tower.cuh / curve.cuh functions: the same values, canonically (the
 // representative in [0, 2p) may differ, as additions come in another
 // order). What bounds a chain of tower operations on one thread is its
@@ -22,13 +23,16 @@
 //   product (Karatsuba over fp6_mul, as tower.cuh:fp12_mul) is 54
 //   products, then 36, 18 and 12 sums; a Granger-Scott cyclotomic square
 //   9 Fp2 squares (18 products), then 12 sums; a Frobenius map 18
-//   products, then 12 sums.
+//   products, then 12 sums; the Miller line's sparse product
+//   (tower.cuh:fp12_mul_by_014) 45 products, then 30 and 12 sums.
 //
 // - Warp level (w_step): every lane holds the same Fp2 values in
 //   registers and runs the formula's additions itself; a step's
 //   independent Fp2 products (at most 10) run on lanes 3q..3q+2 (fp_mul,
 //   out of line: one copy of the multiply for the warp's whole program)
 //   and come back to every lane through the warp's 32-Fp shared scratch.
+//   The G2 Jacobian doubling and addition (w_jac_dbl, w_jac_add) run on
+//   it for hash_to_g2.cu and the top levels of aggregate.cu's tree.
 #pragma once
 #include "curve.cuh"
 
@@ -43,6 +47,9 @@ enum CoKind {
     CO_SQR2,      // dst = a^2 (Fp2)
     CO_MUL1,      // dst = a * b (Fp)
     CO_COPY,      // dst = a (Fp12)
+    CO_MUL014,    // dst = a * b (Fp12) for the sparse line b = (b0 + b1 v)
+                  // + (b4 v) w: reads b's Fp2 slots 0, 1 and 4 only
+    CO_MULF,      // dst = a * b (Fp2 by Fp)
 };
 
 struct CoOp {
@@ -71,9 +78,10 @@ LH_DEV CoOp co_op(int kind, Fp* dst, const Fp* a, const Fp* b = 0,
 LH_DEV int co_nprod(int kind) {
     switch (kind) {
     case CO_MUL12: return 54;
+    case CO_MUL014: return 45;
     case CO_CSQR: case CO_FROB: case CO_MUL6: return 18;
     case CO_MUL2: return 3;
-    case CO_SQR2: return 2;
+    case CO_SQR2: case CO_MULF: return 2;
     case CO_MUL1: return 1;
     default: return 0;
     }
@@ -82,8 +90,9 @@ LH_DEV int co_nprod(int kind) {
 LH_DEV int co_nstage1(int kind) {
     switch (kind) {
     case CO_MUL12: return 36;
+    case CO_MUL014: return 30;
     case CO_FROB: case CO_MUL6: return 12;
-    case CO_MUL2: case CO_SQR2: return 2;
+    case CO_MUL2: case CO_SQR2: case CO_MULF: return 2;
     case CO_MUL1: return 1;
     case CO_COPY: return 12;
     default: return 0;
@@ -93,7 +102,7 @@ LH_DEV int co_nstage1(int kind) {
 LH_DEV int co_nstage2(int kind) {
     switch (kind) {
     case CO_MUL12: return 18;
-    case CO_CSQR: return 12;
+    case CO_CSQR: case CO_MUL014: return 12;
     case CO_MUL6: return 6;
     default: return 0;
     }
@@ -145,6 +154,14 @@ LH_DEV int co_jm(int s6) {
     return s6 < 3 ? 1 << s6 : (s6 == 3 ? 6 : (s6 == 4 ? 3 : 5));
 }
 
+// fp12_mul_by_014's 15 Fp2 products p1..p6, q0..q2, r1..r6 (tower.cuh), two
+// bits each: the left operand's halves (1: x = a.c0, 2: y = a.c1, 3: w =
+// x + y), its Fp2 slot j, and the right one (0: b0, 1: b1, 2: b4, 3: b1 +
+// b4)
+#define CO_014_LHM 0x3ffea555u
+#define CO_014_LJ 0x25224948u
+#define CO_014_R 0x0cf2a114u
+
 // the operands of product k of op o
 LH_DEV void co_operands(const CoOp& o, int k, Fp& x, Fp& y) {
     switch (o.kind) {
@@ -188,6 +205,21 @@ LH_DEV void co_operands(const CoOp& o, int k, Fp& x, Fp& y) {
         else { fp_add(x, x0, x1); fp_add(y, g0, g1); }
         break;
     }
+    case CO_MUL014: {
+        const int q = k / 3, s2 = k - 3 * q;
+        const int em = s2 < 2 ? 1 << s2 : 3;
+        const int lhm = (CO_014_LHM >> (2 * q)) & 3;
+        const int lj = (CO_014_LJ >> (2 * q)) & 3;
+        const int rk = (CO_014_R >> (2 * q)) & 3;
+        const int rhm = rk == 0 || rk == 1 ? 1 : (rk == 2 ? 2 : 3);
+        co_operand(x, o.a, lhm, 1 << lj, em, false);
+        co_operand(y, o.b, rhm, rk == 0 ? 1 : 2, em, false);
+        break;
+    }
+    case CO_MULF:
+        x = o.a[k];
+        y = o.b[0];
+        break;
     case CO_MUL2:
         if (k == 0) { x = o.a[0]; y = o.b[0]; }
         else if (k == 1) { x = o.a[1]; y = o.b[1]; }
@@ -219,7 +251,7 @@ LH_DEV void co_fp2_post(Fp& out, const Fp* t, int e) {
 // stage 1: Fp2 recombination (and the single-stage kinds' outputs)
 LH_DEV void co_stage1(const CoOp& o, int k, const Fp* T, Fp* Q) {
     switch (o.kind) {
-    case CO_MUL12: case CO_MUL6:
+    case CO_MUL12: case CO_MUL6: case CO_MUL014:
         co_fp2_post(Q[k], T + 3 * (k >> 1), k & 1);
         break;
     case CO_FROB: {
@@ -237,6 +269,9 @@ LH_DEV void co_stage1(const CoOp& o, int k, const Fp* T, Fp* Q) {
         break;
     case CO_MUL1:
         o.dst[0] = T[0];
+        break;
+    case CO_MULF:
+        o.dst[k] = T[k];
         break;
     default:            // CO_COPY
         o.dst[k] = o.a[k];
@@ -257,9 +292,39 @@ LH_DEV void co_fp6_masks(int j, int e, unsigned& pos, unsigned& neg) {
         : m == 3 ? 0x00Au : m == 4 ? 0x011u : 0x022u;
 }
 
-// stage 2: Fp6 recombination; the cyclotomic square's outputs
+// fp12_mul_by_014's outputs (6h + 2j + e) as sums of its Fp2 products'
+// coefficients (2 q + e, q in the order of CO_014_LHM): added (pos) and
+// subtracted (neg); c0 = (t00 + xi q1, t01 + t10, t02 + q0), c1 = (u0 -
+// t00 - t10, u1 - t01 - q0, u2 - t02 - q1) with t00 = p1 + xi p2, t01 =
+// p3 + p4, t02 = p5 + p6, t10 = xi q2, u0 = r1 + xi r2, u1 = r3 + r4, u2 =
+// r5 + r6
+LH_DEV void co_014_masks(int k, unsigned& pos, unsigned& neg) {
+    switch (k) {
+    case 0: pos = 0x00004005u; neg = 0x00008008u; break;
+    case 1: pos = 0x0000C00Eu; neg = 0; break;
+    case 2: pos = 0x00010050u; neg = 0x00020000u; break;
+    case 3: pos = 0x000300A0u; neg = 0; break;
+    case 4: pos = 0x00001500u; neg = 0; break;
+    case 5: pos = 0x00002A00u; neg = 0; break;
+    case 6: pos = 0x00160008u; neg = 0x00210005u; break;
+    case 7: pos = 0x00380000u; neg = 0x0003000Eu; break;
+    case 8: pos = 0x01400000u; neg = 0x00001050u; break;
+    case 9: pos = 0x02800000u; neg = 0x000020A0u; break;
+    case 10: pos = 0x14000000u; neg = 0x00004500u; break;
+    default: pos = 0x28000000u; neg = 0x00008A00u; break;
+    }
+}
+
+// stage 2: Fp6 recombination; the cyclotomic square's and the sparse
+// product's outputs
 LH_DEV void co_stage2(const CoOp& o, int k, const Fp* T, const Fp* Q,
                       Fp* S) {
+    if (o.kind == CO_MUL014) {
+        unsigned pos, neg;
+        co_014_masks(k, pos, neg);
+        co_mask_sum(o.dst[k], Q, pos, neg);
+        return;
+    }
     if (o.kind == CO_CSQR) {
         // squares Sq(q) = (T[2q], T[2q + 1]); pair g: a^2, b^2, (a + b)^2 at
         // q = 3g, 3g + 1, 3g + 2. Fp4 square (a^2 + xi b^2, (a + b)^2 - a^2
@@ -334,7 +399,8 @@ LH_NOINL void co_step(const CoOp* ops, int nops, Fp* scratch) {
     for (int i = 0; i < nops; ++i) {
         const int kd = ops[i].kind;
         tp[i + 1] = tp[i] + co_nprod(kd);
-        tq[i + 1] = tq[i] + (kd == CO_MUL12 ? 36 : kd == CO_MUL6 ? 12 : 0);
+        tq[i + 1] = tq[i] + (kd == CO_MUL12 ? 36 : kd == CO_MUL6 ? 12
+                             : kd == CO_MUL014 ? 30 : 0);
         ts[i + 1] = ts[i] + (kd == CO_MUL12 ? 18 : 0);
         n1[i + 1] = n1[i] + co_nstage1(kd);
         n2[i + 1] = n2[i] + co_nstage2(kd);
@@ -527,4 +593,97 @@ LH_DEV void w_fp2_pow(Fp* sc, Fp2& r, const Fp2& a, const uint32_t* e) {
     }
     if (have) w_mul(sc, acc, acc, base); else acc = base;
     r = acc;
+}
+
+// curve.cuh jac_dbl on the warp: 7 products in 3 steps
+LH_NOINL void w_jac_dbl(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p) {
+    Fp2 A, B, yz, E, C, t, Fv, D, X3, EDX, s;
+    {
+        Fp2 R[3];
+        const Fp2 a[3] = {p.x, p.y, p.y}, b[3] = {p.x, p.y, p.z};
+        w_step<3>(sc, R, a, b, 0);
+        A = R[0]; B = R[1]; yz = R[2];
+    }
+    f_muln(E, A, 3);
+    fp2_add(s, p.x, B);
+    {
+        Fp2 R[3];
+        const Fp2 a[3] = {B, s, E}, b[3] = {B, s, E};
+        w_step<3>(sc, R, a, b, 0);
+        C = R[0]; t = R[1]; Fv = R[2];
+    }
+    fp2_sub(s, t, A);
+    fp2_sub(s, s, C);
+    f_muln(D, s, 2);
+    f_muln(s, D, 2);
+    fp2_sub(X3, Fv, s);
+    fp2_sub(s, D, X3);
+    w_mul(sc, EDX, E, s);
+    f_muln(s, C, 8);
+    fp2_sub(r.y, EDX, s);
+    f_muln(r.z, yz, 2);
+    r.x = X3;
+}
+
+// curve.cuh jac_add on the warp: 16 products in 5 steps, the same
+// infinity and doubling branches
+LH_NOINL void w_jac_add(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p,
+                        const Jac<Fp2>& q) {
+    const bool inf1 = fp2_is_zero(p.z), inf2 = fp2_is_zero(q.z);
+    Fp2 Z1Z1, Z2Z2, zz, U1, U2, z2c, z1c, H, H2, S1, S2, I, rr, J, V, rr2;
+    Fp2 X3, Y3, Z3, rVX, S1J, s, d;
+    fp2_add(s, p.z, q.z);
+    {
+        Fp2 R[3];
+        const Fp2 a[3] = {p.z, q.z, s}, b[3] = {p.z, q.z, s};
+        w_step<3>(sc, R, a, b, 0);
+        Z1Z1 = R[0]; Z2Z2 = R[1]; zz = R[2];
+    }
+    {
+        Fp2 R[4];
+        const Fp2 a[4] = {p.x, q.x, q.z, p.z}, b[4] = {Z2Z2, Z1Z1, Z2Z2, Z1Z1};
+        w_step<4>(sc, R, a, b, 0);
+        U1 = R[0]; U2 = R[1]; z2c = R[2]; z1c = R[3];
+    }
+    fp2_sub(H, U2, U1);
+    f_muln(H2, H, 2);
+    {
+        Fp2 R[3];
+        const Fp2 a[3] = {p.y, q.y, H2}, b[3] = {z2c, z1c, H2};
+        w_step<3>(sc, R, a, b, 0);
+        S1 = R[0]; S2 = R[1]; I = R[2];
+    }
+    const bool same_x = fp2_is_zero(H);
+    fp2_sub(d, S2, S1);
+    const bool same_y = fp2_is_zero(d);
+    f_muln(rr, d, 2);
+    {
+        Fp2 R[3];
+        const Fp2 a[3] = {H, U1, rr}, b[3] = {I, I, rr};
+        w_step<3>(sc, R, a, b, 0);
+        J = R[0]; V = R[1]; rr2 = R[2];
+    }
+    fp2_sub(X3, rr2, J);
+    f_muln(s, V, 2);
+    fp2_sub(X3, X3, s);
+    fp2_sub(s, V, X3);
+    fp2_sub(d, zz, Z1Z1);
+    fp2_sub(d, d, Z2Z2);
+    {
+        Fp2 R[3];
+        const Fp2 a[3] = {rr, S1, d}, b[3] = {s, J, H};
+        w_step<3>(sc, R, a, b, 0);
+        rVX = R[0]; S1J = R[1]; Z3 = R[2];
+    }
+    f_muln(s, S1J, 2);
+    fp2_sub(Y3, rVX, s);
+    Jac<Fp2> out;
+    out.x = X3;
+    out.y = Y3;
+    out.z = Z3;
+    if (same_x && same_y && !inf1 && !inf2) w_jac_dbl(sc, out, p);
+    if (same_x && !same_y && !inf1 && !inf2) fp2_zero(out.z);
+    if (inf1) out = q;
+    if (inf2 && !inf1) out = p;
+    r = out;
 }

@@ -297,99 +297,6 @@ LH_DEV void w_iso_map(Fp* sc, Jac<Fp2>& r, const Fp2& x, const Fp2& y) {
     if (bad) fp2_zero(r.z);
 }
 
-// curve.cuh jac_dbl on the warp: 7 products in 3 steps
-LH_NOINL void w_jac_dbl(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p) {
-    Fp2 A, B, yz, E, C, t, Fv, D, X3, EDX, s;
-    {
-        Fp2 R[3];
-        const Fp2 a[3] = {p.x, p.y, p.y}, b[3] = {p.x, p.y, p.z};
-        w_step<3>(sc, R, a, b, 0);
-        A = R[0]; B = R[1]; yz = R[2];
-    }
-    f_muln(E, A, 3);
-    fp2_add(s, p.x, B);
-    {
-        Fp2 R[3];
-        const Fp2 a[3] = {B, s, E}, b[3] = {B, s, E};
-        w_step<3>(sc, R, a, b, 0);
-        C = R[0]; t = R[1]; Fv = R[2];
-    }
-    fp2_sub(s, t, A);
-    fp2_sub(s, s, C);
-    f_muln(D, s, 2);
-    f_muln(s, D, 2);
-    fp2_sub(X3, Fv, s);
-    fp2_sub(s, D, X3);
-    w_mul(sc, EDX, E, s);
-    f_muln(s, C, 8);
-    fp2_sub(r.y, EDX, s);
-    f_muln(r.z, yz, 2);
-    r.x = X3;
-}
-
-// curve.cuh jac_add on the warp: 16 products in 5 steps, the same
-// infinity and doubling branches
-LH_NOINL void w_jac_add(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p,
-                        const Jac<Fp2>& q) {
-    const bool inf1 = fp2_is_zero(p.z), inf2 = fp2_is_zero(q.z);
-    Fp2 Z1Z1, Z2Z2, zz, U1, U2, z2c, z1c, H, H2, S1, S2, I, rr, J, V, rr2;
-    Fp2 X3, Y3, Z3, rVX, S1J, s, d;
-    fp2_add(s, p.z, q.z);
-    {
-        Fp2 R[3];
-        const Fp2 a[3] = {p.z, q.z, s}, b[3] = {p.z, q.z, s};
-        w_step<3>(sc, R, a, b, 0);
-        Z1Z1 = R[0]; Z2Z2 = R[1]; zz = R[2];
-    }
-    {
-        Fp2 R[4];
-        const Fp2 a[4] = {p.x, q.x, q.z, p.z}, b[4] = {Z2Z2, Z1Z1, Z2Z2, Z1Z1};
-        w_step<4>(sc, R, a, b, 0);
-        U1 = R[0]; U2 = R[1]; z2c = R[2]; z1c = R[3];
-    }
-    fp2_sub(H, U2, U1);
-    f_muln(H2, H, 2);
-    {
-        Fp2 R[3];
-        const Fp2 a[3] = {p.y, q.y, H2}, b[3] = {z2c, z1c, H2};
-        w_step<3>(sc, R, a, b, 0);
-        S1 = R[0]; S2 = R[1]; I = R[2];
-    }
-    const bool same_x = fp2_is_zero(H);
-    fp2_sub(d, S2, S1);
-    const bool same_y = fp2_is_zero(d);
-    f_muln(rr, d, 2);
-    {
-        Fp2 R[3];
-        const Fp2 a[3] = {H, U1, rr}, b[3] = {I, I, rr};
-        w_step<3>(sc, R, a, b, 0);
-        J = R[0]; V = R[1]; rr2 = R[2];
-    }
-    fp2_sub(X3, rr2, J);
-    f_muln(s, V, 2);
-    fp2_sub(X3, X3, s);
-    fp2_sub(s, V, X3);
-    fp2_sub(d, zz, Z1Z1);
-    fp2_sub(d, d, Z2Z2);
-    {
-        Fp2 R[3];
-        const Fp2 a[3] = {rr, S1, d}, b[3] = {s, J, H};
-        w_step<3>(sc, R, a, b, 0);
-        rVX = R[0]; S1J = R[1]; Z3 = R[2];
-    }
-    f_muln(s, S1J, 2);
-    fp2_sub(Y3, rVX, s);
-    Jac<Fp2> out;
-    out.x = X3;
-    out.y = Y3;
-    out.z = Z3;
-    if (same_x && same_y && !inf1 && !inf2) w_jac_dbl(sc, out, p);
-    if (same_x && !same_y && !inf1 && !inf2) fp2_zero(out.z);
-    if (inf1) out = q;
-    if (inf2 && !inf1) out = p;
-    r = out;
-}
-
 // jac_scalar_mul_const on the warp: from (x, y, 0), every bit of k from
 // its top one down
 LH_DEV void w_scalar_mul_const(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p,

@@ -1,9 +1,28 @@
 // pairing: the optimal-ate pairing check of a batch.
-//   lh_miller_loop: one thread per (P, Q) pair: the Miller loop over the
-//       bits of |x| with the JAX projective doubling and mixed addition
-//       steps and their line coefficients, each line multiplied into f in
-//       the sparse fp12_mul_by_014 shape; f conjugated at the end (x < 0);
-//       lanes whose mask is 0 write the identity.
+//   lh_miller_loop: the Miller loop over the bits of |x| with the JAX
+//       projective doubling and mixed addition steps and their line
+//       coefficients, each line multiplied into f in the sparse
+//       fp12_mul_by_014 shape; f conjugated at the end (x < 0); lanes
+//       whose mask is 0 write the identity. Two designs of one function,
+//       picked by n alone:
+//     - up to LH_ML_COOP_MAX pairs (the 10k batch's 129), one block of
+//       128 threads a pair on the cooperative layer (coop.cuh, block
+//       level): each of T's four layers of independent Fp2 products is
+//       one step, the line's scalings by px, py ride in the second (the
+//       line is known after it), f times the line in the third, and f^2
+//       for the next bit in the fourth, so a doubling bit is 4 steps and
+//       an addition 4 more (271 in all, bls_cost.miller_loop_depth); the
+//       additions between the layers are a short pass of two threads.
+//       The formulas of T are the one-thread kernel's, so f is the same
+//       field value, lane for lane;
+//     - past it, one thread a pair with the sequential tower: thousands
+//       of chains fill the card, where a block a pair would run many
+//       waves. The crossover is measured (compare_kernels): a block a
+//       pair is faster up to 2,561 pairs (16.7 ms against 18.3), 3.2x
+//       slower at 10,241 (66.1 against 20.6). A batch past it whose
+//       live pairs are within it (the verification's 10,241 lanes over
+//       a few hundred messages) comes here as its live pairs alone
+//       (ops/bls12_381.py miller_loop_batch), so n is the live count.
 //   lh_final_exp: one block of 256 threads on the cooperative layer
 //       (coop.cuh): the product of the n Miller outputs as a pairwise tree
 //       over 256 shared-memory slots (ceil(log2 n) levels for n <= 256,
@@ -25,7 +44,8 @@
 // :711 _fp12_prod_rows / :723 fp12_product, :805 final_exponentiation and
 // :842 pairing_check_batch (the JAX hard part is a base-p scan over a
 // Frobenius table; the x-chain gives the same value).
-// Bound: the Miller loop integer multiply-adds. The final exponentiation
+// Bound: the Miller loop integer multiply-adds; the cooperative design
+// is latency bound, its time its 271 steps. The final exponentiation
 // is latency bound by design: one chain, so its time is its depth in
 // dependent field multiplies (bls_cost.final_exp_depth: 8 product levels
 // + 331 at 129 values) times one cooperative step, a multiply's latency
@@ -145,6 +165,189 @@ __global__ void miller_loop_kernel(const int32_t* __restrict__ px,
                                    int32_t* __restrict__ out, long long n) {
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n) miller_loop_lane(px, py, qx, qy, mask, out, i);
+}
+
+#define LH_ML_THREADS 128      // a pair's block (cooperative)
+#ifndef LH_ML_COOP_MAX
+#define LH_ML_COOP_MAX 2561    // wider batches take a thread a pair
+#endif
+// shared memory of the cooperative Miller loop, in Fp: f, the line, T, Q,
+// P, the constants 1/2 and 3b', 16 Fp2 of temporaries, the step scratch
+#define LH_ML_SH_W 39
+#define LH_ML_SMEM ((LH_ML_SH_W + 32 + CO_SCRATCH) * (int)sizeof(Fp))
+
+// T = 2T on the block (miller_dbl_step's layers) and f = f * line; then,
+// when sq, f = f^2 for the next bit. l: the line (CO_MUL014's b); w: 16
+// Fp2 of workspace
+LH_DEV void co_miller_dbl(Fp* f, Fp* l, Fp* tx, Fp* ty, Fp* tz,
+                          const Fp* px, const Fp* py, const Fp* half,
+                          const Fp* b3, Fp* w, Fp* sc, bool last, bool sq) {
+    Fp *s = w, *b = w + 2, *c = w + 4, *j = w + 6, *u = w + 8;
+    Fp *txty = w + 10, *h = w + 12, *a = w + 14, *e = w + 16, *j3 = w + 18;
+    Fp *nh = w + 20, *s1 = w + 22, *s2 = w + 24, *g = w + 26, *gg = w + 28;
+    Fp *ee = w + 30;
+    const int tid = threadIdx.x;
+    if (tid < 2) fp_add(s[tid], ty[tid], tz[tid]);
+    __syncthreads();
+    const CoOp l1[5] = {co_op(CO_SQR2, b, ty), co_op(CO_SQR2, c, tz),
+                        co_op(CO_SQR2, j, tx), co_op(CO_SQR2, u, s),
+                        co_op(CO_MUL2, txty, tx, ty)};
+    co_step(l1, 5, sc);
+    if (tid < 2) {              // h = u - (b + c); the line's 3j and -h
+        Fp t;
+        fp_add(t, b[tid], c[tid]);
+        fp_sub(h[tid], u[tid], t);
+        fp_add(t, j[tid], j[tid]);
+        fp_add(j3[tid], t, j[tid]);
+        fp_neg(nh[tid], h[tid]);
+    }
+    __syncthreads();
+    const CoOp l2[4] = {co_op(CO_MULF, a, txty, half),
+                        co_op(CO_MUL2, e, c, b3),
+                        co_op(CO_MULF, l + 2, j3, px),
+                        co_op(CO_MULF, l + 8, nh, py)};
+    co_step(l2, 4, sc);
+    if (tid < 2) {              // the line's i = e - b; b + 3e, b - 3e
+        Fp t, f3;
+        fp_add(t, e[tid], e[tid]);
+        fp_add(f3, t, e[tid]);
+        fp_sub(l[tid], e[tid], b[tid]);
+        fp_add(s1[tid], b[tid], f3);
+        fp_sub(s2[tid], b[tid], f3);
+    }
+    __syncthreads();
+    const CoOp l3[4] = {co_op(CO_MULF, g, s1, half),
+                        co_op(CO_MUL2, tx, a, s2), co_op(CO_MUL2, tz, b, h),
+                        co_op(CO_MUL014, f, f, l)};
+    co_step(l3, 4, sc);
+    if (last) return;           // the last bit's y is never read
+    const CoOp l4[3] = {co_op(CO_SQR2, gg, g), co_op(CO_SQR2, ee, e),
+                        co_op(CO_MUL12, f, f, f)};
+    co_step(l4, sq ? 3 : 2, sc);
+    if (tid < 2) {              // y = gg - 3 ee
+        Fp t;
+        fp_add(t, ee[tid], ee[tid]);
+        fp_add(t, t, ee[tid]);
+        fp_sub(ty[tid], gg[tid], t);
+    }
+    __syncthreads();
+}
+
+// T = T + Q on the block (miller_add_step's layers) and f = f * line;
+// then, when sq, f = f^2 for the next bit
+LH_DEV void co_miller_add(Fp* f, Fp* l, Fp* tx, Fp* ty, Fp* tz,
+                          const Fp* qx, const Fp* qy, const Fp* px,
+                          const Fp* py, Fp* w, Fp* sc, bool sq) {
+    Fp *qyz = w, *qxz = w + 2, *th = w + 4, *lam = w + 6, *nth = w + 8;
+    Fp *c = w + 10, *d = w + 12, *tqx = w + 14, *lqy = w + 16, *e = w + 18;
+    Fp *ff = w + 20, *g = w + 22, *h = w + 24, *sg = w + 26, *tgh = w + 28;
+    Fp *ety = w + 30;
+    const int tid = threadIdx.x;
+    const CoOp l1[2] = {co_op(CO_MUL2, qyz, qy, tz),
+                        co_op(CO_MUL2, qxz, qx, tz)};
+    co_step(l1, 2, sc);
+    if (tid < 2) {              // theta, lambda; the line's -theta
+        fp_sub(th[tid], ty[tid], qyz[tid]);
+        fp_sub(lam[tid], tx[tid], qxz[tid]);
+        fp_neg(nth[tid], th[tid]);
+    }
+    __syncthreads();
+    const CoOp l2[6] = {co_op(CO_SQR2, c, th), co_op(CO_SQR2, d, lam),
+                        co_op(CO_MUL2, tqx, th, qx),
+                        co_op(CO_MUL2, lqy, lam, qy),
+                        co_op(CO_MULF, l + 2, nth, px),
+                        co_op(CO_MULF, l + 8, lam, py)};
+    co_step(l2, 6, sc);
+    if (tid < 2) fp_sub(l[tid], tqx[tid], lqy[tid]);     // the line's j
+    __syncthreads();
+    const CoOp l3[4] = {co_op(CO_MUL2, e, lam, d), co_op(CO_MUL2, ff, tz, c),
+                        co_op(CO_MUL2, g, tx, d),
+                        co_op(CO_MUL014, f, f, l)};
+    co_step(l3, 4, sc);
+    if (tid < 2) {              // h = e + f - 2g; g - h
+        Fp t, g2;
+        fp_add(t, e[tid], ff[tid]);
+        fp_add(g2, g[tid], g[tid]);
+        fp_sub(h[tid], t, g2);
+        fp_sub(sg[tid], g[tid], h[tid]);
+    }
+    __syncthreads();
+    const CoOp l4[5] = {co_op(CO_MUL2, tx, lam, h),
+                        co_op(CO_MUL2, tgh, th, sg),
+                        co_op(CO_MUL2, ety, e, ty),
+                        co_op(CO_MUL2, tz, tz, e),
+                        co_op(CO_MUL12, f, f, f)};
+    co_step(l4, sq ? 5 : 4, sc);
+    if (tid < 2) fp_sub(ty[tid], tgh[tid], ety[tid]);
+    __syncthreads();
+}
+
+// pair blockIdx.x: f = conj(Miller(P, Q)), or one where its mask is 0
+__global__ void __launch_bounds__(LH_ML_THREADS)
+miller_loop_coop_kernel(const int32_t* __restrict__ px,
+                        const int32_t* __restrict__ py,
+                        const int32_t* __restrict__ qx,
+                        const int32_t* __restrict__ qy,
+                        const int32_t* __restrict__ mask,
+                        int32_t* __restrict__ out) {
+    extern __shared__ uint4 lh_smem[];
+    Fp* sh = reinterpret_cast<Fp*>(lh_smem);
+    Fp *f = sh, *l = sh + 12, *tx = sh + 24, *ty = sh + 26, *tz = sh + 28;
+    Fp *QX = sh + 30, *QY = sh + 32, *PX = sh + 34, *PY = sh + 35;
+    Fp *half = sh + 36, *b3 = sh + 37, *w = sh + LH_ML_SH_W;
+    Fp* sc = w + 32;
+    const long long i = blockIdx.x;
+    const int tid = threadIdx.x;
+    const bool live = mask[i] != 0;
+    if (tid < 12) {             // f = 1
+        Fp v;
+        if (tid == 0) fp_one(v); else fp_zero(v);
+        f[tid] = v;
+    } else if (live && tid < 23) {  // P, Q; T = (Q, 1); 1/2 and 3b'
+        const int e = tid & 1;
+        Fp v;
+        if (tid == 12) {
+            fp_load(v, px + i * LH_LIMBS);
+            PX[0] = v;
+        } else if (tid == 13) {
+            fp_load(v, py + i * LH_LIMBS);
+            PY[0] = v;
+        } else if (tid < 16) {
+            fp_load(v, qx + (2 * i + e) * LH_LIMBS);
+            QX[e] = v;
+            tx[e] = v;
+        } else if (tid < 18) {
+            fp_load(v, qy + (2 * i + e) * LH_LIMBS);
+            QY[e] = v;
+            ty[e] = v;
+        } else if (tid < 20) {
+            if (e == 0) fp_one(v); else fp_zero(v);
+            tz[e] = v;
+        } else if (tid == 20) {
+            fp_set_const(v, LH_TWO_INV);
+            half[0] = v;
+        } else {
+            Fp2 t;
+            fp2_set_const(t, LH_B_TWIST_3);
+            if (tid == 21) b3[0] = t.c0; else b3[1] = t.c1;
+        }
+    }
+    __syncthreads();
+    if (live) {
+        for (int b = 62; b >= 0; --b) {
+            const bool add = (LH_X_ABS >> b) & 1;
+            co_miller_dbl(f, l, tx, ty, tz, PX, PY, half, b3, w, sc,
+                          b == 0 && !add, !add);
+            if (add)
+                co_miller_add(f, l, tx, ty, tz, QX, QY, PX, PY, w, sc,
+                              b > 0);
+        }
+    }
+    if (tid < 12) {             // conj(f): c1 negated
+        Fp v = f[tid];
+        if (tid >= 6) fp_neg(v, v);
+        fp_store(out + (i * 12 + tid) * LH_LIMBS, v);
+    }
 }
 
 #define LH_FE_THREADS 256      // = ops/bls_cost.py FINAL_EXP_SLOTS
@@ -296,11 +499,18 @@ extern "C" int lh_miller_loop(const void* px, const void* py,
                               const void* qx, const void* qy,
                               const void* mask, void* out, long long n,
                               void* stream) {
-    const int threads = 32;
-    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    miller_loop_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n > LH_ML_COOP_MAX) {
+        const int threads = 32;
+        const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+        miller_loop_kernel<<<blocks, threads, 0, s>>>(
+            (const int32_t*)px, (const int32_t*)py, (const int32_t*)qx,
+            (const int32_t*)qy, (const int32_t*)mask, (int32_t*)out, n);
+        return (int)cudaGetLastError();
+    }
+    miller_loop_coop_kernel<<<(unsigned)n, LH_ML_THREADS, LH_ML_SMEM, s>>>(
         (const int32_t*)px, (const int32_t*)py, (const int32_t*)qx,
-        (const int32_t*)qy, (const int32_t*)mask, (int32_t*)out, n);
+        (const int32_t*)qy, (const int32_t*)mask, (int32_t*)out);
     return (int)cudaGetLastError();
 }
 

@@ -13,10 +13,14 @@
   batch verified at 10,240 lanes — with each sharded program held to the
   single-device composition on the same inputs and timed.
 
-    python -m lighthouse_tpu_torch.entry --multigpu N [--out REPORT.json]
+    python -m lighthouse_tpu_torch.entry --multigpu N [--modes 0,1,2] \
+        [--out REPORT.json]
 
-runs the dryrun and the full-width run on ``N`` cards and prints one JSON
-report; it exits nonzero if any check fails.
+runs the dryrun and the full-width run on ``N`` cards under each multiply
+lowering of ``--modes`` (default: the process's, ``LHTPU_BIGINT_MXU``;
+the batch is signed and the pubkey cache warmed once for all of them) and
+prints one JSON report, keyed by mode (``by_mode``); it exits nonzero
+if any check fails.
 """
 from __future__ import annotations
 
@@ -459,6 +463,11 @@ def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
                                              (lanes, 2, bi.NLIMBS)))
         bits_pk = pb._put(mesh, k.scalars_to_bits(prep["pk_rands"], 64))
         bits_sig = pb._put(mesh, k.scalars_to_bits(prep["sig_rands"], 64))
+        # the aggregate of the signatures scaled on one GPU: the sharded
+        # path's must be the same limbs (the tree's order is fixed by n)
+        single_agg = k.g2_sum(*k.g2_scalar_mul(sig_x, sig_y, one2, bits_sig))
+        rep["aggregate_equal_single"] = all(
+            torch.equal(a, b) for a, b in zip(keep["aggregate"], single_agg))
     for degree, inputs, label in ((1, g1_in, "bls.scaled_pubkeys"),
                                   (2, g2_in, "bls.scaled_signatures")):
         out_bytes = 3 * lanes * 128 * degree
@@ -604,11 +613,15 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
         cost.affine(1, 2) * mul)
 
     px, py, qx, qy, mask = local
-    fs = run("miller_loop", f"sharded, masked, {px.shape[0]} pairs",
+    host_mask = mask.cpu().numpy()
+    ran = cost.miller_loop_pairs(px.shape[0], int(host_mask.sum()))
+    fs = run("miller_loop", f"sharded, masked, {px.shape[0]} pairs, "
+                            f"{int(host_mask.sum())} live, "
+                            f"{cost.miller_loop_design(ran)}",
              lambda: k.miller_loop_batch(px, py, qx, qy, mask),
              lambda: k._mask_to_one(k._miller_loop_plain(px, py, qx, qy),
                                     mask),
-             local, cost.miller_loop(mask.cpu().numpy()) * mul)
+             local, cost.miller_loop(host_mask) * mul)
     run("final_exp", f"sharded, product of {fs.shape[0]} pairs",
         lambda: k.fp12_product(fs), lambda: k._fp12_product_plain(fs),
         (fs,), cost.final_exp(fs.shape[0], 0) * mul)
@@ -679,6 +692,7 @@ def multigpu_run(n_devices: int, sets=None, gpu=None) -> dict:
                                    == rep["single_verify_bad"]),
         "programs_equal_plain": all(r["max_abs_err"] == 0
                                     for r in rep["programs"]),
+        "aggregate_equal_single": rep["aggregate_equal_single"],
         "kernels_equal_plain": all(r["max_abs_err"] == 0
                                    for r in rep["kernel_checks"]),
     }
@@ -742,24 +756,47 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--multigpu", type=int, required=True, metavar="N",
                     help="run the dryrun and the full-width run on N cards")
+    ap.add_argument("--modes", help="comma-separated multiply lowerings "
+                                    "(0, 1, 2) to run in turn")
     ap.add_argument("--out", help="also write the report as JSON here")
     args = ap.parse_args(argv)
 
     import torch
 
+    from . import kernels
     from .measure import Bounds, nvidia_smi
+    from .ops import bigint as bi
     if not torch.cuda.is_available():
         print("entry: torch.cuda.is_available() is false; the multi-card "
               "run needs NVIDIA cards", file=sys.stderr)
         return 2
     card = nvidia_smi("name,power.limit")
     bounds = Bounds(float(nvidia_smi("clocks.max.sm").split()[0]))
-    dry = dryrun_multigpu(args.multigpu)
-    full = multigpu_run(args.multigpu)
-    rows, modes = program_rows(dry, full, bounds)
-    modes.update(kernel_modes(full, bounds))
-    report = {"card": card, "n": args.multigpu, "dryrun": dry,
-              "full_width": full, "kernels": rows, "kernel_modes": modes}
+    mxus = ([int(m) for m in args.modes.split(",")] if args.modes
+            else [bi.mxu_mode()])
+    sets = gpu = None
+    if len(mxus) > 1:
+        from .bls_batch import build_sets, warm_pubkeys
+        from .crypto.bls.cpp_backend import CppBackend
+        from .crypto.bls.gpu_backend import GpuBackend
+        sets = build_sets(CppBackend())
+        gpu = GpuBackend()
+        warm_pubkeys(gpu, sets)
+    by_mode = {}
+    prev = bi.mxu_mode()
+    try:
+        for m in mxus:
+            kernels.build_all(kernels.variants(m) if m else None)
+            bi.set_mxu_mode(m)
+            dry = dryrun_multigpu(args.multigpu)
+            full = multigpu_run(args.multigpu, sets, gpu)
+            rows, modes = program_rows(dry, full, bounds)
+            modes.update(kernel_modes(full, bounds))
+            by_mode[m] = {"dryrun": dry, "full_width": full, "kernels": rows,
+                          "kernel_modes": modes}
+    finally:
+        bi.set_mxu_mode(prev)
+    report = {"card": card, "n": args.multigpu, "by_mode": by_mode}
     text = json.dumps(report, indent=1, default=str)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -135,13 +135,15 @@ class CudaKernel:
             build_all([self])
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, count: int = 1) -> None:
+        """Call the C entry; ``count``: the kernel launches it makes (two
+        for a G2 sum past one block)."""
         k = self.current()
         rc = k.load()(*args)
         if rc != 0:
             raise RuntimeError(
                 f"CUDA kernel {k.name} failed to launch: cudaError {rc}")
-        k.launches += 1
+        k.launches += count
 
 
 def build_all(kernels=None) -> float:

@@ -85,6 +85,25 @@ def field_err(got, want, canonical: bool = True) -> int:
     return err
 
 
+def g2_projective_err(got, want) -> int:
+    """``field_err`` of two Jacobian G2 points (x, y, z), each [..., 2, 32],
+    as points: of their canonical affine forms (X/Z^2, Y/Z^3; infinity
+    maps to (0, 0), which no curve point has), plus 1 where one is
+    infinity and the other is not. Zero exactly when the two are the same
+    point, whatever their Jacobian representatives (a tree-ordered sum
+    and a row-ordered one differ by (l^2, l^3, l))."""
+    import torch
+
+    from .ops import bigint as bi
+    from .ops import bls12_381 as k
+    want = tuple(w.to(got[0].device) for w in want)
+    inf_g, inf_w = bi.is_zero_mod(got[2]).all(-1), bi.is_zero_mod(
+        want[2]).all(-1)
+    return field_err(k._jacobian_to_affine_fp2_plain(*got),
+                     k._jacobian_to_affine_fp2_plain(*want)) + int(
+        not torch.equal(inf_g, inf_w))
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's answer to ``nvidia-smi --query-gpu=QUERY``."""
     out = subprocess.run(

@@ -28,11 +28,12 @@ Three layers:
   CUDA tensor launches the stage's kernel (csrc/bls/*.cu), a CPU tensor
   takes the plain version.
 
-Two places order additions where the JAX package leaves it to a scan, and
-kernel and plain version share that order so their Jacobian outputs agree
-coordinate for coordinate: ``g1_segment_sum`` walks each segment in lane
-order (the JAX version is a log-depth segmented scan: the same points,
-projectively), and ``g2_sum`` keeps the JAX row-then-partials order.
+Two sums order their additions otherwise than the JAX package, so their
+Jacobian outputs are the same points in other representatives (compare
+them projectively): ``g1_segment_sum`` walks each segment in lane order
+(kernel and plain version alike; the JAX version is a log-depth segmented
+scan), and the ``g2_sum`` kernel adds in a pairwise tree whose order n
+alone fixes (its plain version keeps the JAX row-then-partials order).
 """
 from __future__ import annotations
 
@@ -1169,11 +1170,15 @@ def g1_segment_sum(x, y, z, starts, ends):
 
 
 def g2_sum(x, y, z):
-    """The sum of n >= 1 Jacobian G2 points [n, 2, 32], in the JAX order
-    (``_g2_sum_plain``)."""
+    """The sum of n >= 1 Jacobian G2 points [n, 2, 32]: on the card a
+    pairwise tree in a fixed order (the same limbs on every call with the
+    same points; one launch of the kernel up to a block's points, two
+    past them), on the CPU the JAX order (``_g2_sum_plain``); the same
+    point, held projectively."""
     if _on_cpu(x, y, z):
         return _g2_sum_plain(x, y, z)
     from .. import kernels
+    from . import bls_cost as cost
     n = x.shape[0]
     if n < 1:
         raise ValueError("g2_sum takes n >= 1 points")
@@ -1181,7 +1186,8 @@ def g2_sum(x, y, z):
     x, y, z = _arg(x, "x", shp), _arg(y, "y", shp), _arg(z, "z", shp)
     out = [_empty((2, bi.NLIMBS), x) for _ in range(3)]
     kernels.G2_SUM.launch(x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
-                          *(t.data_ptr() for t in out), _stream(x))
+                          *(t.data_ptr() for t in out), _stream(x),
+                          count=1 if n <= cost.G2_SUM_THREADS else 2)
     return tuple(out)
 
 
@@ -1218,12 +1224,20 @@ def jacobian_to_affine_fp2(x, y, z):
 def miller_loop_batch(px, py, qx, qy, mask=None):
     """f_i = miller(P_i, Q_i) for affine pairs, px, py [n, 32], qx, qy
     [n, 2, 32] -> Fp12 [n, 2, 3, 2, 32]; lanes with ``mask`` False give
-    the identity."""
+    the identity. On the card the pairs the kernel runs on pick its design
+    (``bls_cost.miller_loop_design``): a block a pair up to
+    ``LH_ML_COOP_MAX`` pairs, a thread a pair past it. Past it, when the
+    live pairs are few enough for a block each, the kernel runs on them
+    alone (``_miller_live_lanes``): the batches the verification pads
+    with masked lanes. The same values either way."""
     if _on_cpu(px, py, qx, qy):
         fs = _miller_loop_plain(px, py, qx, qy)
         return fs if mask is None else _mask_to_one(fs, mask)
     from .. import kernels
     n = px.shape[0]
+    live = _miller_live_lanes(n, mask)
+    if live is not None:
+        return _on_live_lanes(miller_loop_batch, live, px, py, qx, qy)
     px, py = _arg(px, "px", (n, bi.NLIMBS)), _arg(py, "py", (n, bi.NLIMBS))
     qx = _arg(qx, "qx", (n, 2, bi.NLIMBS))
     qy = _arg(qy, "qy", (n, 2, bi.NLIMBS))
@@ -1234,6 +1248,29 @@ def miller_loop_batch(px, py, qx, qy, mask=None):
                                    qx.data_ptr(), qy.data_ptr(),
                                    m.data_ptr(), out.data_ptr(), n,
                                    _stream(px))
+    return out
+
+
+def _miller_live_lanes(n: int, mask):
+    """The live lanes (``mask`` True) of n Miller pairs when the kernel
+    should run on them alone (``bls_cost.miller_loop_pairs``: n past
+    ``LH_ML_COOP_MAX``, the live lanes within it), else None. A mask on
+    the card is read back (one sync), and only past the crossover."""
+    from . import bls_cost as cost
+    if mask is None or n <= cost.ML_COOP_MAX:
+        return None
+    host = mask.cpu().numpy() if torch.is_tensor(mask) else np.asarray(mask)
+    live = np.flatnonzero(host.reshape(n))
+    return live if cost.miller_loop_pairs(n, live.size) < n else None
+
+
+def _on_live_lanes(miller, live, px, py, qx, qy):
+    """``miller`` (unmasked) on the pairs at lanes ``live`` alone; the
+    other lanes of the [n] output the Fp12 identity."""
+    out = fp12_one_like((px.shape[0],), px)
+    if live.size:
+        idx = torch.from_numpy(live).to(px.device)
+        out[idx] = miller(px[idx], py[idx], qx[idx], qy[idx])
     return out
 
 

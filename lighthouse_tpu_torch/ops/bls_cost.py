@@ -22,11 +22,13 @@ or where the kernel takes another route to the same value (the binary
 inversion and Legendre symbol of ``final_exp`` and ``hash_to_g2``).
 Units: Fp products (an Fp2 product is 3, Karatsuba).
 
-The two thread-cooperative kernels (``final_exp``, ``hash_to_g2``) also
-have a depth: the field multiplies on their critical path, each step of
-the cooperative layer (csrc/bls/coop.cuh) one multiply's latency however
-many products it runs side by side (``final_exp_depth``,
-``hash_to_g2_depth``). The binary inversion and Legendre symbol add no
+The latency-bound kernels also have a depth: the field multiplies on
+their critical path, each step of the cooperative layer
+(csrc/bls/coop.cuh) one multiply's latency however many products it runs
+side by side (``final_exp_depth``, ``hash_to_g2_depth``,
+``miller_loop_depth``, the top levels of ``g2_sum_depth``), a one-thread
+G2 addition its 48 multiplies in series (the lower levels of
+``g2_sum_depth``). The binary inversion and Legendre symbol add no
 multiply to it; their time shows in the card's ms per level.
 """
 from __future__ import annotations
@@ -198,11 +200,10 @@ def g1_segment_sum(starts, ends) -> int:
 
 
 def g2_sum(n: int) -> int:
-    """A column add per row of the [ceil(n/128), 128] layout, then the
-    partials."""
-    w = min(k.G2_SUM_WIDTH, max(1, n))
-    rows = -(-n // w)
-    return (w * rows + (w if w > 1 else 0)) * ADD[2]
+    """The n - 1 additions of n points (the kernel's tree adds no
+    padding; the plain version's JAX layout pads rows with infinity and
+    adds more)."""
+    return max(0, n - 1) * ADD[2]
 
 
 def affine(n: int, degree: int) -> int:
@@ -283,3 +284,66 @@ H2G_COOP_MAX = 1024
 
 def hash_to_g2_depth(n: int = 1) -> int:
     return HASH_TO_G2_DEPTH if n <= H2G_COOP_MAX else HASH_TO_G2_LANE_SERIAL
+
+
+#: csrc/bls/aggregate.cu LH_G2_SUM_T: a block's threads, and the most
+#: blocks (partials) of the first launch (past one block's points the sum
+#: is two launches); LH_G2_SUM_WARP_ROUNDS: a tree level of at most this
+#: many additions a warp gives each a warp in turn
+G2_SUM_THREADS = 128
+G2_SUM_WARP_ROUNDS = 4
+#: w_jac_add (csrc/bls/coop.cuh): its 16 Fp2 products in 5 warp steps
+W_JAC_ADD_DEPTH = 5
+
+
+def _g2_tree_depth(w: int) -> int:
+    """The tree over w slots of one block: a level of m additions is one
+    thread's jac_add (ADD[2] dependent multiplies), or, when m is at most
+    G2_SUM_WARP_ROUNDS a warp, ceil(m / warps) warp additions in turn."""
+    warps, depth = G2_SUM_THREADS // 32, 0
+    while w > 1:
+        h = (w + 1) // 2
+        m = w - h
+        depth += (ADD[2] if m > G2_SUM_WARP_ROUNDS * warps
+                  else -(-m // warps) * W_JAC_ADD_DEPTH)
+        w = h
+    return depth
+
+
+def g2_sum_depth(n: int) -> int:
+    """A thread's fold past 128^2 points (ADD[2] a point), the tree of
+    block 0 (the fullest), then the tree of the partials."""
+    t = G2_SUM_THREADS
+    blocks = min(-(-n // t), t)
+    fold = -(-n // (blocks * t)) - 1
+    return (fold * ADD[2] + _g2_tree_depth(min(n, t))
+            + _g2_tree_depth(blocks))
+
+
+#: the cooperative Miller loop (csrc/bls/pairing.cu): T's four layers of
+#: independent products a doubling and four an addition, one step each
+#: (the line's scalings, f times the line and the next bit's f^2 ride in
+#: them); the last doubling skips its fourth (T's y is never read) unless
+#: an addition follows it
+MILLER_COOP_DEPTH = (4 * _X_STEPS + 4 * (bin(k._X_ABS).count("1") - 1)
+                     - (0 if k._X_ABS & 1 else 1))
+#: csrc/bls/pairing.cu LH_ML_COOP_MAX: wider batches take the one-thread
+#: design, whose chain is all of a lane's multiplies
+ML_COOP_MAX = 2561
+
+
+def miller_loop_pairs(n: int, live: int) -> int:
+    """The pairs ``lh_miller_loop`` runs on for n pairs of which ``live``
+    are unmasked: the live ones alone when n is past ML_COOP_MAX and they
+    are within it (``bls12_381.miller_loop_batch``), else all n."""
+    return live if live <= ML_COOP_MAX < n else n
+
+
+def miller_loop_depth(n: int) -> int:
+    """The critical path of ``lh_miller_loop`` on n pairs."""
+    return MILLER_COOP_DEPTH if n <= ML_COOP_MAX else MILLER_LANE
+
+
+def miller_loop_design(n: int) -> str:
+    """The design ``lh_miller_loop`` picks for n pairs."""
+    return ("a block a pair" if n <= ML_COOP_MAX else "a thread a pair")

@@ -167,8 +167,9 @@ def miller_pairs(mesh: Mesh, prep: dict, keep: dict | None = None):
                                        "bls.scaled_pubkeys")
     ssx, ssy, ssz = sharded_scalar_mul(mesh, 2, *g2_in,
                                        "bls.scaled_signatures")
-    # the aggregate sums all lanes in the JAX order (rows, then partials),
-    # as the single-device path does, so the two aggregates are equal
+    # the aggregate sums all lanes in the kernel's tree, whose order n
+    # alone fixes, as the single-device path does: the two aggregates are
+    # equal limb for limb
     ax, ay, az = k.g2_sum(ssx, ssy, ssz)
     starts, ends = _put(mesh, prep["starts"]), _put(mesh, prep["ends"])
     gpx, gpy, gpz = k.g1_segment_sum(spx, spy, spz, starts, ends)

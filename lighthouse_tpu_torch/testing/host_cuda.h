@@ -24,7 +24,7 @@
 
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 thread_local dim3 threadIdx, blockIdx;
-dim3 blockDim;
+dim3 blockDim, gridDim;
 struct uint4 { unsigned x, y, z, w; };
 
 std::barrier<>* lh_block_barrier = nullptr;
@@ -45,6 +45,7 @@ uint4 lh_smem[16384];
 // run body() as grid blocks of block threads, one block after another
 template <class F> void host_launch(unsigned grid, unsigned block, F body) {
     blockDim.x = block;
+    gridDim.x = grid;
     for (unsigned b = 0; b < grid; ++b) {
         std::barrier<> bar(block);
         lh_block_barrier = &bar;

@@ -3,8 +3,10 @@
 ``build(name, out_dir, mode)`` cuts the C entries (their launch syntax)
 off ``csrc/bls/<source>``, compiles it with g++ against the stand-ins of
 ``host_cuda.h`` (one std::thread a CUDA thread, barriers for
-``__syncthreads``/``__syncwarp``) and returns the program; ``final_exp`` and ``hash_to_g2`` run it on int32
-limb arrays as the kernels' C entries take them. The CPU tests hold the
+``__syncthreads``/``__syncwarp``) and returns the program;
+``final_exp``, ``hash_to_g2``, ``g2_sum`` and ``miller_loop`` run it on
+int32 limb arrays as the kernels' C entries take them, launching the
+kernels as the C entries do (each main repeats its entry's choice). The CPU tests hold the
 results to the plain versions: the arithmetic of the CUDA source, not
 its build for the card.
 """
@@ -54,6 +56,47 @@ int main(int, char** argv) {
     host_write(argv[5], oz);
 }
 '''),
+    "g2_sum": ("aggregate.cu", r'''
+int main(int, char** argv) {
+    const std::vector<int32_t> x = host_read(argv[1]), y = host_read(argv[2]),
+                               z = host_read(argv[3]);
+    const long long n = x.size() / (2 * LH_LIMBS);
+    const long long blocks = g2_sum_blocks(n);
+    std::vector<int32_t> px(blocks * 2 * LH_LIMBS), py(px.size()),
+        pz(px.size()), ox(2 * LH_LIMBS), oy(ox.size()), oz(ox.size());
+    host_launch(blocks, LH_G2_SUM_T, [&] {    // as lh_g2_sum: two launches
+        g2_sum_kernel(x.data(), y.data(), z.data(), n, px.data(), py.data(),
+                      pz.data());
+    });
+    host_launch(1, LH_G2_SUM_T, [&] {
+        g2_sum_kernel(px.data(), py.data(), pz.data(), blocks, ox.data(),
+                      oy.data(), oz.data());
+    });
+    host_write(argv[4], ox);
+    host_write(argv[5], oy);
+    host_write(argv[6], oz);
+}
+'''),
+    "miller_loop": ("pairing.cu", r'''
+int main(int, char** argv) {
+    const std::vector<int32_t> px = host_read(argv[1]), py = host_read(argv[2]),
+                               qx = host_read(argv[3]), qy = host_read(argv[4]),
+                               mask = host_read(argv[5]);
+    const long long n = mask.size();
+    std::vector<int32_t> out(n * 12 * LH_LIMBS);
+    if (n > LH_ML_COOP_MAX)         // as lh_miller_loop picks the design
+        host_launch((n + 31) / 32, 32, [&] {
+            miller_loop_kernel(px.data(), py.data(), qx.data(), qy.data(),
+                               mask.data(), out.data(), n);
+        });
+    else
+        host_launch(n, LH_ML_THREADS, [&] {
+            miller_loop_coop_kernel(px.data(), py.data(), qx.data(),
+                                    qy.data(), mask.data(), out.data());
+        });
+    host_write(argv[6], out);
+}
+'''),
 }
 
 
@@ -61,19 +104,21 @@ def compiler() -> str | None:
     return shutil.which("g++")
 
 
-def build(name: str, out_dir: Path) -> Path:
-    """The host program of kernel ``name`` ("final_exp", "hash_to_g2"),
-    multiply lowering 0 (CIOS)."""
+def build(name: str, out_dir: Path, defines: tuple = ()) -> Path:
+    """The host program of kernel ``name`` (a key of ``_MAINS``), multiply
+    lowering 0 (CIOS); ``defines``: ``-D`` flags of the build (a source's
+    ``#ifndef`` knobs), each build in a directory of its own."""
     source, main = _MAINS[name]
     text = (CSRC / "bls" / source).read_text()
     body = text[:text.index('extern "C"')]
-    out_dir = Path(out_dir) / name
+    tag = "".join("_" + d.lstrip("-D").replace("=", "") for d in defines)
+    out_dir = Path(out_dir) / (name + tag)
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / f"{name}_host.cpp"
     src.write_text('#include "host_cuda.h"\n' + body + main)
     exe = out_dir / f"{name}_host"
     subprocess.run([compiler(), "-std=c++20", "-O2", "-pthread", "-w",
-                    f"-I{_HERE}", f"-I{CSRC / 'bls'}", str(src), "-o",
+                    *defines, f"-I{_HERE}", f"-I{CSRC / 'bls'}", str(src), "-o",
                     str(exe)], check=True, capture_output=True, text=True)
     return exe
 
@@ -101,3 +146,30 @@ def hash_to_g2(exe: Path, u0: np.ndarray, u1: np.ndarray):
                                 ("u0.bin", "u1.bin", "ox.bin", "oy.bin",
                                  "oz.bin"))], check=True)
     return tuple(_arr(d / f"o{c}.bin", u0.shape) for c in "xyz")
+
+
+def _run(exe: Path, inputs: dict, outputs: tuple) -> None:
+    """Write ``inputs`` (name -> int32 array) beside ``exe``, run it on
+    them and the output files' paths, in that order."""
+    d = exe.parent
+    for name, a in inputs.items():
+        np.ascontiguousarray(a, np.int32).tofile(d / f"{name}.bin")
+    subprocess.run([str(exe), *(str(d / f"{f}.bin")
+                                for f in (*inputs, *outputs))], check=True)
+
+
+def g2_sum(exe: Path, x: np.ndarray, y: np.ndarray, z: np.ndarray):
+    """The Jacobian sum (x, y, z) [2, 32] of the g2_sum kernel's two
+    launches on n points [n, 2, 32]."""
+    _run(exe, {"x": x, "y": y, "z": z}, ("sx", "sy", "sz"))
+    return tuple(_arr(exe.parent / f"s{c}.bin", (2, 32)) for c in "xyz")
+
+
+def miller_loop(exe: Path, px, py, qx, qy, mask):
+    """The Miller outputs [n, 2, 3, 2, 32] of the miller_loop kernel (the
+    design its C entry picks for n) on pairs px, py [n, 32], qx, qy [n, 2,
+    32], mask [n] (0: the identity)."""
+    n = len(mask)
+    _run(exe, {"px": px, "py": py, "qx": qx, "qy": qy, "mask": mask},
+         ("fs",))
+    return _arr(exe.parent / "fs.bin", (n, 2, 3, 2, 32))

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card, at
 the edges of what the kernels take (odd sizes, every ``pre_levels``, rows
 with duplicates, empty cap folds), and the DeviceTree on the card against
-the DeviceTree on the CPU. Bit-exact: tolerance zero.
+the DeviceTree on the CPU. Bit-exact: tolerance zero (field values
+canonically; the G2 sum, whose tree adds in another order than the plain
+version, as a point).
 
 Needs an NVIDIA card; each test skips without one (the ``cuda_device``
 fixture decides at run time). On the card:
@@ -225,6 +227,10 @@ def test_scalar_mul_and_affine_kernels(cuda_device, n, g2):
 
 @pytest.mark.parametrize("n", [1, 3, 130])
 def test_aggregate_kernels(cuda_device, n):
+    """The segment sums canonically; the G2 sum (a tree on the card, the
+    JAX order in the plain version) as a point, and the same limbs on a
+    second call (its order is fixed)."""
+    from lighthouse_tpu_torch.measure import g2_projective_err
     _, k = _bls()
     x, y, z = _points(n, 100 + n, False)
     starts = np.zeros(n, np.int32)
@@ -237,8 +243,10 @@ def test_aggregate_kernels(cuda_device, n):
     assert _canon_equal(got, want)
     x2, y2, z2 = _points(n, 200 + n, True)
     want = k.g2_sum(x2, y2, z2)
-    got = k.g2_sum(*(t.to(cuda_device) for t in (x2, y2, z2)))
-    assert _canon_equal(got, want)
+    dev2 = [t.to(cuda_device) for t in (x2, y2, z2)]
+    got = k.g2_sum(*dev2)
+    assert g2_projective_err(got, want) == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, k.g2_sum(*dev2)))
 
 
 class _mode:
@@ -305,12 +313,21 @@ def _check_pairing(cuda_device, n):
     assert k.pairing_check_batch(*dev, mask) == is_one
 
 
+_ML_COOP_MAX = 2561      # ops/bls_cost.py ML_COOP_MAX
+
+
 @pytest.mark.parametrize("mode", [0, 1, 2])
-@pytest.mark.parametrize("n", [1, 2, 3, 64, 65, 129, 257])
+@pytest.mark.parametrize("n", [1, 2, 3, 64, 65, 129, 257, _ML_COOP_MAX,
+                               _ML_COOP_MAX + 1, _ML_COOP_MAX + 2])
 def test_pairing_kernels(cuda_device, n, mode):
     """n = 1 (the final exponentiation's own launch), 2, 3, 65 and 129
     (odd; 129 the batch's Miller pairs), 64 (a full tree) and 257 (past
-    the 256 slots: a thread folds two values), one masked lane each."""
+    the 256 slots: a thread folds two values), one masked lane each; the
+    Miller loop a block a pair up to LH_ML_COOP_MAX pairs, past it on the
+    live pairs alone while they are within it (n = LH_ML_COOP_MAX + 1),
+    and a thread a pair past that (+ 2)."""
+    from lighthouse_tpu_torch.ops import bls_cost as cost
+    assert cost.ML_COOP_MAX == _ML_COOP_MAX
     with _mode(mode):
         _check_pairing(cuda_device, n)
 
