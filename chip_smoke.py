@@ -32,7 +32,11 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    ``miller_loop``, ``g2_sum``) also their critical path in dependent
    field multiplies and the card's time per level of it, a diagnostic,
    and for the two with two designs (``hash_to_g2``, ``miller_loop``) the
-   design the batch's n picked; the Miller loop also at 10,241 pairs (the
+   design the batch's n picked; for the lane-group kernels
+   (``rlc_scale``, ``g2_intake``) the products and multiply rounds their
+   groups issue (``bls_cost.scalar_mul_lanes``, ``g2_subgroup_lanes``,
+   ``g2_decompress_lanes``: the bound's count) and the bound the
+   one-thread formulas gave, beside; the Miller loop also at 10,241 pairs (the
    129 tiled), with 128 live (run on the live pairs alone, a block a
    pair) and all live (a thread a pair). ``g2_sum`` is held as a point
    (``measure.g2_projective_err``: its tree adds in another order than
@@ -434,7 +438,8 @@ class BlsKernelCheck:
         self.calls: list[dict] = []
 
     def run(self, kernel, kernel_fn, plain_fn, args, muls, mode=None,
-            repeats=3, depth=None, design=None, projective=False):
+            repeats=3, depth=None, design=None, projective=False,
+            issue=None, old_muls=None):
         import torch
 
         from lighthouse_tpu_torch.ops import bigint as bi
@@ -446,7 +451,8 @@ class BlsKernelCheck:
                 "want": want, "plain_ms": plain_ms,
                 "plain_muls": bi.MONT_MUL_ROWS.rows, "muls": muls,
                 "mode": mode, "repeats": repeats, "depth": depth,
-                "design": design, "projective": projective}
+                "design": design, "projective": projective,
+                "issue": issue, "old_muls": old_muls}
         self.calls.append(call)
         self._record(call, got)
         return got
@@ -477,7 +483,9 @@ class BlsKernelCheck:
             what = "canonical values"
         check(err == 0, f"{label}: kernel != plain (max_abs_err {err} on "
                         f"{what})")
-        muls = call["muls"](got) if callable(call["muls"]) else call["muls"]
+        muls, issue, old_muls = (
+            v(got) if callable(v) else v
+            for v in (call["muls"], call["issue"], call["old_muls"]))
         ms = time_cuda(lambda: call["kernel_fn"](*args), call["repeats"])
         got_t = got if isinstance(got, tuple) else (got,)
         n_bytes = sum(t.numel() * t.element_size()
@@ -491,6 +499,8 @@ class BlsKernelCheck:
                    "phase 4's plain output on the same inputs")
         depth, design = call["depth"], call["design"]
         per_level = None if depth is None else ms * 1e3 / depth
+        old_bound = (None if old_muls is None else self.bounds(
+            n_bytes, old_muls * cost.FP_MUL_INT_OPS)[0])
         exact = ("equal as a point (projectively)" if call["projective"]
                  else "canonical-exact")
         print(f"kernel {label} at {lanes} lanes"
@@ -503,16 +513,27 @@ class BlsKernelCheck:
                  if self.mxu else "")
               + ("" if depth is None else
                  f"; critical path {depth} dependent field multiplies, "
-                 f"{per_level:.3f} us a level"), flush=True)
+                 f"{per_level:.3f} us a level")
+              + ("" if old_bound is None else
+                 f"; bound with the one-thread formulas ({old_muls} field "
+                 f"multiplies) {old_bound:.4f} ms")
+              + ("" if issue is None else
+                 f"; lane groups of {issue['width']} threads issue "
+                 f"{issue['issued'] / max(lanes, 1):.1f} products a lane "
+                 f"({issue['products'] / max(lanes, 1):.1f} its own), "
+                 f"{issue['rounds']} multiply rounds the longest warp, "
+                 f"{issue['warp_rounds']} over the warps"), flush=True)
         rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "algorithm_bound_ms": alg_ms,
                "field_muls": muls, "plain_field_muls": plain_muls,
                "lanes": lanes, "depth": depth, "us_per_level": per_level,
-               "design": design}
+               "design": design, "issue": issue, "old_field_muls": old_muls,
+               "old_bound_ms": old_bound}
         self.muls[label] = {"field_muls": muls, "plain_field_muls": plain_muls,
                             "algorithm_bound_ms": alg_ms, "ms": ms,
                             "depth": depth, "us_per_level": per_level,
-                            "design": design}
+                            "design": design, "issue": issue,
+                            "old_bound_ms": old_bound}
         if mode is not None:
             row = next(r for r in self.rows if r["name"] == name)
             row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -600,13 +621,19 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
 
     sig_y, _ = run("g2_intake", k.g2_decompress_batch,
                    k._g2_decompress_plain, (sig_x, flags),
-                   cost.g2_decompress(lanes), repeats=2)
+                   cost.g2_decompress(lanes), repeats=2,
+                   issue=cost.g2_decompress_lanes(lanes))
     one2 = put(np.broadcast_to(k.FP2_ONE, (lanes, 2, bi.NLIMBS)))
+    z_one, z_zero = np.ones(lanes, bool), np.zeros(lanes, bool)
+
+    def subgroup_issue(ok):
+        return cost.g2_subgroup_lanes(z_one, z_zero, ok.cpu().numpy())
+
     ok = run("g2_intake", k.g2_in_subgroup_batch, k._g2_in_subgroup_plain,
              (sig_x, sig_y, one2),
-             lambda ok: cost.g2_subgroup(np.zeros(lanes, bool),
-                                         ok.cpu().numpy()),
-             mode="subgroup", repeats=2)
+             lambda ok: subgroup_issue(ok)["products"],
+             mode="subgroup", repeats=2, issue=subgroup_issue,
+             old_muls=lambda ok: cost.g2_subgroup(z_zero, ok.cpu().numpy()))
     check(bool(ok.all()), "a signature of the batch failed the subgroup "
                           "check")
 
@@ -622,12 +649,16 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
     pk_bits_np = k.scalars_to_bits(prep["pk_rands"], 64)
     sig_bits_np = k.scalars_to_bits(prep["sig_rands"], 64)
     pk_bits, sig_bits = put(pk_bits_np), put(sig_bits_np)
+    g1_issue = cost.scalar_mul_lanes(pk_bits_np, 1)
+    g2_issue = cost.scalar_mul_lanes(sig_bits_np, 2)
     spx, spy, spz = run("rlc_scale", k.g1_scalar_mul, k._g1_scalar_mul_plain,
-                        (pk_x, pk_y, one1, pk_bits),
-                        cost.scalar_mul(pk_bits_np, 1))
+                        (pk_x, pk_y, one1, pk_bits), g1_issue["products"],
+                        issue=g1_issue,
+                        old_muls=cost.scalar_mul(pk_bits_np, 1))
     ssx, ssy, ssz = run("rlc_scale", k.g2_scalar_mul,
                         k._g2_scalar_mul_plain, (sig_x, sig_y, one2, sig_bits),
-                        cost.scalar_mul(sig_bits_np, 2), mode="G2")
+                        g2_issue["products"], mode="G2", issue=g2_issue,
+                        old_muls=cost.scalar_mul(sig_bits_np, 2))
     starts, ends = put(prep["starts"]), put(prep["ends"])
     gpx, gpy, gpz = run("g1_segment_sum", k.g1_segment_sum,
                         k._g1_segment_sum_plain, (spx, spy, spz, starts, ends),

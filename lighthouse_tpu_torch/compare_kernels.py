@@ -1,37 +1,50 @@
-"""``g2_sum`` and ``miller_loop`` of this tree against another tree's, on
-one card, in one process.
+"""The BLS kernels of this tree against another tree's, on one card, in one
+process.
 
     git archive <commit> lighthouse_tpu_torch/csrc | tar -x -C BASE
     python -m lighthouse_tpu_torch.compare_kernels --base BASE \\
+        [--kernels rlc_scale,g2_intake,g2_sum,miller_loop] \\
         --out compare_kernels.json
 
-Builds both trees' ``aggregate.cu`` (``lh_g2_sum``) and ``pairing.cu``
-(``lh_miller_loop``) in each multiply lowering (modes 0, 1, 2) with the
-flags of ``kernels.py``, and this tree's ``pairing.cu`` once more with
-each of its two Miller designs forced (``-DLH_ML_COOP_MAX``). On seeded
-inputs (``default_rng(5)``: 64 G2 and 64 G1 points, tiled and scaled by
-random 64-bit scalars on the card, so every lane is its own Jacobian
-point; the Miller pairs their affine forms) it times, by CUDA events
-(median of 5 after a warm-up), in the order base, this, this, base: the
-G2 sum of 10,240 points (the 10k batch's signature lanes) and the Miller
-loop of 129 pairs, one masked (its pairs); then the two Miller designs
-on the verification's pairs past 128 messages (mode 0): 10,241 pairs of
-which L are live (the first L - 1 and the last, as the verification
-lays out its message lanes and the aggregate), a thread a pair on all
-10,241 against a block a pair on the L live pairs gathered, their
-outputs scattered back among identities, as ``miller_loop_batch`` does
-(the sweep that sets ``LH_ML_COOP_MAX``); and the G2 sums at growing
-point counts, the base tree's against this one's. Every pair of outputs
-is held equal: Miller values canonically, sums as points
-(``measure.g2_projective_err``: the trees add in different orders).
-Prints a line a measurement, with the card's name and power limit, and
-writes them as JSON.
+Builds both trees' sources of the chosen kernels (default: all four) in
+each multiply lowering (modes 0, 1, 2) with the flags of ``kernels.py``,
+and prints this tree's ``-Xptxas -v`` report of each (registers, stack,
+spills). On seeded inputs (``default_rng(5)``: 64 G2 and 64 G1 points,
+tiled and scaled by random 64-bit scalars on the card, so every lane is
+its own Jacobian point) it times, by CUDA events (median of 5 after a
+warm-up), in the order base, this, this, base, holding every pair of
+outputs equal:
+
+- ``rlc_scale`` (``lh_rlc_scale``): G1 and G2 at 10,240 lanes (the 10k
+  batch) and 2,560 (a rank of the four-card sharded path), affine inputs
+  (z one) as on the main path, random 64-bit scalars; then the lane-group
+  widths: this tree's ``rlc_scale.cu`` with ``LH_RLC_G1_WIDTH`` and
+  ``LH_RLC_G2_WIDTH`` set to w (mode 0), against the source as it is;
+- ``g2_intake`` (``lh_g2_intake``): decompression (the points' x with
+  random sign flags, every 97th lane an x with no root) and the subgroup
+  check (z one) at the same lane counts, then the widths of
+  ``LH_G2I_WIDTH``;
+- ``g2_sum`` (``lh_g2_sum``) of 10,240 points, then at 128-10,240 points
+  (sums as points, ``measure.g2_projective_err``: the trees add in
+  different orders);
+- ``miller_loop`` (``lh_miller_loop``) of 129 pairs, one masked; then the
+  two Miller designs (``-DLH_ML_COOP_MAX``) on the verification's pairs
+  past 128 messages: 10,241 pairs of which L are live (the first L - 1
+  and the last), a thread a pair on all against a block a pair on the L
+  live pairs gathered, their outputs scattered back among identities, as
+  ``miller_loop_batch`` does.
+
+Field values are held canonically, flags exactly. Prints a line a
+measurement, with the card's name and power limit, and writes them as
+JSON.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -45,12 +58,23 @@ from .measure import field_err, g2_projective_err, nvidia_smi
 _MILLER_PAIRS = 10241
 _MILLER_LIVE = (129, 257, 513, 1025, 1537, 2049, 2561, 3073, 5121, 10241)
 _SUM_SWEEP = (128, 256, 1024, 4096, 10240)
-_ENTRIES = {"lh_g2_sum": kernels.G2_SUM, "lh_miller_loop": kernels.MILLER_LOOP}
+#: the batch's lanes and a rank's on the four-card sharded path
+_LANES = (10240, 2560)
+#: lane-group widths swept (threads a lane)
+_RLC_WIDTHS = (1, 2, 3, 4, 5, 6, 8, 16)
+_G2I_WIDTHS = (2, 3, 4, 5, 6, 8, 16)
+_ENTRIES = {"lh_g2_sum": kernels.G2_SUM, "lh_miller_loop": kernels.MILLER_LOOP,
+            "lh_rlc_scale": kernels.RLC_SCALE,
+            "lh_g2_intake": kernels.G2_INTAKE}
+_SOURCES = {"rlc_scale": ("rlc_scale.cu", "lh_rlc_scale"),
+            "g2_intake": ("g2_intake.cu", "lh_g2_intake"),
+            "g2_sum": ("aggregate.cu", "lh_g2_sum"),
+            "miller_loop": ("pairing.cu", "lh_miller_loop")}
 
 
-def _build(jobs: dict, out_dir: Path) -> dict:
-    """{tag: (source, defines, symbol)} -> {tag: bound C entry}, all
-    nvcc processes at once."""
+def _build(jobs: dict, out_dir: Path) -> tuple[dict, dict]:
+    """{tag: (source, defines, symbol)} -> ({tag: bound C entry}, {tag:
+    compiler report}), all nvcc processes at once."""
     procs = {}
     for tag, (src, defines, _) in jobs.items():
         lib = out_dir / f"{tag}.so"
@@ -58,22 +82,50 @@ def _build(jobs: dict, out_dir: Path) -> dict:
             [kernels._nvcc(), *kernels.NVCC_FLAGS, *defines, "-o", str(lib),
              str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
-    fns = {}
+    fns, logs = {}, {}
     for tag, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
+        logs[tag] = log
         symbol = jobs[tag][2]
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
         fn.argtypes = _ENTRIES[symbol].argtypes
         fn.restype = ctypes.c_int
         fns[tag] = fn
-    return fns
+    return fns, logs
+
+
+def _ptxas(log: str) -> list[str]:
+    """The kernels' lines of a ``-Xptxas -v`` report: each entry's
+    registers, then its stack and spills."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        elif entry and ("registers" in line or "stack frame" in line):
+            out.append(f"{entry}: {line.split('info    :')[-1].strip()}")
+    return out
+
+
+def _width_source(tmp: Path, source: str, macros: tuple, w: int) -> Path:
+    """A copy of this tree's csrc/bls with ``source``'s width macros set
+    to w (``host_cuda.set_define``)."""
+    from .testing.host_cuda import set_define
+    d = tmp / f"w{w}_{source.split('.')[0]}"
+    shutil.copytree(kernels.CSRC / "bls", d)
+    text = (d / source).read_text()
+    for macro in macros:
+        text = set_define(text, macro, w)
+    (d / source).write_text(text)
+    return d / source
 
 
 def _inputs(n_max: int):
-    """``n_max`` Jacobian G2 points and ``n_max`` affine pairs on the
-    card (see the module docstring)."""
+    """``n_max`` Jacobian G2 points, ``n_max`` affine pairs, and the affine
+    G2 and G1 points with their scalars' bits, on the card (see the
+    module docstring)."""
     import torch
 
     from .crypto.bls12_381 import G1_GENERATOR, G2_GENERATOR
@@ -97,15 +149,22 @@ def _inputs(n_max: int):
           for _ in range(base)]
     one2 = tiled(k.FP2_ONE, (2, 32))
     one1 = tiled(k.FP_ONE, (32,))
-    sig = k.g2_scalar_mul(tiled(k.fp2_encode([p[0] for p in g2]), (2, 32)),
-                          tiled(k.fp2_encode([p[1] for p in g2]), (2, 32)),
-                          one2, bits())
-    pk = k.g1_scalar_mul(tiled(k.fp_encode([p[0] for p in g1]), (32,)),
-                         tiled(k.fp_encode([p[1] for p in g1]), (32,)),
-                         one1, bits())
+    a2 = (tiled(k.fp2_encode([p[0] for p in g2]), (2, 32)),
+          tiled(k.fp2_encode([p[1] for p in g2]), (2, 32)), one2)
+    a1 = (tiled(k.fp_encode([p[0] for p in g1]), (32,)),
+          tiled(k.fp_encode([p[1] for p in g1]), (32,)), one1)
+    b2, b1 = bits(), bits()
+    sig = k.g2_scalar_mul(*a2, b2)
+    pk = k.g1_scalar_mul(*a1, b1)
     qx, qy = k.jacobian_to_affine_fp2(*sig)
     px, py = k.jacobian_to_affine_fp(*pk)
-    return sig, (px, py, qx, qy)
+    # decompression's input: the points' x, every 97th an x with no root
+    dx = a2[0].clone()
+    dx[::97] = torch.from_numpy(k.fp_encode([5, 7]).reshape(2, 32)).cuda()
+    flags = torch.from_numpy(rng.integers(0, 2, size=n_max).astype(
+        np.int32)).cuda()
+    return sig, (px, py, qx, qy), {"g2": a2, "g1": a1, "b2": b2, "b1": b1,
+                                   "dx": dx, "flags": flags}
 
 
 def main(argv=None) -> int:
@@ -115,31 +174,54 @@ def main(argv=None) -> int:
     ap.add_argument("--base", required=True, type=Path,
                     help="a directory holding another tree's "
                          "lighthouse_tpu_torch/csrc")
+    ap.add_argument("--kernels", default=",".join(_SOURCES),
+                    help="comma-separated: " + ", ".join(_SOURCES))
     ap.add_argument("--out", help="also write the measurements as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels needs an NVIDIA card")
+    chosen = args.kernels.split(",")
+    for name in chosen:
+        if name not in _SOURCES:
+            raise SystemExit(f"no kernel {name}")
 
     card = nvidia_smi("name,power.limit")
     trees = {"base": args.base / "lighthouse_tpu_torch" / "csrc" / "bls",
              "this": kernels.CSRC / "bls"}
-    jobs = {}
-    for tree, d in trees.items():
-        for m in (0, 1, 2):
-            flag = (f"-DLH_FP_MODE={m}",)
-            jobs[f"{tree}_sum{m}"] = (d / "aggregate.cu", flag, "lh_g2_sum")
-            jobs[f"{tree}_ml{m}"] = (d / "pairing.cu", flag,
-                                     "lh_miller_loop")
-    for tag, cap in (("one_thread", 0), ("cooperative", 1 << 30)):
-        jobs[tag] = (trees["this"] / "pairing.cu",
-                     (f"-DLH_ML_COOP_MAX={cap}",), "lh_miller_loop")
     from .ops import bls12_381 as k
     kernels.build_all([kernels.RLC_SCALE, kernels.AFFINE])
+    report = []
     with tempfile.TemporaryDirectory() as tmp:
-        fns = _build(jobs, Path(tmp))
+        tmp = Path(tmp)
+        jobs = {}
+        for tree, d in trees.items():
+            for name in chosen:
+                src, symbol = _SOURCES[name]
+                for m in (0, 1, 2):
+                    jobs[f"{tree}_{name}{m}"] = (
+                        d / src, (f"-DLH_FP_MODE={m}",), symbol)
+        if "miller_loop" in chosen:
+            for tag, cap in (("one_thread", 0), ("cooperative", 1 << 30)):
+                jobs[tag] = (trees["this"] / "pairing.cu",
+                             (f"-DLH_ML_COOP_MAX={cap}",), "lh_miller_loop")
+        widths = {"rlc_scale": (_RLC_WIDTHS, ("LH_RLC_G1_WIDTH",
+                                              "LH_RLC_G2_WIDTH")),
+                  "g2_intake": (_G2I_WIDTHS, ("LH_G2I_WIDTH",))}
+        for name, (ws, macros) in widths.items():
+            if name in chosen:
+                src, symbol = _SOURCES[name]
+                for w in ws:
+                    jobs[f"w{w}_{name}"] = (
+                        _width_source(tmp, src, macros, w), (), symbol)
+        fns, logs = _build(jobs, tmp)
+        for tag in sorted(logs):
+            if tag.startswith(("this_", "w")):
+                for line in _ptxas(logs[tag]):
+                    print(f"ptxas {tag} {line}", flush=True)
+                    report.append({"ptxas": tag, "line": line})
         stream = torch.cuda.current_stream().cuda_stream
         n_max = max(_MILLER_PAIRS, max(_SUM_SWEEP))
-        sig, pairs = _inputs(n_max)
+        sig, pairs, lane = _inputs(n_max)
 
         def g2_sum(fn, n):
             x, y, z = (c[:n].contiguous() for c in sig)
@@ -148,6 +230,26 @@ def main(argv=None) -> int:
             assert fn(x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
                       *(o.data_ptr() for o in out), stream) == 0
             return tuple(out)
+
+        def rlc(fn, field, n):
+            pts = lane["g2" if field == 2 else "g1"]
+            bits = lane["b2" if field == 2 else "b1"]
+            out = [torch.empty_like(pts[0][:n]) for _ in range(3)]
+            assert fn(field, *(c.data_ptr() for c in pts), bits.data_ptr(),
+                      64, *(o.data_ptr() for o in out), n, stream) == 0
+            return tuple(out)
+
+        def intake(fn, mode, n):
+            ok = torch.empty(n, dtype=torch.int32, device="cuda")
+            if mode == 0:
+                y = torch.empty_like(lane["dx"][:n])
+                assert fn(0, lane["dx"].data_ptr(), lane["flags"].data_ptr(),
+                          y.data_ptr(), None, ok.data_ptr(), n, stream) == 0
+                return y, ok.to(torch.bool)
+            x, y, z = lane["g2"]
+            assert fn(1, x.data_ptr(), None, y.data_ptr(), z.data_ptr(),
+                      ok.data_ptr(), n, stream) == 0
+            return ok.to(torch.bool)
 
         def miller(fn, args, mask):
             n = args[0].shape[0]
@@ -197,40 +299,69 @@ def main(argv=None) -> int:
             print(f"{label}: outputs equal; {t[0]:.4f} / {t[3]:.4f} ms "
                   f"against {t[1]:.4f} / {t[2]:.4f} ms [{card}]",
                   flush=True)
-            return rec
+            report.append(rec)
 
-        report = []
-        p129 = [c[:129] for c in pairs]
-        for m in (0, 1, 2):
-            report.append(pair(
-                f"mode {m} g2_sum, 10240 points: base against this",
-                lambda m=m: g2_sum(fns[f"base_sum{m}"], 10240),
-                lambda m=m: g2_sum(fns[f"this_sum{m}"], 10240),
-                g2_projective_err))
-            report.append(pair(
-                f"mode {m} miller_loop, 129 pairs (one masked): base "
-                f"against this",
-                lambda m=m: miller(fns[f"base_ml{m}"], p129, one_masked),
-                lambda m=m: miller(fns[f"this_ml{m}"], p129, one_masked),
-                field_err))
-        n = _MILLER_PAIRS
-        for n_live in _MILLER_LIVE:
-            mask = np.zeros(n, np.int32)
-            mask[:n_live - 1] = mask[-1] = 1
-            live, mask = np.flatnonzero(mask), torch.from_numpy(mask).cuda()
-            report.append(pair(
-                f"mode 0 miller_loop, {n} pairs, {n_live} live: a thread a "
-                f"pair on all against a block a pair on the live",
-                lambda mask=mask: miller(fns["one_thread"],
-                                         [c[:n] for c in pairs], mask),
-                lambda live=live: miller_live(fns["cooperative"], n, live),
-                field_err))
-        for n in _SUM_SWEEP:
-            report.append(pair(
-                f"mode 0 g2_sum, {n} points: base against this",
-                lambda n=n: g2_sum(fns["base_sum0"], n),
-                lambda n=n: g2_sum(fns["this_sum0"], n),
-                g2_projective_err))
+        calls = {
+            "rlc_scale": [(f"rlc_scale G{f}", lambda fn, n, f=f: rlc(fn, f, n))
+                          for f in (1, 2)],
+            "g2_intake": [(f"g2_intake {what}",
+                           lambda fn, n, m=m: intake(fn, m, n))
+                          for m, what in ((0, "decompress"),
+                                          (1, "subgroup"))]}
+        for name in ("rlc_scale", "g2_intake"):
+            if name not in chosen:
+                continue
+            for label, call in calls[name]:
+                for n in _LANES:
+                    for m in (0, 1, 2):
+                        pair(f"mode {m} {label}, {n} lanes: base against "
+                             f"this",
+                             lambda m=m, n=n, call=call:
+                                 call(fns[f"base_{name}{m}"], n),
+                             lambda m=m, n=n, call=call:
+                                 call(fns[f"this_{name}{m}"], n), field_err)
+                    for w in widths[name][0]:
+                        pair(f"mode 0 {label}, {n} lanes: this against "
+                             f"width {w}",
+                             lambda n=n, call=call:
+                                 call(fns[f"this_{name}0"], n),
+                             lambda n=n, w=w, call=call:
+                                 call(fns[f"w{w}_{name}"], n), field_err)
+        if "g2_sum" in chosen:
+            for m in (0, 1, 2):
+                pair(f"mode {m} g2_sum, 10240 points: base against this",
+                     lambda m=m: g2_sum(fns[f"base_g2_sum{m}"], 10240),
+                     lambda m=m: g2_sum(fns[f"this_g2_sum{m}"], 10240),
+                     g2_projective_err)
+            for n in _SUM_SWEEP:
+                pair(f"mode 0 g2_sum, {n} points: base against this",
+                     lambda n=n: g2_sum(fns["base_g2_sum0"], n),
+                     lambda n=n: g2_sum(fns["this_g2_sum0"], n),
+                     g2_projective_err)
+        if "miller_loop" in chosen:
+            p129 = [c[:129] for c in pairs]
+            for m in (0, 1, 2):
+                pair(f"mode {m} miller_loop, 129 pairs (one masked): base "
+                     f"against this",
+                     lambda m=m: miller(fns[f"base_miller_loop{m}"], p129,
+                                        one_masked),
+                     lambda m=m: miller(fns[f"this_miller_loop{m}"], p129,
+                                        one_masked),
+                     field_err)
+            n = _MILLER_PAIRS
+            for n_live in _MILLER_LIVE:
+                mask = np.zeros(n, np.int32)
+                mask[:n_live - 1] = mask[-1] = 1
+                live = np.flatnonzero(mask)
+                mask = torch.from_numpy(mask).cuda()
+                pair(f"mode 0 miller_loop, {n} pairs, {n_live} live: a "
+                     f"thread a pair on all against a block a pair on the "
+                     f"live",
+                     lambda mask=mask: miller(fns["one_thread"],
+                                              [c[:n] for c in pairs], mask),
+                     lambda live=live: miller_live(fns["cooperative"], n,
+                                                   live),
+                     field_err)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

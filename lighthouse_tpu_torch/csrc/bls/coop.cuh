@@ -33,6 +33,20 @@
 //   and come back to every lane through the warp's 32-Fp shared scratch.
 //   The G2 Jacobian doubling and addition (w_jac_dbl, w_jac_add) run on
 //   it for hash_to_g2.cu and the top levels of aggregate.cu's tree.
+//
+// - Lane groups (lg_step): G threads of one warp serve one lane of a wide
+//   batch (rlc_scale.cu, g2_intake.cu: 10,240 lanes), several groups to a
+//   warp and to a block. The lane's values live in the block's shared
+//   memory as Fp slots; a step's products are spread over the group's
+//   threads, each running fp_mul_inl on operands its table entry names
+//   (a slot, or two slots added or subtracted), then up to three stages
+//   of linear outputs (small integer combinations of slots), a
+//   __syncwarp of the group's threads after each phase. The steps are
+//   tables (lane_prog.cuh, rendered by ops/bls_lane.py from the formulas
+//   of curve.cuh and fp.cuh), so a kernel calls lg_step at one site and
+//   its control (scalar bits, exponent bits, the addition's branches)
+//   picks the step: the groups of a warp run the same multiply code
+//   whatever step each is at.
 #pragma once
 #include "curve.cuh"
 
@@ -687,3 +701,311 @@ LH_NOINL void w_jac_add(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p,
     if (inf2 && !inf1) out = p;
     r = out;
 }
+
+// ========================================================= lane groups
+
+struct LgStep {
+    unsigned short j0, nj;      // products: LG_JOB[j0 .. j0 + nj)
+    unsigned short l0[3], nl[3];    // linear stages: LG_LIN pairs
+};
+
+#include "lane_prog.cuh"
+
+// the G threads of a lane: its slots, this thread's rank, the group's
+// threads in the warp
+struct Lg {
+    Fp* V;
+    int t, G;
+    unsigned mask;      // the group's threads
+    unsigned live;      // the warp's threads whose group has a lane
+};
+
+// slots are 48 B (three 16-byte words) in 16-byte aligned shared memory
+LH_DEV void lg_ld(Fp& r, const Fp* p) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const uint4 v = q[i];
+        r.w[4 * i] = v.x;
+        r.w[4 * i + 1] = v.y;
+        r.w[4 * i + 2] = v.z;
+        r.w[4 * i + 3] = v.w;
+    }
+}
+
+LH_DEV void lg_st(Fp* p, const Fp& a) {
+    uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        uint4 v;
+        v.x = a.w[4 * i];
+        v.y = a.w[4 * i + 1];
+        v.z = a.w[4 * i + 2];
+        v.w = a.w[4 * i + 3];
+        q[i] = v;
+    }
+}
+
+// lanes a block of `threads` serves at width G (the warp's leftover
+// threads, 32 mod G, idle), and the shared memory it takes
+__host__ __device__ inline int lg_lanes(int threads, int G) {
+    return (threads / 32) * (32 / G);
+}
+
+// a lane's nv slots in 16-byte words, padded to 1 mod 8: the groups of a
+// warp reading the same slot then fall on different banks (unpadded, 40
+// slots are 480 words, and every group's copy of a slot on one bank)
+__host__ __device__ inline int lg_stride(int nv) {
+    return 3 * nv + ((1 - 3 * nv) % 8 + 8) % 8;
+}
+
+__host__ inline size_t lg_smem(int threads, int G, int nv) {
+    return (size_t)lg_lanes(threads, G) * lg_stride(nv) * sizeof(uint4);
+}
+
+// this thread's group and lane; false for a leftover thread and past n
+LH_DEV bool lg_init(Lg& g, int G, int nv, long long n, long long& lane) {
+    extern __shared__ uint4 lh_smem[];
+    const int wl = threadIdx.x & 31, gi = wl / G, gpw = 32 / G;
+    if (gi >= gpw) return false;
+    const int gb = (int)(threadIdx.x >> 5) * gpw + gi;
+    lane = (long long)blockIdx.x * lg_lanes(blockDim.x, G) + gb;
+    if (lane >= n) return false;
+    g.V = reinterpret_cast<Fp*>(lh_smem + (long long)gb * lg_stride(nv));
+    g.t = wl - gi * G;
+    g.G = G;
+    g.mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (gi * G);
+    const long long left = n - (lane - gi);       // lanes from the warp's
+    const int groups = left < gpw ? (int)left : gpw;    // first on
+    g.live = groups * G == 32 ? 0xffffffffu : (1u << (groups * G)) - 1u;
+    return true;
+}
+
+// 2p - x: the negation fp_add takes (x + (2p - y) < 4p), in [0, 2p]
+LH_DEV void lg_neg2p(Fp& r, const Fp& x) {
+    words_sub(r.w, LH_2P, x.w);
+}
+
+// an operand: V[a], or V[a] + V[b], or V[a] - V[b] (f: bit 0 two slots,
+// bit 1 subtract). Every thread runs the same instructions: a lone slot
+// adds zero.
+LH_DEV void lg_operand(Fp& x, const Fp* V, unsigned a, unsigned b,
+                       unsigned f) {
+    Fp y, ny;
+    lg_ld(x, V + a);
+    lg_ld(y, V + b);
+    if (!(f & 1u)) fp_zero(y);
+    lg_neg2p(ny, y);
+    if (f & 2u) y = ny;
+    fp_add(x, x, y);
+}
+
+// V[dst] from its operation list (ops/bls_lane.py lin_ops: add or
+// subtract a slot, or double, on an accumulator from zero), the same
+// instructions on every thread whatever its output
+LH_DEV void lg_lin(Fp* V, unsigned long long w0, unsigned long long w1) {
+    const int n = (int)(w0 >> 6) & 15;
+    Fp acc;
+    fp_zero(acc);
+    unsigned long long w = w0 >> 10;
+    for (int i = 0; i < n; ++i) {
+        if (i == 6) w = w1;
+        const unsigned op = (unsigned)(w & 255u);
+        w >>= 8;
+        Fp x, nx;
+        lg_ld(x, V + (op & 63u));
+        if (op & 128u) x = acc;
+        lg_neg2p(nx, x);
+        if (op & 64u) x = nx;
+        fp_add(acc, acc, x);
+    }
+    lg_st(V + (w0 & 63u), acc);
+}
+
+// step s of the tables on the lane: the products, then the linear stages.
+// The kernel's one multiply site.
+LH_DEV void lg_step(const Lg& g, int s) {
+    const LgStep st = LG_STEP[s];
+    for (int j = g.t; j < st.nj; j += g.G) {
+        const unsigned long long d = LG_JOB[st.j0 + j];
+        const unsigned f = (unsigned)(d >> 40);
+        Fp x, y, r;
+        lg_operand(x, g.V, (unsigned)(d >> 8) & 255u,
+                   (unsigned)(d >> 16) & 255u, f & 3u);
+        lg_operand(y, g.V, (unsigned)(d >> 24) & 255u,
+                   (unsigned)(d >> 32) & 255u, (f >> 2) & 3u);
+        fp_mul_inl(r, x, y);
+        if (f & 16u) fp_dbl(r, r);
+        lg_st(g.V + (d & 255u), r);
+    }
+    __syncwarp(g.mask);
+    for (int k = 0; k < 3 && st.nl[k]; ++k) {
+        for (int j = g.t; j < st.nl[k]; j += g.G)
+            lg_lin(g.V, LG_LIN[2 * (st.l0[k] + j)],
+                   LG_LIN[2 * (st.l0[k] + j) + 1]);
+        __syncwarp(g.mask);
+    }
+}
+
+// n slots from src to dst (zero where zero_from <= k), spread over the
+// group
+LH_DEV void lg_copy(const Lg& g, int dst, int src, int n,
+                    int zero_from = 1 << 30) {
+    for (int k = g.t; k < n; k += g.G) {
+        Fp v;
+        if (k >= zero_from) fp_zero(v); else lg_ld(v, g.V + src + k);
+        lg_st(g.V + dst + k, v);
+    }
+    __syncwarp(g.mask);
+}
+
+LH_DEV bool lg_is_zero(const Lg& g, int s, int d) {
+    bool z = true;
+    for (int e = 0; e < d; ++e) {
+        Fp v;
+        lg_ld(v, g.V + s + e);
+        z = z && fp_is_zero(v);
+    }
+    return z;
+}
+
+// slots a and b hold equal field values (d coefficients)
+LH_DEV bool lg_eq(const Lg& g, int a, int b, int d) {
+    bool eq = true;
+    for (int e = 0; e < d; ++e) {
+        Fp u, v;
+        lg_ld(u, g.V + a + e);
+        lg_ld(v, g.V + b + e);
+        eq = eq && fp_eq(u, v);
+    }
+    return eq;
+}
+
+// slot s holds one (d coefficients)
+LH_DEV bool lg_is_one(const Lg& g, int s, int d) {
+    Fp v, one;
+    lg_ld(v, g.V + s);
+    fp_one(one);
+    return fp_eq(v, one) && (d == 1 || lg_is_zero(g, s + 1, d - 1));
+}
+
+// the slots of a point's Jacobian coordinates (d coefficients each) from
+// int32 limbs x, y, z [n, d, 32] at lane into dst and dst2
+LH_DEV void lg_load_point(const Lg& g, int d, const int32_t* x,
+                          const int32_t* y, const int32_t* z,
+                          long long lane, int dst, int dst2) {
+    for (int k = g.t; k < 3 * d; k += g.G) {
+        const int c = k / d, e = k - c * d;
+        const int32_t* src = c == 0 ? x : (c == 1 ? y : z);
+        Fp v;
+        fp_load(v, src + (lane * d + e) * LH_LIMBS);
+        lg_st(g.V + dst + k, v);
+        lg_st(g.V + dst2 + k, v);
+    }
+    __syncwarp(g.mask);
+}
+
+LH_DEV void lg_store_point(const Lg& g, int d, int32_t* x, int32_t* y,
+                           int32_t* z, long long lane, int src) {
+    for (int k = g.t; k < 3 * d; k += g.G) {
+        const int c = k / d, e = k - c * d;
+        int32_t* dst = c == 0 ? x : (c == 1 ? y : z);
+        Fp v;
+        lg_ld(v, g.V + src + k);
+        fp_store(dst + (lane * d + e) * LH_LIMBS, v);
+    }
+}
+
+// the slots and programs of a scalar-multiply layout (lane_prog.cuh)
+#define LG_CURVE(S, N, DEG)                                               \
+    struct S {                                                            \
+        enum {                                                            \
+            D = DEG, NV = LG_##N##_NV, X = LG_##N##_X, Z = LG_##N##_Z,    \
+            QX = LG_##N##_QX, QZ = LG_##N##_QZ, RX = LG_##N##_RX,         \
+            DBL = LG_##N##_P_DBL, DBL_N = LG_##N##_P_DBL_N,               \
+            MADD = LG_##N##_P_MADD, MADD_N = LG_##N##_P_MADD_N,           \
+            ADD = LG_##N##_P_ADD, ADD_N = LG_##N##_P_ADD_N,               \
+            MADD_H = LG_##N##_MADD_H, MADD_DY = LG_##N##_MADD_DY,         \
+            ADD_H = LG_##N##_ADD_H, ADD_DY = LG_##N##_ADD_DY              \
+        };                                                                \
+    };
+LG_CURVE(LgRlc1, RLC1, 1)
+LG_CURVE(LgRlc2, RLC2, 2)
+LG_CURVE(LgSub, SUB, 2)
+
+// jac_add's branches after the addition program (ACC + Q into R): ACC
+// becomes Q (ACC at infinity), stays (Q at infinity), R with z zero (P +
+// -P), or R; true for P + P, whose doubling program runs next on ACC
+template <class L>
+LH_DEV bool lg_add_select(const Lg& g, bool mixed) {
+    const bool inf1 = lg_is_zero(g, L::Z, L::D);
+    const bool inf2 = !mixed && lg_is_zero(g, L::QZ, L::D);
+    const bool same_x = lg_is_zero(g, mixed ? L::MADD_H : L::ADD_H, L::D);
+    const bool same_y = lg_is_zero(g, mixed ? L::MADD_DY : L::ADD_DY, L::D);
+    __syncwarp(g.mask);          // every thread has read before ACC moves
+    if (inf1) {
+        lg_copy(g, L::X, L::QX, 3 * L::D);
+    } else if (!inf2) {
+        if (same_x && same_y) return true;
+        lg_copy(g, L::X, L::RX, 3 * L::D, same_x ? 2 * L::D : 1 << 30);
+    }
+    return false;
+}
+
+// The MSB-first double-and-add of the plain scalar_mul and of
+// jac_scalar_mul_const from the warp's first set bit on (its lanes'
+// highest), ACC there Q where the lane's bit is set and infinity (zero)
+// elsewhere (the doublings of the infinity before a lane's first set bit
+// stay at infinity, and its addition gives Q): a doubling a bit, the
+// addition of Q on set bits, mixed where Q's z is one. The groups of a
+// warp run in step: after each doubling the warp votes, and every group
+// runs the addition when one lane's bit is set, the others dropping its
+// result, so the warp issues one program, not one for each group's
+// place in its own bits. Bits MSB first: bits[j], or bit 63 - j of k
+// when bits is null.
+template <class L>
+struct LgMul {
+    const int32_t* bits;
+    unsigned long long k;
+    int nbits, j, prog, s;     // prog: 0 doubling, 1 addition, 2 the
+    bool mixed;                // addition's doubling branch; s: its step
+
+    LH_DEV bool bit(int i) const {
+        return bits ? bits[i] != 0 : ((k >> (63 - i)) & 1ull) != 0;
+    }
+
+    // the warp's first set bit; ACC from Q there, or infinity
+    LH_DEV void start(const Lg& g, int n, bool mixed_) {
+        nbits = n;
+        int first = 0;
+        while (first < n && !__any_sync(g.live, bit(first))) ++first;
+        if (first == n || !bit(first)) lg_copy(g, L::X, L::X, 3 * L::D, 0);
+        j = first + 1;
+        prog = s = 0;
+        mixed = mixed_;
+    }
+
+    LH_DEV bool done() const { return j >= nbits; }
+
+    LH_DEV int step() const {
+        return (prog == 1 ? (mixed ? L::MADD : L::ADD) : L::DBL) + s;
+    }
+
+    // after step() ran
+    LH_DEV void next(const Lg& g) {
+        const int n = prog == 1 ? (mixed ? L::MADD_N : L::ADD_N) : L::DBL_N;
+        if (++s < n) return;
+        s = 0;
+        if (prog == 0) {
+            if (__any_sync(g.live, bit(j))) {
+                prog = 1;
+                return;
+            }
+        } else if (prog == 1 && bit(j) && lg_add_select<L>(g, mixed)) {
+            prog = 2;
+            return;
+        }
+        prog = 0;
+        ++j;
+    }
+};

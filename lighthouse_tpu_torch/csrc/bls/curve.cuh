@@ -3,8 +3,8 @@
 // 409-498), including the infinity and doubling branches, so the Jacobian
 // outputs of a kernel and of the plain version agree coordinate for
 // coordinate (canonically), not only up to projective equivalence.
-// Infinity is z == 0. Also psi, the Jacobian equality and the constant
-// scalar multiply of the subgroup check and the cofactor clearing.
+// Infinity is z == 0. Also psi and the constant scalar multiply of the
+// cofactor clearing.
 #pragma once
 #include "tower.cuh"
 
@@ -131,23 +131,6 @@ LH_NOINL void jac_add(Jac<F>& r, const Jac<F>& p, const Jac<F>& q) {
     r = out;
 }
 
-// per-lane scalar as MSB-first 0/1 bits: from (0, 0, 0), double, and add
-// the point on set bits (the JAX scan computes the sum every step and
-// selects it; the selected values are the same)
-template <class F>
-LH_DEV void jac_scalar_mul_bits(Jac<F>& r, const Jac<F>& p,
-                                const int32_t* bits, int nbits) {
-    Jac<F> acc;
-    f_zero(acc.x);
-    f_zero(acc.y);
-    f_zero(acc.z);
-    for (int j = 0; j < nbits; ++j) {
-        jac_dbl(acc, acc);
-        if (bits[j]) jac_add(acc, acc, p);
-    }
-    r = acc;
-}
-
 // shared constant scalar k = (hi, lo) as the JAX scalar_mul_const: from
 // (x, y, 0), every bit of k from its top one down
 template <class F>
@@ -178,23 +161,6 @@ LH_NOINL void g2_psi(Jac<Fp2>& r, const Jac<Fp2>& p) {
     fp2_conj(r.z, p.z);
 }
 
-// cross-multiplied Jacobian equality
-LH_DEV bool g2_eq_jac(const Jac<Fp2>& p, const Jac<Fp2>& q) {
-    const bool inf1 = fp2_is_zero(p.z), inf2 = fp2_is_zero(q.z);
-    if (inf1 || inf2) return inf1 && inf2;
-    Fp2 z1s, z2s, a, b, t;
-    fp2_sqr(z1s, p.z);
-    fp2_sqr(z2s, q.z);
-    fp2_mul(a, p.x, z2s);
-    fp2_mul(b, q.x, z1s);
-    if (!fp2_eq(a, b)) return false;
-    fp2_mul(t, z2s, q.z);
-    fp2_mul(a, p.y, t);
-    fp2_mul(t, z1s, p.z);
-    fp2_mul(b, q.y, t);
-    return fp2_eq(a, b);
-}
-
 // (X/Z^2, Y/Z^3); Z = 0 inverts to 0
 template <class F>
 LH_DEV void jac_to_affine(F& ax, F& ay, const Jac<F>& p) {
@@ -204,10 +170,4 @@ LH_DEV void jac_to_affine(F& ax, F& ay, const Jac<F>& p) {
     f_mul(ax, p.x, zi2);
     f_mul(zi3, zi2, zi);
     f_mul(ay, p.y, zi3);
-}
-
-LH_DEV void jac_inf_g2(Jac<Fp2>& r) {
-    fp2_one(r.x);
-    fp2_one(r.y);
-    fp2_zero(r.z);
 }

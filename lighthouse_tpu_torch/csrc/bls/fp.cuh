@@ -75,28 +75,88 @@ LH_DEV void fp_zero(Fp& r) {
 
 LH_DEV void fp_one(Fp& r) { fp_set_const(r, LH_ONE); }
 
-// r = a + b over 12 words; returns the carry out
+// r = a + b over 12 words; returns the carry out. On the card one carry
+// chain (add.cc / addc.cc, in two asm blocks of six words, the carry
+// passed between them in a register): an instruction a word where the
+// 64-bit sums of the host version take two.
 LH_DEV uint32_t words_add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+#ifdef __CUDA_ARCH__
+    uint32_t c, t;
+    asm("add.cc.u32 %0, %7, %13;\n\t"
+        "addc.cc.u32 %1, %8, %14;\n\t"
+        "addc.cc.u32 %2, %9, %15;\n\t"
+        "addc.cc.u32 %3, %10, %16;\n\t"
+        "addc.cc.u32 %4, %11, %17;\n\t"
+        "addc.cc.u32 %5, %12, %18;\n\t"
+        "addc.u32 %6, 0, 0;"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+          "=r"(r[5]), "=r"(c)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+          "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]));
+    asm("add.cc.u32 %7, %8, 0xffffffff;\n\t"   // the carry in, to CC
+        "addc.cc.u32 %0, %9, %15;\n\t"
+        "addc.cc.u32 %1, %10, %16;\n\t"
+        "addc.cc.u32 %2, %11, %17;\n\t"
+        "addc.cc.u32 %3, %12, %18;\n\t"
+        "addc.cc.u32 %4, %13, %19;\n\t"
+        "addc.cc.u32 %5, %14, %20;\n\t"
+        "addc.u32 %6, 0, 0;"
+        : "=r"(r[6]), "=r"(r[7]), "=r"(r[8]), "=r"(r[9]), "=r"(r[10]),
+          "=r"(r[11]), "=r"(c), "=r"(t)
+        : "r"(c), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]),
+          "r"(a[11]), "r"(b[6]), "r"(b[7]), "r"(b[8]), "r"(b[9]),
+          "r"(b[10]), "r"(b[11]));
+    return c;
+#else
     uint64_t c = 0;
-#pragma unroll
     for (int i = 0; i < LH_W; ++i) {
         c += (uint64_t)a[i] + b[i];
         r[i] = (uint32_t)c;
         c >>= 32;
     }
     return (uint32_t)c;
+#endif
 }
 
-// r = a - b over 12 words; returns the borrow out
+// r = a - b over 12 words; returns the borrow out (sub.cc / subc.cc on
+// the card, as words_add)
 LH_DEV uint32_t words_sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+#ifdef __CUDA_ARCH__
+    uint32_t br, t;
+    asm("sub.cc.u32 %0, %7, %13;\n\t"
+        "subc.cc.u32 %1, %8, %14;\n\t"
+        "subc.cc.u32 %2, %9, %15;\n\t"
+        "subc.cc.u32 %3, %10, %16;\n\t"
+        "subc.cc.u32 %4, %11, %17;\n\t"
+        "subc.cc.u32 %5, %12, %18;\n\t"
+        "subc.u32 %6, 0, 0;"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+          "=r"(r[5]), "=r"(br)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+          "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]));
+    asm("sub.cc.u32 %7, 0, %8;\n\t"            // the borrow in, to CC
+        "subc.cc.u32 %0, %9, %15;\n\t"
+        "subc.cc.u32 %1, %10, %16;\n\t"
+        "subc.cc.u32 %2, %11, %17;\n\t"
+        "subc.cc.u32 %3, %12, %18;\n\t"
+        "subc.cc.u32 %4, %13, %19;\n\t"
+        "subc.cc.u32 %5, %14, %20;\n\t"
+        "subc.u32 %6, 0, 0;"
+        : "=r"(r[6]), "=r"(r[7]), "=r"(r[8]), "=r"(r[9]), "=r"(r[10]),
+          "=r"(r[11]), "=r"(br), "=r"(t)
+        : "r"(br & 1u), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]),
+          "r"(a[10]), "r"(a[11]), "r"(b[6]), "r"(b[7]), "r"(b[8]),
+          "r"(b[9]), "r"(b[10]), "r"(b[11]));
+    return br & 1u;
+#else
     uint32_t br = 0;
-#pragma unroll
     for (int i = 0; i < LH_W; ++i) {
         uint64_t d = (uint64_t)a[i] - b[i] - br;
         r[i] = (uint32_t)d;
         br = (uint32_t)(d >> 63);
     }
     return br;
+#endif
 }
 
 // ------------------------------------------------------- load and store
@@ -634,15 +694,4 @@ LH_DEV int fp2_sgn0(const Fp2& a) {
 #pragma unroll
     for (int i = 0; i < LH_W; ++i) z0 |= c0.w[i];
     return z0 == 0 ? (int)(c1.w[0] & 1) : (int)(c0.w[0] & 1);
-}
-
-// zcash compression sign: y > -y lexicographically (c1 first)
-LH_DEV bool fp2_lex_larger(const Fp2& a) {
-    Fp c0, c1;
-    fp_to_int(c0, a.c0);
-    fp_to_int(c1, a.c1);
-    uint32_t nz = 0;
-#pragma unroll
-    for (int i = 0; i < LH_W; ++i) nz |= c1.w[i];
-    return nz ? words_gt(c1, LH_HALF_P_INT) : words_gt(c0, LH_HALF_P_INT);
 }

@@ -472,7 +472,8 @@ def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
                                   (2, g2_in, "bls.scaled_signatures")):
         out_bytes = 3 * lanes * 128 * degree
         work = {"bytes": sum(t.numel() * 4 for t in inputs) + out_bytes,
-                "ops": cost.scalar_mul(inputs[3].cpu().numpy(), degree)
+                "ops": cost.scalar_mul_lanes(
+                    inputs[3].cpu().numpy(), degree)["products"]
                 * cost.FP_MUL_INT_OPS,
                 "link_bytes": out_bytes * (mesh.size - 1) // mesh.size}
         if degree == 1:
@@ -587,12 +588,14 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
     run("rlc_scale", f"sharded, G1 {pk_x.shape[0]} lanes",
         lambda: k.g1_scalar_mul(pk_x, pk_y, one1, bits_pk),
         lambda: k._g1_scalar_mul_plain(pk_x, pk_y, one1, bits_pk),
-        keep["g1_in"], cost.scalar_mul(bits_pk.cpu().numpy(), 1) * mul)
+        keep["g1_in"],
+        cost.scalar_mul_lanes(bits_pk.cpu().numpy(), 1)["products"] * mul)
     sx, sy, one2, bits_sig = keep["g2_in"]
     run("rlc_scale", f"sharded, G2 {sx.shape[0]} lanes",
         lambda: k.g2_scalar_mul(sx, sy, one2, bits_sig),
         lambda: k._g2_scalar_mul_plain(sx, sy, one2, bits_sig),
-        keep["g2_in"], cost.scalar_mul(bits_sig.cpu().numpy(), 2) * mul)
+        keep["g2_in"],
+        cost.scalar_mul_lanes(bits_sig.cpu().numpy(), 2)["products"] * mul)
 
     spx, spy, spz = keep["scaled_pubkeys"]
     starts, ends = keep["starts"], keep["ends"]

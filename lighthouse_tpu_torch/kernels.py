@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _HEADERS = ("sha256.cuh", "bls/fp.cuh", "bls/tower.cuh", "bls/curve.cuh",
-            "bls/consts.cuh", "bls/coop.cuh")
+            "bls/consts.cuh", "bls/coop.cuh", "bls/lane_prog.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -22,6 +22,18 @@ or where the kernel takes another route to the same value (the binary
 inversion and Legendre symbol of ``final_exp`` and ``hash_to_g2``).
 Units: Fp products (an Fp2 product is 3, Karatsuba).
 
+The lane-group kernels (rlc_scale, g2_intake on csrc/bls/coop.cuh
+``lg_step``) run the programs of ``ops/bls_lane.py``: squares as two
+products, a mixed addition (30 products over Fp2 where the point's z is
+one, 44 for the general one), and each lane's own steps from its
+scalar's top set bit on. ``scalar_mul_lanes``, ``g2_subgroup_lanes`` and
+``g2_decompress_lanes`` count them from the programs' tables, with the
+products and multiply rounds the groups issue (a step of n products is
+ceil(n / G) rounds on G threads; a warp's groups run in step, so a warp
+issues its longest group's, and rlc_scale's groups all add when one lane
+does); ``scalar_mul`` and ``g2_subgroup`` keep the one-thread formulas'
+counts, which the plain counter holds.
+
 The latency-bound kernels also have a depth: the field multiplies on
 their critical path, each step of the cooperative layer
 (csrc/bls/coop.cuh) one multiply's latency however many products it runs
@@ -32,6 +44,8 @@ G2 addition its 48 multiplies in series (the lower levels of
 multiply to it; their time shows in the card's ms per level.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 
@@ -347,3 +361,136 @@ def miller_loop_depth(n: int) -> int:
 def miller_loop_design(n: int) -> str:
     """The design ``lh_miller_loop`` picks for n pairs."""
     return ("a block a pair" if n <= ML_COOP_MAX else "a thread a pair")
+
+
+# -- the lane-group kernels (csrc/bls/coop.cuh lg_step) --------------------
+
+#: csrc/bls/rlc_scale.cu LH_RLC_G1_WIDTH / LH_RLC_G2_WIDTH and
+#: g2_intake.cu LH_G2I_WIDTH: threads a lane
+RLC_G1_WIDTH = 3
+RLC_G2_WIDTH = 3
+G2I_WIDTH = 3
+
+
+@lru_cache(maxsize=None)
+def lane_steps(layout: str, program: str) -> tuple:
+    """The products of each step of a lane program (ops/bls_lane.py)."""
+    from . import bls_lane
+    lay = next(lay for lay in bls_lane.layouts() if lay.name == layout)
+    prog = next(p for p in lay.programs if p.name == program)
+    return tuple(len(s.jobs) for s in prog.steps)
+
+
+def _run(layout: str, program: str, width: int) -> tuple[int, int]:
+    """(products, multiply rounds on ``width`` threads) of one program."""
+    steps = lane_steps(layout, program)
+    return sum(steps), sum(-(-n // width) for n in steps)
+
+
+def _issue(products, rounds, width: int) -> dict:
+    """Per-lane products and rounds [n] of programs that every lane runs
+    alike -> the batch's totals, the longest group, and the warps' rounds
+    (each its longest group's: lanes of a warp are consecutive, 32 //
+    width of them)."""
+    products, rounds = np.asarray(products), np.asarray(rounds)
+    per = 32 // width
+    pad = (-rounds.size) % per
+    warps = np.pad(rounds, (0, pad)).reshape(-1, per).max(axis=1)
+    return {"products": int(products.sum()), "issued": int(products.sum()),
+            "rounds": int(rounds.max(initial=0)),
+            "warp_rounds": int(warps.sum()), "width": width,
+            "lanes": int(products.size)}
+
+
+def scalar_mul_lanes(bits, degree: int, z_one=True,
+                     width: int | None = None) -> dict:
+    """rlc_scale's lane groups on per-lane MSB-first bits [n, nbits].
+    ``products``: each lane's own (the bound's count): from its top set
+    bit, a doubling a bit and an addition (mixed where ``z_one``) on set
+    bits. The groups of a warp run in step from the warp's first set bit,
+    every group adding when one lane's bit is set: ``issued`` counts the
+    products so run, ``warp_rounds`` their multiply rounds summed over the
+    warps, ``rounds`` the longest warp's. The addition's doubling branch
+    (P + P, which random scalars never meet) is not counted."""
+    bits = np.asarray(bits) != 0
+    n, nbits = bits.shape
+    width = width or (RLC_G1_WIDTH if degree == 1 else RLC_G2_WIDTH)
+    z_one = np.broadcast_to(np.asarray(z_one, bool), (n,))
+    lay = f"RLC{degree}"
+    dbl, madd, gadd = (_run(lay, p, width) for p in ("DBL", "MADD", "ADD"))
+    ones = bits.sum(axis=1)
+    first = np.where(ones > 0, bits.argmax(axis=1), nbits)
+    own = (np.maximum(nbits - first - 1, 0) * dbl[0]
+           + np.maximum(ones - 1, 0) * np.where(z_one, madd[0], gadd[0]))
+    per = 32 // width
+    pad = (-n) % per
+    wb = np.pad(bits, ((0, pad), (0, 0))).reshape(-1, per, nbits)
+    wz = np.pad(z_one, (0, pad), constant_values=True).reshape(-1, per)
+    any_bit = wb.any(axis=1)                           # [warps, nbits]
+    wfirst = np.where(any_bit.any(axis=1), any_bit.argmax(axis=1), nbits)
+    after = np.arange(nbits)[None, :] > wfirst[:, None]
+    n_dbl = np.maximum(nbits - wfirst - 1, 0)
+    n_add = (any_bit & after).sum(axis=1)
+    add_rounds = np.where(wz.all(axis=1), madd[1],
+                          np.where(wz.any(axis=1), max(madd[1], gadd[1]),
+                                   gadd[1]))
+    rounds = n_dbl * dbl[1] + n_add * add_rounds
+    issued = (n_dbl[:, None] * dbl[0] + n_add[:, None] * np.where(
+        wz, madd[0], gadd[0]))[:, :per].reshape(-1)[:n]
+    return {"products": int(own.sum()), "issued": int(issued.sum()),
+            "rounds": int(rounds.max(initial=0)),
+            "warp_rounds": int(rounds.sum()), "width": width, "lanes": n}
+
+
+def g2_subgroup_lanes(z_one, z_is_zero, x_equal,
+                      width: int = G2I_WIDTH) -> dict:
+    """g2_intake's subgroup check: psi, [|x|]Q from its top bit (mixed
+    additions where Q's z is one), the equality's first two steps unless a
+    point is at infinity, its third when the x test passes."""
+    z_one = np.asarray(z_one, bool)
+    z_is_zero = np.asarray(z_is_zero, bool)
+    x_equal = np.asarray(x_equal, bool)
+    e = k._X_ABS
+    n_dbl, n_add = e.bit_length() - 1, bin(e).count("1") - 1
+    eq = lane_steps("SUB", "EQ")
+    out = []
+    for i in range(2):
+        per_step = (lambda n: n) if i == 0 else (lambda n: -(-n // width))
+        psi = sum(per_step(n) for n in lane_steps("SUB", "PSI"))
+        mul = n_dbl * _run("SUB", "DBL", width)[i] + n_add * np.where(
+            z_one, _run("SUB", "MADD", width)[i],
+            _run("SUB", "ADD", width)[i])
+        first = per_step(eq[0]) + per_step(eq[1])
+        tail = np.where(z_is_zero, 0, first + np.where(
+            x_equal, per_step(eq[2]), 0))
+        out.append(psi + mul + tail)
+    return _issue(*out, width)
+
+
+def _pow_lane(e: int, width: int) -> tuple[int, int]:
+    """A power walked from the bottom bit (the POW_* programs)."""
+    top = e.bit_length() - 1
+    prods = rounds = 0
+    have = False
+    for i in range(top + 1):
+        bit = (e >> i) & 1
+        name = ("POW_" + ("MUL" if have else "CPY") if i == top else
+                "POW_" + ("MULSQ" if have else "CPYSQ") if bit else "POW_SQ")
+        have = have or bool(bit)
+        p, r = _run("DEC", name, width)
+        prods, rounds = prods + p, rounds + r
+    return prods, rounds
+
+
+def g2_decompress_lanes(n: int, width: int = G2I_WIDTH) -> dict:
+    """g2_intake's decompression: x^3 + b, the square root's two powers
+    and its products, the root's square and its integer coefficients,
+    the same on every lane."""
+    prods = rounds = 0
+    for name in ("CUBE", "X0", "ALPHA", "OTHER", "Y2", "INT"):
+        p, r = _run("DEC", name, width)
+        prods, rounds = prods + p, rounds + r
+    for e in ((P - 3) // 4, (P - 1) // 2):
+        p, r = _pow_lane(e, width)
+        prods, rounds = prods + p, rounds + r
+    return _issue(np.full(n, prods), np.full(n, rounds), width)

@@ -1,6 +1,7 @@
 // Stand-ins that let a BLS kernel source (csrc/bls/*.cu, its C entries
 // cut off) build with g++ and run on the host, one std::thread per CUDA
-// thread: __syncthreads and __syncwarp are std::barriers, __shared__
+// thread: __syncthreads and __syncwarp are std::barriers (__syncwarp(mask)
+// one of popcount(mask) threads for each mask a warp names), __shared__
 // memory is plain memory that the threads of the one running block
 // share, __constant__ arrays are static const. Multiply lowering 0 only
 // (no __dp4a). For the CPU tests (testing/host_cuda.py); the card remains
@@ -10,10 +11,13 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
+#include <map>
+#include <mutex>
 #include <thread>
 #include <vector>
 
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 #define __global__
@@ -30,13 +34,59 @@ struct uint4 { unsigned x, y, z, w; };
 std::barrier<>* lh_block_barrier = nullptr;
 std::vector<std::barrier<>*> lh_warp_barriers;
 
+// the barriers of a warp's partial masks, made at first use
+struct LhMaskBarriers {
+    std::mutex m;
+    std::map<unsigned, std::barrier<>*> bars;
+    std::map<unsigned, int> votes;
+    ~LhMaskBarriers() {
+        for (auto& kv : bars) delete kv.second;
+    }
+};
+std::vector<LhMaskBarriers*> lh_mask_barriers;
+
 inline int __clzll(long long v) {
     return v ? __builtin_clzll((unsigned long long)v) : 64;
 }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 inline void __syncthreads() { lh_block_barrier->arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) {
-    lh_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+    if (mask == 0xffffffffu) {
+        lh_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+        return;
+    }
+    LhMaskBarriers* w = lh_mask_barriers[threadIdx.x / 32];
+    std::barrier<>* bar;
+    {
+        std::lock_guard<std::mutex> lock(w->m);
+        std::barrier<>*& b = w->bars[mask];
+        if (!b) b = new std::barrier<>(__builtin_popcount(mask));
+        bar = b;
+    }
+    bar->arrive_and_wait();
+}
+
+// __any_sync(mask, p): three barriers of the mask's threads around an
+// or of their predicates (the last one lets the first thread clear it)
+inline bool __any_sync(unsigned mask, int pred) {
+    LhMaskBarriers* w = lh_mask_barriers[threadIdx.x / 32];
+    std::barrier<>* bar;
+    int* vote;
+    {
+        std::lock_guard<std::mutex> lock(w->m);
+        std::barrier<>*& b = w->bars[mask];
+        if (!b) b = new std::barrier<>(__builtin_popcount(mask));
+        bar = b;
+        vote = &w->votes[mask];
+    }
+    bar->arrive_and_wait();
+    if (pred) __atomic_store_n(vote, 1, __ATOMIC_SEQ_CST);
+    bar->arrive_and_wait();
+    const bool any = __atomic_load_n(vote, __ATOMIC_SEQ_CST) != 0;
+    bar->arrive_and_wait();
+    if ((unsigned)__builtin_ctz(mask) == threadIdx.x % 32)
+        __atomic_store_n(vote, 0, __ATOMIC_SEQ_CST);
+    return any;
 }
 
 // the dynamic shared memory of the kernels (extern __shared__ lh_smem[])
@@ -50,10 +100,14 @@ template <class F> void host_launch(unsigned grid, unsigned block, F body) {
         std::barrier<> bar(block);
         lh_block_barrier = &bar;
         std::vector<std::barrier<>*> warps;
-        for (unsigned w = 0; w * 32 < block; ++w)
+        std::vector<LhMaskBarriers*> masks;
+        for (unsigned w = 0; w * 32 < block; ++w) {
             warps.push_back(new std::barrier<>(
                 block - 32 * w < 32 ? block - 32 * w : 32));
+            masks.push_back(new LhMaskBarriers);
+        }
         lh_warp_barriers = warps;
+        lh_mask_barriers = masks;
         std::vector<std::thread> threads;
         for (unsigned t = 0; t < block; ++t)
             threads.emplace_back([=] {
@@ -63,6 +117,7 @@ template <class F> void host_launch(unsigned grid, unsigned block, F body) {
             });
         for (auto& t : threads) t.join();
         for (auto* w : warps) delete w;
+        for (auto* w : masks) delete w;
     }
 }
 

@@ -4,7 +4,8 @@
 off ``csrc/bls/<source>``, compiles it with g++ against the stand-ins of
 ``host_cuda.h`` (one std::thread a CUDA thread, barriers for
 ``__syncthreads``/``__syncwarp``) and returns the program;
-``final_exp``, ``hash_to_g2``, ``g2_sum`` and ``miller_loop`` run it on
+``final_exp``, ``hash_to_g2``, ``g2_sum``, ``miller_loop``, ``rlc_scale``
+and ``g2_intake`` run it on
 int32 limb arrays as the kernels' C entries take them, launching the
 kernels as the C entries do (each main repeats its entry's choice). The CPU tests hold the
 results to the plain versions: the arithmetic of the CUDA source, not
@@ -12,6 +13,7 @@ its build for the card.
 """
 from __future__ import annotations
 
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -77,6 +79,46 @@ int main(int, char** argv) {
     host_write(argv[6], oz);
 }
 '''),
+    "rlc_scale": ("rlc_scale.cu", r'''
+int main(int, char** argv) {
+    const int field = atoi(argv[1]), nbits = atoi(argv[2]);
+    const std::vector<int32_t> x = host_read(argv[3]), y = host_read(argv[4]),
+                               z = host_read(argv[5]), bits = host_read(argv[6]);
+    const int d = field == 1 ? 1 : 2;
+    const long long n = x.size() / (d * LH_LIMBS);
+    std::vector<int32_t> ox(x.size()), oy(x.size()), oz(x.size());
+    auto run = [&](auto kernel, int G) {     // as lh_rlc_scale launches
+        const int lanes = lg_lanes(LH_RLC_THREADS, G);
+        host_launch((n + lanes - 1) / lanes, LH_RLC_THREADS, [&] {
+            kernel(x.data(), y.data(), z.data(), bits.data(), nbits,
+                   ox.data(), oy.data(), oz.data(), n);
+        });
+    };
+    if (field == 1) run(scale_kernel<Fp>, RlcLayout<Fp>::G);
+    else run(scale_kernel<Fp2>, RlcLayout<Fp2>::G);
+    host_write(argv[7], ox);
+    host_write(argv[8], oy);
+    host_write(argv[9], oz);
+}
+'''),
+    "g2_intake": ("g2_intake.cu", r'''
+int main(int, char** argv) {
+    const int mode = atoi(argv[1]);
+    const std::vector<int32_t> x = host_read(argv[2]), b = host_read(argv[3]),
+                               c = host_read(argv[4]);
+    const long long n = x.size() / (2 * LH_LIMBS);
+    std::vector<int32_t> y(x.size()), ok(n);
+    const int lanes = lg_lanes(LH_G2I_THREADS, LH_G2I_WIDTH);
+    host_launch((n + lanes - 1) / lanes, LH_G2I_THREADS, [&] {
+        if (mode == 0)      // b: the sign flags
+            decompress_kernel(x.data(), b.data(), y.data(), ok.data(), n);
+        else                // b, c: y and z
+            subgroup_kernel(x.data(), b.data(), c.data(), ok.data(), n);
+    });
+    host_write(argv[5], y);
+    host_write(argv[6], ok);
+}
+'''),
     "miller_loop": ("pairing.cu", r'''
 int main(int, char** argv) {
     const std::vector<int32_t> px = host_read(argv[1]), py = host_read(argv[2]),
@@ -104,14 +146,28 @@ def compiler() -> str | None:
     return shutil.which("g++")
 
 
-def build(name: str, out_dir: Path, defines: tuple = ()) -> Path:
+def set_define(text: str, macro: str, value) -> str:
+    """``text`` with its ``#define macro ...`` line set to ``value`` (a
+    design constant of a source, such as a lane group's width)."""
+    line = re.compile(rf"^#define {macro} .*$", re.M)
+    assert line.search(text), f"no #define {macro}"
+    return line.sub(f"#define {macro} {value}", text)
+
+
+def build(name: str, out_dir: Path, defines: tuple = (),
+          constants: dict | None = None) -> Path:
     """The host program of kernel ``name`` (a key of ``_MAINS``), multiply
     lowering 0 (CIOS); ``defines``: ``-D`` flags of the build (a source's
-    ``#ifndef`` knobs), each build in a directory of its own."""
+    ``#ifndef`` knobs); ``constants``: ``#define`` lines of the source set
+    to other values (``set_define``). Each build in a directory of its
+    own."""
     source, main = _MAINS[name]
     text = (CSRC / "bls" / source).read_text()
+    for macro, value in (constants or {}).items():
+        text = set_define(text, macro, value)
     body = text[:text.index('extern "C"')]
     tag = "".join("_" + d.lstrip("-D").replace("=", "") for d in defines)
+    tag += "".join(f"_{m}{v}" for m, v in (constants or {}).items())
     out_dir = Path(out_dir) / (name + tag)
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / f"{name}_host.cpp"
@@ -148,14 +204,15 @@ def hash_to_g2(exe: Path, u0: np.ndarray, u1: np.ndarray):
     return tuple(_arr(d / f"o{c}.bin", u0.shape) for c in "xyz")
 
 
-def _run(exe: Path, inputs: dict, outputs: tuple) -> None:
+def _run(exe: Path, inputs: dict, outputs: tuple, args: tuple = ()) -> None:
     """Write ``inputs`` (name -> int32 array) beside ``exe``, run it on
-    them and the output files' paths, in that order."""
+    ``args``, then them and the output files' paths, in that order."""
     d = exe.parent
     for name, a in inputs.items():
         np.ascontiguousarray(a, np.int32).tofile(d / f"{name}.bin")
-    subprocess.run([str(exe), *(str(d / f"{f}.bin")
-                                for f in (*inputs, *outputs))], check=True)
+    subprocess.run([str(exe), *map(str, args),
+                    *(str(d / f"{f}.bin") for f in (*inputs, *outputs))],
+                   check=True)
 
 
 def g2_sum(exe: Path, x: np.ndarray, y: np.ndarray, z: np.ndarray):
@@ -173,3 +230,27 @@ def miller_loop(exe: Path, px, py, qx, qy, mask):
     _run(exe, {"px": px, "py": py, "qx": qx, "qy": qy, "mask": mask},
          ("fs",))
     return _arr(exe.parent / "fs.bin", (n, 2, 3, 2, 32))
+
+
+def rlc_scale(exe: Path, field: int, x, y, z, bits):
+    """The Jacobian [b_i]P_i (x, y, z) of the rlc_scale kernel over Fp
+    (field 1, [n, 32]) or Fp2 (field 2, [n, 2, 32]); bits [n, nbits]."""
+    bits = np.asarray(bits)
+    _run(exe, {"x": x, "y": y, "z": z, "bits": bits}, ("ox", "oy", "oz"),
+         (field, bits.shape[1]))
+    shape = np.asarray(x).shape
+    return tuple(_arr(exe.parent / f"o{c}.bin", shape) for c in "xyz")
+
+
+def g2_decompress(exe: Path, x, flags):
+    """(y [n, 2, 32], ok [n]) of the g2_intake kernel's mode 0."""
+    n = len(flags)
+    _run(exe, {"x": x, "b": flags, "c": np.zeros(1)}, ("y", "ok"), (0,))
+    return (_arr(exe.parent / "y.bin", (n, 2, 32)),
+            _arr(exe.parent / "ok.bin", n))
+
+
+def g2_in_subgroup(exe: Path, x, y, z):
+    """ok [n] of the g2_intake kernel's mode 1 on Jacobian points."""
+    _run(exe, {"x": x, "b": y, "c": z}, ("y", "ok"), (1,))
+    return _arr(exe.parent / "ok.bin", np.asarray(x).shape[0])

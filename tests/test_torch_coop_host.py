@@ -1,11 +1,16 @@
 """The thread-cooperative BLS kernels' CUDA sources (csrc/bls/pairing.cu
 final_exp and the cooperative Miller loop, csrc/bls/hash_to_g2.cu on
-csrc/bls/coop.cuh, and csrc/bls/aggregate.cu's tree g2_sum) built with
+csrc/bls/coop.cuh, csrc/bls/aggregate.cu's tree g2_sum, and the
+lane-group kernels csrc/bls/rlc_scale.cu and g2_intake.cu) built with
 g++ and run on the host, one thread per CUDA thread
 (lighthouse_tpu_torch/testing/host_cuda.py), against the plain versions:
 the product tree's edges, the final exponentiation, hash-to-G2 with
-SSWU's exceptional input, the Miller loop with a masked lane, and the
-G2 sum over blocks with infinity, doubling and opposite points. Canonical
+SSWU's exceptional input, the Miller loop with a masked lane, the G2 sum
+over blocks with infinity, doubling and opposite points, the scalar
+multiplies with infinity, zero and all-ones scalars and lanes of either
+z, decompression with an x that has no root, and the subgroup check.
+The lane programs' tables (csrc/bls/lane_prog.cuh) are checked against
+their generator and run with Python integers against the formulas. Canonical
 field values equal (tolerance zero); the G2 sum, whose tree adds in
 another order than the plain version, as points (projectively), and limb
 for limb against a plain model of its own order. The card tests
@@ -43,6 +48,18 @@ def programs(tmp_path_factory):
     # the one-thread Miller design at any n
     progs["miller_loop_serial"] = host_cuda.build(
         "miller_loop", d, ("-DLH_ML_COOP_MAX=0",))
+    for name in ("rlc_scale", "g2_intake"):
+        progs[name] = host_cuda.build(name, d)
+    # other lane-group widths than the sources' three threads (two idle a
+    # warp): one, four, a whole warp
+    progs["rlc_scale_w14"] = host_cuda.build(
+        "rlc_scale", d, constants={"LH_RLC_G1_WIDTH": 1,
+                                   "LH_RLC_G2_WIDTH": 4})
+    progs["rlc_scale_w32"] = host_cuda.build(
+        "rlc_scale", d, constants={"LH_RLC_G1_WIDTH": 32,
+                                   "LH_RLC_G2_WIDTH": 32})
+    progs["g2_intake_w4"] = host_cuda.build(
+        "g2_intake", d, constants={"LH_G2I_WIDTH": 4})
     return progs
 
 
@@ -264,6 +281,9 @@ def test_live_pairs_alone_give_the_masked_loop():
     ("aggregate.cu", "LH_G2_SUM_T", "G2_SUM_THREADS"),
     ("aggregate.cu", "LH_G2_SUM_WARP_ROUNDS", "G2_SUM_WARP_ROUNDS"),
     ("hash_to_g2.cu", "LH_H2G_COOP_MAX", "H2G_COOP_MAX"),
+    ("rlc_scale.cu", "LH_RLC_G1_WIDTH", "RLC_G1_WIDTH"),
+    ("rlc_scale.cu", "LH_RLC_G2_WIDTH", "RLC_G2_WIDTH"),
+    ("g2_intake.cu", "LH_G2I_WIDTH", "G2I_WIDTH"),
 ])
 def test_cost_model_matches_the_sources(source, macro, value):
     """ops/bls_cost.py's copies of the sources' design constants (which
@@ -287,3 +307,268 @@ def test_miller_depth_counts_the_steps():
     assert cost.MILLER_COOP_DEPTH == 4 * 63 + 4 * 5 - 1 == 271
     assert cost.miller_loop_depth(cost.ML_COOP_MAX) == 271
     assert cost.miller_loop_depth(cost.ML_COOP_MAX + 1) == cost.MILLER_LANE
+
+
+def _affine_points(seed, n, g2):
+    """n affine points k_i G (z one), as the main path sends them."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import (
+        G1_GENERATOR, G2_GENERATOR,
+    )
+    rng = np.random.default_rng(seed)
+    gen = G2_GENERATOR if g2 else G1_GENERATOR
+    pts = [gen.mul(int(rng.integers(1, 2**62))).to_affine()
+           for _ in range(n)]
+    enc = k.fp2_encode if g2 else k.fp_encode
+    one = k.FP2_ONE if g2 else k.FP_ONE
+    x, y = (np.ascontiguousarray(enc([p[c] for p in pts])) for c in (0, 1))
+    z = np.array(np.broadcast_to(one, x.shape))
+    return x, y, z
+
+
+def _rescale(x, y, z, lanes, g2, seed):
+    """The given lanes' points with z a random l: (x l^2, y l^3, z l)."""
+    rng = np.random.default_rng(seed)
+    shape = (len(lanes),) + x.shape[1:]
+    lam = torch.from_numpy(k.fp_encode(
+        [int.from_bytes(rng.bytes(48), "little") % k.P_INT
+         for _ in range(int(np.prod(shape)) // 32)]).reshape(shape))
+    mul = k.fp2_mul if g2 else bi.mont_mul
+    l2 = mul(lam, lam)
+    x, y, z = x.copy(), y.copy(), z.copy()
+    x[lanes] = mul(torch.from_numpy(x[lanes]), l2).numpy()
+    y[lanes] = mul(torch.from_numpy(y[lanes]), mul(l2, lam)).numpy()
+    z[lanes] = mul(torch.from_numpy(z[lanes]), lam).numpy()
+    return x, y, z
+
+
+@pytest.mark.parametrize("program", ["rlc_scale", "rlc_scale_w14",
+                                     "rlc_scale_w32"])
+@pytest.mark.parametrize("g2", [False, True])
+@pytest.mark.parametrize("n", [1, 3, 19])
+def test_rlc_scale_source_on_host(programs, program, g2, n):
+    """[b_i]P_i on the lane groups (at the source's widths, at 1 and 4
+    threads a lane, and at a whole warp), at lane counts that fill no
+    warp: lane 0 at infinity, a zero scalar (the last lane) and one of all
+    ones, affine lanes (the mixed addition) beside lanes of another z (the
+    general one); over G1 also the point (0, 2) of order 3 with scalars 5
+    (T + T: the addition's doubling branch, its group a program behind
+    the others of its warp) and 7 (2T + T: the opposite points); the
+    Jacobian output canonically, coordinate for coordinate, equal to the
+    plain scalar multiply."""
+    x, y, z = _affine_points(n + (10 if g2 else 20), n, g2)
+    x, y, z = _rescale(x, y, z, list(range(1, n, 2)), g2, n)
+    z[0] = 0
+    rng = np.random.default_rng(n)
+    scalars = [int(s) for s in rng.integers(1, 2**63, size=n)]
+    scalars[n // 2] = 2**64 - 1
+    if not g2 and n >= 3:
+        for lane, scalar in ((1, 5), (2, 7)):
+            x[lane], y[lane] = k.fp_encode([0, 2])
+            z[lane] = k.FP_ONE
+            scalars[lane] = scalar
+    scalars[-1] = 0
+    bits = k.scalars_to_bits(scalars, 64)
+    got = host_cuda.rlc_scale(programs[program], 2 if g2 else 1, x, y, z,
+                              bits)
+    mul = k._g2_scalar_mul_plain if g2 else k._g1_scalar_mul_plain
+    want = mul(*(torch.from_numpy(a) for a in (x, y, z)), bits)
+    for g, w in zip(got, want):
+        assert torch.equal(_canon(g), bi.canonical(w))
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_rlc_scale_source_long_scalars_on_host(programs, g2):
+    """Scalars of more than 64 bits (70 here: the kernel reads them bit by
+    bit where it packs 64 into a register), one of them zero."""
+    x, y, z = _affine_points(60, 3, g2)
+    rng = np.random.default_rng(70)
+    scalars = [int(rng.integers(1, 2**62)) << 8 | 0xA5 for _ in range(2)]
+    bits = k.scalars_to_bits(scalars + [0], 70)
+    got = host_cuda.rlc_scale(programs["rlc_scale"], 2 if g2 else 1, x, y,
+                              z, bits)
+    mul = k._g2_scalar_mul_plain if g2 else k._g1_scalar_mul_plain
+    want = mul(*(torch.from_numpy(a) for a in (x, y, z)), bits)
+    for g, w in zip(got, want):
+        assert torch.equal(_canon(g), bi.canonical(w))
+
+
+@pytest.mark.parametrize("program", ["g2_intake", "g2_intake_w4"])
+@pytest.mark.parametrize("n", [1, 3, 11])
+def test_g2_intake_source_on_host(programs, program, n):
+    """Decompression on the lane groups: y and ok canonically equal to
+    the plain version with both sign flags, lane 0's x with no root (its
+    y too); the subgroup check on affine points and one of another z,
+    lane 0 at infinity, and on a point outside the subgroup."""
+    x, y, z = _affine_points(40 + n, n, True)
+    xs = x.copy()
+    xs[0] = k.fp_encode([5, 7]).reshape(2, 32)          # no root
+    flags = np.arange(n, dtype=np.int32) % 2
+    gy, gok = host_cuda.g2_decompress(programs[program], xs, flags)
+    wy, wok = k._g2_decompress_plain(torch.from_numpy(xs), flags)
+    assert not bool(wok[0])
+    assert torch.equal(_canon(gy), bi.canonical(wy))
+    assert np.array_equal(gok.astype(bool), wok.numpy())
+    x, y, z = _rescale(x, y, z, list(range(1, n, 2)), True, n)
+    z[0] = 0
+    if n > 2:
+        # a curve point outside G2: the no-root x's neighbour with a root
+        from lighthouse_tpu_torch.crypto.bls12_381.fields import Fp2
+        from lighthouse_tpu_torch.crypto.bls12_381.curve import B_G2
+        for c in range(1, 100):
+            xx = Fp2(c, 1)
+            yy = (xx * xx * xx + B_G2).sqrt()
+            if yy is not None:
+                break
+        x[2], y[2] = (k.fp2_encode([v]).reshape(2, 32) for v in (xx, yy))
+        z[2] = k.FP2_ONE
+    got = host_cuda.g2_in_subgroup(programs[program], x, y, z)
+    want = k._g2_in_subgroup_plain(*(torch.from_numpy(a) for a in (x, y, z)))
+    assert np.array_equal(got.astype(bool), want.numpy())
+    if n > 2:
+        assert not bool(want[2]) and bool(want[1])
+
+
+def test_lane_programs_are_rendered():
+    """csrc/bls/lane_prog.cuh is the generator's rendering of the lane
+    programs (ops/bls_lane.py)."""
+    from lighthouse_tpu_torch.kernels import CSRC
+    from lighthouse_tpu_torch.ops import bls_lane
+    assert (CSRC / "bls" / "lane_prog.cuh").read_text() == bls_lane.render()
+
+
+def _f2(a, b, op):
+    return tuple(op(x, y) % k.P_INT for x, y in zip(a, b))
+
+
+def _jac_formulas(degree):
+    """curve.cuh jac_dbl and jac_add (without its branches, with H and
+    S2 - S1) over Python integers."""
+    P = k.P_INT
+
+    def m(a, b):
+        if degree == 1:
+            return (a[0] * b[0] % P,)
+        return ((a[0] * b[0] - a[1] * b[1]) % P,
+                (a[0] * b[1] + a[1] * b[0]) % P)
+
+    def add(a, b):
+        return _f2(a, b, lambda u, v: u + v)
+
+    def sub(a, b):
+        return _f2(a, b, lambda u, v: u - v)
+
+    def mn(a, c):
+        return tuple(u * c % P for u in a)
+
+    def dbl(x, y, z):
+        A, B, yz = m(x, x), m(y, y), m(y, z)
+        E, xB = mn(A, 3), add(x, B)
+        C, t, F = m(B, B), m(xB, xB), m(E, E)
+        D = mn(sub(sub(t, A), C), 2)
+        X3 = sub(F, mn(D, 2))
+        return X3, sub(m(E, sub(D, X3)), mn(C, 8)), mn(yz, 2)
+
+    def jadd(x1, y1, z1, x2, y2, z2):
+        Z1Z1, Z2Z2, zz = m(z1, z1), m(z2, z2), m(add(z1, z2), add(z1, z2))
+        U1, U2 = m(x1, Z2Z2), m(x2, Z1Z1)
+        S1, S2 = m(y1, m(z2, Z2Z2)), m(y2, m(z1, Z1Z1))
+        H = sub(U2, U1)
+        I = m(mn(H, 2), mn(H, 2))
+        dS = sub(S2, S1)
+        rr = mn(dS, 2)
+        J, V = m(H, I), m(U1, I)
+        X3 = sub(sub(m(rr, rr), J), mn(V, 2))
+        Y3 = sub(m(rr, sub(V, X3)), mn(m(S1, J), 2))
+        return X3, Y3, m(sub(sub(zz, Z1Z1), Z2Z2), H), H, dS
+
+    return dbl, jadd
+
+
+@pytest.mark.parametrize("layout,degree", [("RLC1", 1), ("RLC2", 2),
+                                           ("SUB", 2)])
+def test_lane_programs_compute_the_formulas(layout, degree):
+    """The doubling, the mixed and the general addition of each layout's
+    tables, run step by step with Python integers (``bls_lane.run_step``,
+    the semantics of ``lg_step``), give curve.cuh's values on random slot
+    contents, H and S2 - S1 included."""
+    from lighthouse_tpu_torch.ops import bls_lane
+    table = bls_lane.tables()
+    d = dict(table[3])
+    dbl, jadd = _jac_formulas(degree)
+    rng = np.random.default_rng(degree)
+    P = k.P_INT
+
+    def slot(name):
+        return d[f"LG_{layout}_{name}"]
+
+    for _ in range(2):
+        V = [int.from_bytes(rng.bytes(48), "little") % P
+             for _ in range(slot("NV"))]
+
+        def get(name, V=V):
+            return tuple(V[slot(name) + i] for i in range(degree))
+
+        want = dbl(get("X"), get("Y"), get("Z"))
+        for s in range(slot("P_DBL_N")):
+            bls_lane.run_step(V, slot("P_DBL") + s, P, table=table)
+        assert (get("X"), get("Y"), get("Z")) == want
+        for prog in ("ADD", "MADD"):
+            W = list(V)
+            if prog == "MADD":
+                W[slot("QZ"):slot("QZ") + degree] = [1] + [0] * (degree - 1)
+            want = jadd(*(get(c, W) for c in ("X", "Y", "Z", "QX", "QY",
+                                              "QZ")))
+            for s in range(slot(f"P_{prog}_N")):
+                bls_lane.run_step(W, slot(f"P_{prog}") + s, P, table=table)
+            got = tuple(get(c, W) for c in ("RX", "RY", "RZ")) + tuple(
+                tuple(W[slot(f"{prog}_{e}") + i] for i in range(degree))
+                for e in ("H", "DY"))
+            assert got == want
+
+
+def test_lane_program_hazards_are_refused():
+    """The generator refuses a linear output read in the stage that
+    writes it, and a fixed slot overwritten while a stage still reads
+    it."""
+    from lighthouse_tpu_torch.ops import bls_lane as L
+    lay = L.Layout("T", 1, [("A", 1), ("B", 1)])
+    s = lay.program("P").step()
+    v = s.lin(L.add(s.prog.elem("A"), s.prog.elem("B")))
+    with pytest.raises(AssertionError):
+        s.lin(v)
+    s = lay.program("Q").step()
+    s.lin(s.prog.elem("A"), stage=1)
+    with pytest.raises(AssertionError):
+        s.out("A", s.prog.elem("B"), stage=1)
+
+
+def test_lane_group_counts():
+    """bls_cost's lane-group counts on three scalars (zero, the top bit,
+    all ones; 64 bits): from the top set bit, 16 products a G2 doubling
+    (three squares and a product, then three squares, then a product), 30 a
+    mixed addition, 44 a general one; the rounds a step of n products
+    takes on G threads, ceil(n / G); a warp's rounds its longest group's.
+    Decompression issues the one-thread count (its powers' squares and
+    products are the same); the subgroup check fewer (squares, mixed
+    additions, from |x|'s top bit)."""
+    from lighthouse_tpu_torch.ops import bls_cost as cost
+    assert cost.lane_steps("RLC2", "DBL") == (7, 6, 3)
+    assert sum(cost.lane_steps("RLC2", "MADD")) == 30
+    assert sum(cost.lane_steps("RLC2", "ADD")) == 44
+    assert sum(cost.lane_steps("RLC1", "DBL")) == 7
+    assert sum(cost.lane_steps("RLC1", "MADD")) == 11
+    bits = k.scalars_to_bits([0, 2**63, 2**64 - 1], 64)
+    got = cost.scalar_mul_lanes(bits, 2, z_one=[True, True, False],
+                                width=4)
+    assert got["products"] == 63 * 16 + 63 * 16 + 63 * 44
+    # one warp of 8 lanes, in step from bit 0: every lane doubles 63
+    # times and adds 63 times (the all-ones lane's bits)
+    assert got["issued"] == 3 * 63 * 16 + 2 * 63 * 30 + 63 * 44
+    assert got["rounds"] == 63 * (2 + 2 + 1) + 63 * sum(
+        -(-n // 4) for n in cost.lane_steps("RLC2", "ADD"))
+    assert got["warp_rounds"] == got["rounds"]
+    n = 5
+    assert cost.g2_decompress_lanes(n)["products"] == cost.g2_decompress(n)
+    sub = cost.g2_subgroup_lanes([True] * n, [False] * n, [True] * n)
+    old = cost.g2_subgroup([False] * n, [True] * n)
+    assert sub["products"] == n * (6 + 63 * 16 + 5 * 30 + 22) < old

@@ -223,6 +223,37 @@ def test_scalar_mul_and_affine_kernels(cuda_device, n, g2):
     got = mul(*(t.to(cuda_device) for t in (x, y, z)), bits)
     assert _canon_equal(got, want)
     assert _canon_equal(aff(*got), aff(*want))
+    # affine lanes (z one: the main path's mixed addition) beside lanes of
+    # another z (x l^2, y l^3, l: the general one) in one call, and a
+    # scalar of all ones
+    x, y, z = _rescaled(x, y, z, range(1, n, 2), g2, n + 7)
+    scalars[n // 2] = 2**64 - 1
+    bits = k.scalars_to_bits(scalars, 64)
+    want = mul(x, y, z, bits)
+    got = mul(*(t.to(cuda_device) for t in (x, y, z)), bits)
+    assert _canon_equal(got, want)
+
+
+def _rescaled(x, y, z, lanes, g2, seed):
+    """The points with the given lanes' z made a random l: (x l^2, y l^3,
+    z l), the same points in other coordinates."""
+    bi, k = _bls()
+    lanes = list(lanes)
+    if not lanes:
+        return x, y, z
+    rng = np.random.default_rng(seed)
+    d = 2 if g2 else 1
+    lam = torch.from_numpy(k.fp_encode(
+        [int.from_bytes(rng.bytes(48), "little") % bi.P_INT
+         for _ in range(d * len(lanes))]).reshape(
+             (len(lanes),) + ((2, 32) if g2 else (32,))))
+    mul = k.fp2_mul if g2 else bi.mont_mul
+    x, y, z = x.clone(), y.clone(), z.clone()
+    l2 = mul(lam, lam)
+    x[lanes] = mul(x[lanes], l2)
+    y[lanes] = mul(y[lanes], mul(l2, lam))
+    z[lanes] = mul(z[lanes], lam)
+    return x, y, z
 
 
 @pytest.mark.parametrize("n", [1, 3, 130])
