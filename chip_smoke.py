@@ -14,14 +14,16 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    (max_abs_err 0). Each kernel's time (CUDA events, median of repeats),
    its plain version's time and its bound (the least time the card could
    take for the same work: bytes over the memory rate, or integer ops over
-   the INT32 rate).
+   the INT32 rate). ``path_update`` is one launch a walk, timed at
+   R = 1,024 and 65,536 dirty rows on depth 20.
 3. The state-root slice: a Deneb mainnet-preset BeaconState at 1,000,000
    validators from ``seeded_columns(N_VALIDATORS, STATE_SEED)``;
    ``hash_tree_root()`` on the card must equal ``EXPECTED_STATE_ROOT_1M``;
    ``REPS`` (5) reps of the ``bench.py`` ``bench_tree_hash`` writes, each
    followed by the state root; the last must equal
    ``EXPECTED_STATE_ROOT_1M_AFTER_REPS``; a rebuild from scratch must equal
-   the incremental root; every kernel's launch count must be nonzero.
+   the incremental root; every kernel's launch count must be nonzero, and
+   ``path_update``'s one a tree update (10).
 4. The BLS slice, batched signature verification: 10,000 gossip sets over
    127 messages (``bls_batch``), signed by the C++ host backend, pubkeys
    warmed into the cache. Each BLS kernel against its plain version on the
@@ -41,12 +43,17 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    pair) and all live (a thread a pair). ``g2_sum`` is held as a point
    (``measure.g2_projective_err``: its tree adds in another order than
    the JAX one, so another Jacobian representative of the same point).
-   Then
-   the module entry ``crypto.bls.verify_signature_sets`` on its default
-   backend (``gpu``): True on the batch and equal to the C++ backend; five
+   ``affine`` runs on the Q side (the 128 message points and the
+   aggregate, 129 Fp2 lanes) and on the 128 group sums (Fp); its bound
+   is the function's least work on these inputs, one inverse a call by
+   batch inversion (``bls_cost.affine_least``), with the kernel's own
+   count (an inverse a lane, ``bls_cost.affine_int_ops``) and the count
+   with a Fermat inverse a lane beside. Then the module entry
+   ``crypto.bls.verify_signature_sets`` on its default backend
+   (``gpu``): True on the batch and equal to the C++ backend; five
    negative batches False on both; a 100-set batch True; every BLS kernel
-   launched on that path; the first call and the median of three warm
-   calls, sets/s, host prep.
+   launched on that path (``affine`` twice); the first call and the
+   median of three warm calls, sets/s, host prep.
 5. The sharded paths on every card (``n = torch.cuda.device_count()``, one
    rank a card, NCCL; ``lighthouse_tpu_torch/entry.py``): the dryrun's
    four checks (a sharded state-root step, a sharded pairing check, the
@@ -249,33 +256,34 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
            r * (32 + 4 + 32), 0, mode="scatter<0>")
     del chunks, out_k, out_p
 
-    # path_update: R = 1,024 dirty rows up a depth-20 tree
+    # path_update: the one-launch walk of an update up a depth-20 tree, at
+    # R = 1,024 dirty rows (a rep's) and at R = 65,536 (a grid of ~500
+    # blocks, where one block would not hold the lower levels); rows drawn
+    # with repeats, walked as DeviceTree.update sends them (sorted,
+    # distinct)
     depth = 20
     levels = [rand_words(1 << depth, 8)]
     for _ in range(depth):
         levels.append(sh.hash64(levels[-1].reshape(-1, 16)))
-    rows_np = rng.integers(0, 1 << depth, size=1024).astype(np.int32)
-    rows = torch.from_numpy(rows_np).to(dev)
-    levels[0][rows.long()] = rand_words(1024, 8)   # the dirty leaves
-    lv_k = [lv.clone() for lv in levels]
-    lv_p = [lv.clone() for lv in levels]
-
-    def walk_kernel():
-        for lvl in range(depth):
-            mt.path_update(lv_k[lvl], lv_k[lvl + 1], rows, lvl)
-
-    def walk_plain():
-        for lvl in range(depth):
-            mt._path_update_plain(lv_p[lvl], lv_p[lvl + 1], rows, lvl)
-
-    walk_kernel()
-    walk_plain()
-    # the work this data needs: one hash per distinct parent per level
-    parents = sum(len(np.unique(rows_np.astype(np.int64) >> (lvl + 1)))
-                  for lvl in range(depth))
-    record("path_update", torch.cat(lv_k), torch.cat(lv_p), walk_kernel,
-           walk_plain, parents * (64 + 32) + 4 * 1024, parents * ops)
-    del levels, lv_k, lv_p
+    for r in (1024, 65536):
+        rows_np = np.unique(rng.integers(0, 1 << depth, size=r)).astype(
+            np.int32)
+        rows = torch.from_numpy(rows_np).to(dev)
+        levels[0][rows.long()] = rand_words(len(rows_np), 8)
+        lv_k = [lv.clone() for lv in levels]
+        lv_p = [lv.clone() for lv in levels]
+        mt._path_walk(lv_k, rows)
+        mt._path_walk_plain(lv_p, rows)
+        # the work this data needs: one hash per distinct parent per level
+        parents = sum(len(np.unique(rows_np.astype(np.int64) >> (lvl + 1)))
+                      for lvl in range(depth))
+        record("path_update", torch.cat(lv_k), torch.cat(lv_p),
+               lambda: mt._path_walk(lv_k, rows),
+               lambda: mt._path_walk_plain(lv_p, rows),
+               parents * (64 + 32) + 4 * len(rows_np), parents * ops,
+               mode=None if r == 1024 else f"R={r}, one walk")
+        del lv_k, lv_p
+    del levels
 
     # cap_fold: K = 20 zero-subtree caps (registry: 2^20 dense, 2^40 limit)
     root = rand_words(8)
@@ -352,6 +360,10 @@ def slice_phase(card: str) -> dict:
           f"memory {peak_mib:.0f} MiB", flush=True)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
+    # one walk an update: the registry and the balances, each rep
+    check(launches["path_update"] == 2 * REPS,
+          f"path_update launched {launches['path_update']} times, not "
+          f"{2 * REPS} (one walk a tree update)")
 
     reset_trees(state)
     t0 = time.perf_counter()
@@ -439,7 +451,7 @@ class BlsKernelCheck:
 
     def run(self, kernel, kernel_fn, plain_fn, args, muls, mode=None,
             repeats=3, depth=None, design=None, projective=False,
-            issue=None, old_muls=None):
+            issue=None, old_muls=None, int_ops=0, kernel_ops=None):
         import torch
 
         from lighthouse_tpu_torch.ops import bigint as bi
@@ -452,7 +464,8 @@ class BlsKernelCheck:
                 "plain_muls": bi.MONT_MUL_ROWS.rows, "muls": muls,
                 "mode": mode, "repeats": repeats, "depth": depth,
                 "design": design, "projective": projective,
-                "issue": issue, "old_muls": old_muls}
+                "issue": issue, "old_muls": old_muls, "int_ops": int_ops,
+                "kernel_ops": kernel_ops}
         self.calls.append(call)
         self._record(call, got)
         return got
@@ -490,9 +503,11 @@ class BlsKernelCheck:
         got_t = got if isinstance(got, tuple) else (got,)
         n_bytes = sum(t.numel() * t.element_size()
                       for t in (*args, *got_t) if isinstance(t, torch.Tensor))
-        bound_ms, bound_by = self.bounds(n_bytes, muls * cost.FP_MUL_INT_OPS)
+        extra = call["int_ops"]
+        bound_ms, bound_by = self.bounds(
+            n_bytes, muls * cost.FP_MUL_INT_OPS + extra)
         alg_ms = self.bounds(
-            n_bytes, muls * cost.fp_mul_pipe_ops(self.mxu)["issue"])[0]
+            n_bytes, muls * cost.fp_mul_pipe_ops(self.mxu)["issue"] + extra)[0]
         lanes = int(args[0].shape[0])
         plain_ms, plain_muls = call["plain_ms"], call["plain_muls"]
         against = ("its plain version" if self.mxu == 0 else
@@ -501,22 +516,29 @@ class BlsKernelCheck:
         per_level = None if depth is None else ms * 1e3 / depth
         old_bound = (None if old_muls is None else self.bounds(
             n_bytes, old_muls * cost.FP_MUL_INT_OPS)[0])
+        kernel_ops = call["kernel_ops"]
+        kernel_bound = (None if kernel_ops is None else
+                        self.bounds(n_bytes, kernel_ops)[0])
         exact = ("equal as a point (projectively)" if call["projective"]
                  else "canonical-exact")
         print(f"kernel {label} at {lanes} lanes"
               + ("" if design is None else f" ({design})")
               + f": ok {exact} against "
               f"{against} (plain {plain_ms:.1f} ms, {plain_muls} field "
-              f"multiplies); {ms:.4f} ms; {muls} field multiplies; bound "
-              f"{bound_ms:.4f} ms by {bound_by}"
+              f"multiplies); {ms:.4f} ms; {muls} field multiplies"
+              + (f" and {extra} word operations" if extra else "")
+              + f"; bound {bound_ms:.4f} ms by {bound_by}"
               + (f" (the lowering's own issue count: {alg_ms:.4f} ms)"
                  if self.mxu else "")
               + ("" if depth is None else
                  f"; critical path {depth} dependent field multiplies, "
                  f"{per_level:.3f} us a level")
               + ("" if old_bound is None else
-                 f"; bound with the one-thread formulas ({old_muls} field "
+                 f"; bound with the earlier count ({old_muls} field "
                  f"multiplies) {old_bound:.4f} ms")
+              + ("" if kernel_bound is None else
+                 f"; this kernel's own algorithm {kernel_ops} integer ops, "
+                 f"{kernel_bound:.4f} ms at the same rates")
               + ("" if issue is None else
                  f"; lane groups of {issue['width']} threads issue "
                  f"{issue['issued'] / max(lanes, 1):.1f} products a lane "
@@ -528,12 +550,13 @@ class BlsKernelCheck:
                "field_muls": muls, "plain_field_muls": plain_muls,
                "lanes": lanes, "depth": depth, "us_per_level": per_level,
                "design": design, "issue": issue, "old_field_muls": old_muls,
-               "old_bound_ms": old_bound}
+               "old_bound_ms": old_bound, "kernel_bound_ms": kernel_bound}
         self.muls[label] = {"field_muls": muls, "plain_field_muls": plain_muls,
                             "algorithm_bound_ms": alg_ms, "ms": ms,
                             "depth": depth, "us_per_level": per_level,
                             "design": design, "issue": issue,
-                            "old_bound_ms": old_bound}
+                            "old_bound_ms": old_bound,
+                            "kernel_bound_ms": kernel_bound}
         if mode is not None:
             row = next(r for r in self.rows if r["name"] == name)
             row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -641,9 +664,6 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
     mx, my, mz = run("hash_to_g2", k.hash_to_g2_batch_from_u,
                      k._hash_to_g2_plain, (u0, u1), cost.hash_to_g2(small),
                      repeats=2, depth=cost.hash_to_g2_depth(small))
-    msg_x, msg_y = run("affine", k.jacobian_to_affine_fp2,
-                       k._jacobian_to_affine_fp2_plain, (mx, my, mz),
-                       cost.affine(small, 2))
 
     one1 = put(np.broadcast_to(k.FP_ONE, (lanes, bi.NLIMBS)))
     pk_bits_np = k.scalars_to_bits(prep["pk_rands"], 64)
@@ -668,16 +688,29 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
                      design=f"a tree over {min(-(-lanes // 128), 128)} "
                             f"blocks of 128 threads, then one",
                      projective=True)
+    # the Q side in one launch (the message points, then the aggregate),
+    # then the group sums; the bound is the function's least work on these
+    # inputs (one inverse a call: its Euclid's word operations beside the
+    # products), with the kernel's own count (a binary inverse a lane) and
+    # the count with a Fermat inverse a lane beside
+    q = tuple(torch.cat([m, a[None]]) for m, a in ((mx, ax), (my, ay),
+                                                   (mz, az)))
+    fermat = cost.FP_INV - cost.FP_INV_BINARY
+    q_muls, q_words = cost.affine_least(q[2], 2)
+    qx, qy = run("affine", k.jacobian_to_affine_fp2,
+                 k._jacobian_to_affine_fp2_plain, q, q_muls, int_ops=q_words,
+                 kernel_ops=cost.affine_int_ops(q[2], 2),
+                 old_muls=cost.affine(small + 1, 2) + (small + 1) * fermat)
+    g_muls, g_words = cost.affine_least(gpz, 1)
     apx, apy = run("affine", k.jacobian_to_affine_fp,
-                   k._jacobian_to_affine_fp_plain, (gpx, gpy, gpz),
-                   cost.affine(small, 1), mode="G1")
-    aax, aay = k.jacobian_to_affine_fp2(ax, ay, az)
+                   k._jacobian_to_affine_fp_plain, (gpx, gpy, gpz), g_muls,
+                   mode="G1", int_ops=g_words,
+                   kernel_ops=cost.affine_int_ops(gpz, 1),
+                   old_muls=cost.affine(small, 1) + small * fermat)
 
     pad = gb._pad_cache()
     px = torch.cat([apx, put(pad.neg_g_x)])
     py = torch.cat([apy, put(pad.neg_g_y)])
-    qx = torch.cat([msg_x, aax[None]])
-    qy = torch.cat([msg_y, aay[None]])
     mask = put(prep["mask"].astype(np.int32))
     n_pairs = px.shape[0]
     fs = run("miller_loop", k.miller_loop_batch,
@@ -795,6 +828,8 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
     print(f"bls slice: launches on the main path {launches}", flush=True)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the BLS path")
+    check(launches["affine"] == 2, f"affine launched {launches['affine']} "
+                                   f"times, not 2 (the P side, the Q side)")
 
     warm = []
     for _ in range(3):

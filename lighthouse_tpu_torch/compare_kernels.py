@@ -1,20 +1,30 @@
-"""The BLS kernels of this tree against another tree's, on one card, in one
-process.
+"""The port's redesigned kernels against another tree's, on one card, in
+one process.
 
     git archive <commit> lighthouse_tpu_torch/csrc | tar -x -C BASE
     python -m lighthouse_tpu_torch.compare_kernels --base BASE \\
-        [--kernels rlc_scale,g2_intake,g2_sum,miller_loop] \\
-        --out compare_kernels.json
+        [--kernels path_update,affine,rlc_scale,g2_intake,g2_sum,\\
+                   miller_loop] --out compare_kernels.json
 
-Builds both trees' sources of the chosen kernels (default: all four) in
-each multiply lowering (modes 0, 1, 2) with the flags of ``kernels.py``,
-and prints this tree's ``-Xptxas -v`` report of each (registers, stack,
-spills). On seeded inputs (``default_rng(5)``: 64 G2 and 64 G1 points,
-tiled and scaled by random 64-bit scalars on the card, so every lane is
-its own Jacobian point) it times, by CUDA events (median of 5 after a
-warm-up), in the order base, this, this, base, holding every pair of
-outputs equal:
+Builds both trees' sources of the chosen kernels (default: all six; the
+BLS ones in each multiply lowering, modes 0, 1, 2) with the flags of
+``kernels.py``, and prints this tree's ``-Xptxas -v`` report of each
+(registers, stack, spills). On seeded inputs (``default_rng(5)``: 64 G2
+and 64 G1 points, tiled and scaled by random 64-bit scalars on the card,
+so every lane is its own Jacobian point; random tree levels and leaf
+rows) it times, by CUDA events (median of 5 after a warm-up), in the
+order base, this, this, base, holding every pair of outputs equal:
 
+- ``path_update``: the dirty-path walk of an update up a depth-20 tree,
+  R = 1,024 and 65,536 rows (drawn with repeats, walked sorted and
+  distinct): the base tree's entry a level (``lh_path_update``, one launch
+  each) against this tree's one launch (``lh_path_walk``); then this
+  tree's source with ``LH_PATH_THREADS`` set to 64-512;
+- ``affine`` (``lh_affine``): 128 Fp lanes (the group sums), 129 Fp2 (the
+  Q side: messages and aggregate) and 1 Fp2; then this tree's
+  ``aggregate.cu`` with ``LH_AFFINE_THREADS`` set to 32, 64, 128 against
+  the source as it is, at those lanes and at 10,240 Fp2 (the sharded
+  path's messages);
 - ``rlc_scale`` (``lh_rlc_scale``): G1 and G2 at 10,240 lanes (the 10k
   batch) and 2,560 (a rank of the four-card sharded path), affine inputs
   (z one) as on the main path, random 64-bit scalars; then the lane-group
@@ -34,9 +44,9 @@ outputs equal:
   live pairs gathered, their outputs scattered back among identities, as
   ``miller_loop_batch`` does.
 
-Field values are held canonically, flags exactly. Prints a line a
-measurement, with the card's name and power limit, and writes them as
-JSON.
+Field values are held canonically, flags and tree levels exactly. Prints
+a line a measurement, with the card's name and power limit, and writes
+them as JSON.
 """
 from __future__ import annotations
 
@@ -63,18 +73,42 @@ _LANES = (10240, 2560)
 #: lane-group widths swept (threads a lane)
 _RLC_WIDTHS = (1, 2, 3, 4, 5, 6, 8, 16)
 _G2I_WIDTHS = (2, 3, 4, 5, 6, 8, 16)
-_ENTRIES = {"lh_g2_sum": kernels.G2_SUM, "lh_miller_loop": kernels.MILLER_LOOP,
-            "lh_rlc_scale": kernels.RLC_SCALE,
-            "lh_g2_intake": kernels.G2_INTAKE}
-_SOURCES = {"rlc_scale": ("rlc_scale.cu", "lh_rlc_scale"),
-            "g2_intake": ("g2_intake.cu", "lh_g2_intake"),
-            "g2_sum": ("aggregate.cu", "lh_g2_sum"),
-            "miller_loop": ("pairing.cu", "lh_miller_loop")}
+#: the walk's tree and its leaf rows; the block sizes swept
+_WALK_DEPTH = 20
+_WALK_ROWS = (1024, 65536)
+_WALK_THREADS = (64, 128, 256, 512)
+#: the affine lanes: (field, lanes), and the block sizes swept
+_AFFINE_LANES = ((1, 128), (2, 129), (2, 1))
+_AFFINE_THREADS = (32, 64, 128)
+_P, _I32, _I64 = kernels._P, kernels._I32, kernels._I64
+#: this tree's C entries -> their argument types
+_ARGTYPES = {"lh_g2_sum": kernels.G2_SUM.argtypes,
+             "lh_miller_loop": kernels.MILLER_LOOP.argtypes,
+             "lh_rlc_scale": kernels.RLC_SCALE.argtypes,
+             "lh_g2_intake": kernels.G2_INTAKE.argtypes,
+             "lh_affine": kernels.AFFINE.argtypes,
+             "lh_path_walk": kernels.PATH_UPDATE.argtypes}
+#: the base tree (the commit before the one-launch walk, dc39237) where
+#: its entries differ: the one-level walk, and a ``lh_g2_sum`` that
+#: allocates its own partials
+_BASE_ARGTYPES = {**_ARGTYPES,
+                  "lh_path_update": [_P, _P, _P, _I64, _I32, _P],
+                  "lh_g2_sum": [_P, _P, _P, _I64, _P, _P, _P, _P]}
+#: kernel -> (source under csrc/, this tree's entry, a base tree's entry)
+_SOURCES = {"path_update": ("path_update.cu", "lh_path_walk",
+                            "lh_path_update"),
+            "affine": ("bls/aggregate.cu", "lh_affine", "lh_affine"),
+            "rlc_scale": ("bls/rlc_scale.cu", "lh_rlc_scale", "lh_rlc_scale"),
+            "g2_intake": ("bls/g2_intake.cu", "lh_g2_intake", "lh_g2_intake"),
+            "g2_sum": ("bls/aggregate.cu", "lh_g2_sum", "lh_g2_sum"),
+            "miller_loop": ("bls/pairing.cu", "lh_miller_loop",
+                            "lh_miller_loop")}
 
 
 def _build(jobs: dict, out_dir: Path) -> tuple[dict, dict]:
     """{tag: (source, defines, symbol)} -> ({tag: bound C entry}, {tag:
-    compiler report}), all nvcc processes at once."""
+    compiler report}), all nvcc processes at once; a tag ``base_...`` is
+    the base tree's (``_BASE_ARGTYPES``)."""
     procs = {}
     for tag, (src, defines, _) in jobs.items():
         lib = out_dir / f"{tag}.so"
@@ -90,7 +124,8 @@ def _build(jobs: dict, out_dir: Path) -> tuple[dict, dict]:
         logs[tag] = log
         symbol = jobs[tag][2]
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes = _ENTRIES[symbol].argtypes
+        fn.argtypes = (_BASE_ARGTYPES if tag.startswith("base_")
+                       else _ARGTYPES)[symbol]
         fn.restype = ctypes.c_int
         fns[tag] = fn
     return fns, logs
@@ -110,11 +145,11 @@ def _ptxas(log: str) -> list[str]:
 
 
 def _width_source(tmp: Path, source: str, macros: tuple, w: int) -> Path:
-    """A copy of this tree's csrc/bls with ``source``'s width macros set
-    to w (``host_cuda.set_define``)."""
+    """A copy of this tree's csrc with ``source``'s (a path under csrc/)
+    width macros set to w (``host_cuda.set_define``)."""
     from .testing.host_cuda import set_define
-    d = tmp / f"w{w}_{source.split('.')[0]}"
-    shutil.copytree(kernels.CSRC / "bls", d)
+    d = tmp / f"w{w}_{Path(source).stem}"
+    shutil.copytree(kernels.CSRC, d)
     text = (d / source).read_text()
     for macro in macros:
         text = set_define(text, macro, w)
@@ -164,7 +199,7 @@ def _inputs(n_max: int):
     flags = torch.from_numpy(rng.integers(0, 2, size=n_max).astype(
         np.int32)).cuda()
     return sig, (px, py, qx, qy), {"g2": a2, "g1": a1, "b2": b2, "b1": b1,
-                                   "dx": dx, "flags": flags}
+                                   "dx": dx, "flags": flags, "pk": pk}
 
 
 def main(argv=None) -> int:
@@ -186,8 +221,8 @@ def main(argv=None) -> int:
             raise SystemExit(f"no kernel {name}")
 
     card = nvidia_smi("name,power.limit")
-    trees = {"base": args.base / "lighthouse_tpu_torch" / "csrc" / "bls",
-             "this": kernels.CSRC / "bls"}
+    trees = {"base": args.base / "lighthouse_tpu_torch" / "csrc",
+             "this": kernels.CSRC}
     from .ops import bls12_381 as k
     kernels.build_all([kernels.RLC_SCALE, kernels.AFFINE])
     report = []
@@ -196,20 +231,23 @@ def main(argv=None) -> int:
         jobs = {}
         for tree, d in trees.items():
             for name in chosen:
-                src, symbol = _SOURCES[name]
-                for m in (0, 1, 2):
+                src, this_symbol, base_symbol = _SOURCES[name]
+                symbol = this_symbol if tree == "this" else base_symbol
+                for m in ((0,) if name == "path_update" else (0, 1, 2)):
                     jobs[f"{tree}_{name}{m}"] = (
                         d / src, (f"-DLH_FP_MODE={m}",), symbol)
         if "miller_loop" in chosen:
             for tag, cap in (("one_thread", 0), ("cooperative", 1 << 30)):
-                jobs[tag] = (trees["this"] / "pairing.cu",
+                jobs[tag] = (trees["this"] / "bls" / "pairing.cu",
                              (f"-DLH_ML_COOP_MAX={cap}",), "lh_miller_loop")
         widths = {"rlc_scale": (_RLC_WIDTHS, ("LH_RLC_G1_WIDTH",
                                               "LH_RLC_G2_WIDTH")),
-                  "g2_intake": (_G2I_WIDTHS, ("LH_G2I_WIDTH",))}
+                  "g2_intake": (_G2I_WIDTHS, ("LH_G2I_WIDTH",)),
+                  "affine": (_AFFINE_THREADS, ("LH_AFFINE_THREADS",)),
+                  "path_update": (_WALK_THREADS, ("LH_PATH_THREADS",))}
         for name, (ws, macros) in widths.items():
             if name in chosen:
-                src, symbol = _SOURCES[name]
+                src, symbol, _ = _SOURCES[name]
                 for w in ws:
                     jobs[f"w{w}_{name}"] = (
                         _width_source(tmp, src, macros, w), (), symbol)
@@ -223,11 +261,16 @@ def main(argv=None) -> int:
         n_max = max(_MILLER_PAIRS, max(_SUM_SWEEP))
         sig, pairs, lane = _inputs(n_max)
 
-        def g2_sum(fn, n):
+        def g2_sum(fn, n, partials):
+            """The base tree's entry allocates its partials (partials
+            False), this tree's takes them."""
             x, y, z = (c[:n].contiguous() for c in sig)
             out = [torch.empty(2, 32, dtype=torch.int32, device="cuda")
                    for _ in range(3)]
+            part = torch.empty(3 * 128 * 2 * 32, dtype=torch.int32,
+                               device="cuda")
             assert fn(x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
+                      *((part.data_ptr(),) if partials else ()),
                       *(o.data_ptr() for o in out), stream) == 0
             return tuple(out)
 
@@ -267,6 +310,57 @@ def main(argv=None) -> int:
             ones = torch.ones(live.size, dtype=torch.int32, device="cuda")
             return k._on_live_lanes(lambda *a: miller(fn, a, ones), live,
                                     *(c[:n] for c in pairs))
+
+        def affine(fn, field, n):
+            src = sig if field == 2 else lane["pk"]
+            x, y, z = (c[:n].contiguous() for c in src)
+            ox, oy = torch.empty_like(x), torch.empty_like(x)
+            assert fn(field, x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                      ox.data_ptr(), oy.data_ptr(), n, stream) == 0
+            return ox, oy
+
+        def walk_levels():
+            """A depth-20 tree's levels, and for each R its sorted distinct
+            rows (drawn with repeats), their leaves written."""
+            from .ops import sha256 as sh
+            g = np.random.default_rng(5)
+            lv = [torch.from_numpy(g.integers(
+                0, 2**32, size=(1 << _WALK_DEPTH, 8), dtype=np.uint64
+            ).astype(np.uint32).view(np.int32)).cuda()]
+            for _ in range(_WALK_DEPTH):
+                lv.append(sh.hash64(lv[-1].reshape(-1, 16)))
+            rows = {}
+            for r in _WALK_ROWS:
+                rows[r] = torch.from_numpy(np.unique(g.integers(
+                    0, 1 << _WALK_DEPTH, size=r)).astype(np.int32)).cuda()
+                lv[0][rows[r].long()] = -1 - r
+            return lv, rows
+
+        def walk(fn, lv, rows, one_level):
+            """``fn`` up all levels ``lv``, in place (a walk again on its
+            own output gives the same levels): one call a level (a base
+            tree's entry) or one call."""
+            r = int(rows.shape[0])
+            if one_level:
+                for lvl in range(_WALK_DEPTH):
+                    assert fn(lv[lvl].data_ptr(), lv[lvl + 1].data_ptr(),
+                              rows.data_ptr(), r, lvl, stream) == 0
+            else:
+                ptrs = (ctypes.c_void_p * (_WALK_DEPTH + 1))(
+                    *(t.data_ptr() for t in lv))
+                assert fn(ptrs, _WALK_DEPTH, rows.data_ptr(), r,
+                          stream) == 0
+            return lv
+
+        def level_err(a, b):
+            return int(not all(torch.equal(x, y) for x, y in zip(a, b)))
+
+        def walk_pair(label, levels, rows, fn_a, one_a, fn_b, one_b):
+            """Two walks, each on its own copy of the stale levels."""
+            a = [t.clone() for t in levels]
+            b = [t.clone() for t in levels]
+            pair(label, lambda: walk(fn_a, a, rows, one_a),
+                 lambda: walk(fn_b, b, rows, one_b), level_err)
 
         one_masked = np.ones(129, np.int32)
         one_masked[127] = 0                  # the batch's padding lane
@@ -327,16 +421,50 @@ def main(argv=None) -> int:
                                  call(fns[f"this_{name}0"], n),
                              lambda n=n, w=w, call=call:
                                  call(fns[f"w{w}_{name}"], n), field_err)
+        if "path_update" in chosen:
+            levels, walk_rows = walk_levels()
+            this_fn = fns["this_path_update0"]
+            for r, rows in walk_rows.items():
+                label = (f"path_update, depth {_WALK_DEPTH}, R = {r} "
+                         f"({int(rows.shape[0])} distinct)")
+                walk_pair(f"{label}: base against this", levels, rows,
+                          fns["base_path_update0"], True, this_fn, False)
+                for w in _WALK_THREADS:
+                    walk_pair(f"{label}: this against {w} threads a block",
+                              levels, rows, this_fn, False,
+                              fns[f"w{w}_path_update"], False)
+            del levels, walk_rows
+        if "affine" in chosen:
+            for field, n in _AFFINE_LANES:
+                what = f"affine {'Fp' if field == 1 else 'Fp2'}, {n} lanes"
+                for m in (0, 1, 2):
+                    pair(f"mode {m} {what}: base against this",
+                         lambda m=m, field=field, n=n: affine(
+                             fns[f"base_affine{m}"], field, n),
+                         lambda m=m, field=field, n=n: affine(
+                             fns[f"this_affine{m}"], field, n), field_err)
+            for field, n in _AFFINE_LANES + ((2, 10240),):
+                what = f"affine {'Fp' if field == 1 else 'Fp2'}, {n} lanes"
+                for w in _AFFINE_THREADS:
+                    pair(f"mode 0 {what}: this against {w} threads a block",
+                         lambda field=field, n=n: affine(
+                             fns["this_affine0"], field, n),
+                         lambda field=field, n=n, w=w: affine(
+                             fns[f"w{w}_affine"], field, n), field_err)
         if "g2_sum" in chosen:
             for m in (0, 1, 2):
                 pair(f"mode {m} g2_sum, 10240 points: base against this",
-                     lambda m=m: g2_sum(fns[f"base_g2_sum{m}"], 10240),
-                     lambda m=m: g2_sum(fns[f"this_g2_sum{m}"], 10240),
+                     lambda m=m: g2_sum(fns[f"base_g2_sum{m}"], 10240,
+                                        False),
+                     lambda m=m: g2_sum(fns[f"this_g2_sum{m}"], 10240,
+                                        True),
                      g2_projective_err)
             for n in _SUM_SWEEP:
                 pair(f"mode 0 g2_sum, {n} points: base against this",
-                     lambda n=n: g2_sum(fns["base_g2_sum0"], n),
-                     lambda n=n: g2_sum(fns["this_g2_sum0"], n),
+                     lambda n=n: g2_sum(fns["base_g2_sum0"], n,
+                                        False),
+                     lambda n=n: g2_sum(fns["this_g2_sum0"], n,
+                                        True),
                      g2_projective_err)
         if "miller_loop" in chosen:
             p129 = [c[:129] for c in pairs]

@@ -269,7 +269,6 @@ class GpuBackend(PythonBackend):
         # device: hash unique messages to G2 (host did expand_message_xmd)
         mx, my, mz = k.hash_to_g2_batch_from_u(put(prep["u0"]),
                                                put(prep["u1"]))
-        msg_x, msg_y = k.jacobian_to_affine_fp2(mx, my, mz)
 
         one1 = put(np.broadcast_to(k.FP_ONE, (lanes, bi.NLIMBS)))
 
@@ -287,12 +286,13 @@ class GpuBackend(PythonBackend):
         ax, ay, az = k.g2_sum(ssx, ssy, ssz)
 
         # affine for the Miller loop; non-group lanes come out as junk
-        # finite coordinates (z=0 inverts to 0) and are masked below
+        # finite coordinates (z=0 inverts to 0) and are masked below. The
+        # Q side (the message points, then the aggregate) in one launch
         apx, apy = k.jacobian_to_affine_fp(gpx, gpy, gpz)
-        aax, aay = k.jacobian_to_affine_fp2(ax, ay, az)
+        qx, qy = k.jacobian_to_affine_fp2(
+            *(torch.cat([m, a[None]], dim=0)
+              for m, a in ((mx, ax), (my, ay), (mz, az))))
 
         px = torch.cat([apx, put(pad_c.neg_g_x)], dim=0)
         py = torch.cat([apy, put(pad_c.neg_g_y)], dim=0)
-        qx = torch.cat([msg_x, aax[None]], dim=0)
-        qy = torch.cat([msg_y, aay[None]], dim=0)
         return k.pairing_check_batch(px, py, qx, qy, mask=prep["mask"])

@@ -21,8 +21,18 @@
 //       l): the same point, held projectively. jac_add takes infinity,
 //       equal and opposite points, so any order gives the same point;
 //   lh_affine: (X/Z^2, Y/Z^3) over G1 (field 1) or G2 (field 2), Z = 0
-//       inverting to 0 (:557 jacobian_to_affine_fp2, :564 _fp).
-// Bound: integer multiply-adds. The G2 sum is n - 1 additions; its
+//       inverting to 0 (:557 jacobian_to_affine_fp2, :564 _fp), one thread
+//       a point. The inverse is fp.cuh's binary extended Euclid (one
+//       multiply and ~270 steps of word subtractions and shifts, where the
+//       JAX package's Fermat power runs 608 multiplies in series: the same
+//       values, variable-time on public inputs). A lane's chain of
+//       dependent word operations bounds a launch; a warp runs its longest
+//       lane, and small blocks (LH_AFFINE_THREADS, the best of 32 / 64 /
+//       128 on the card) spread a call's few warps over more SMs.
+// Bound: integer multiply-adds (the affine conversion: what the function
+// needs at least, one inverse a call by batch inversion, 3 (n - 1)
+// products for it and four a lane, bls_cost.affine_least; this kernel
+// inverts a lane at a time, bls_cost.affine_int_ops). The G2 sum is n - 1 additions; its
 // latency is the tree's depth, 14 levels at 10,240 points (7 in a block,
 // 7 over the 80 partials): four of 48 dependent field multiplies on one
 // thread, the rest 5 warp steps an addition in one to four rounds (277 in
@@ -45,6 +55,9 @@ LH_DEV void g1_segment_sum_lane(const int32_t* x, const int32_t* y,
     }
     jac_store(ox, oy, oz, g, acc);
 }
+
+// threads a block of the affine conversion
+#define LH_AFFINE_THREADS 32
 
 #ifndef LH_G2_SUM_T
 #define LH_G2_SUM_T 128        // threads (tree slots) a block; most blocks
@@ -170,9 +183,11 @@ extern "C" int lh_g1_segment_sum(const void* x, const void* y,
     return (int)cudaGetLastError();
 }
 
+// part: the first launch's partials, 3 x blocks x 2 x LH_LIMBS words (the
+// caller allocates them; unread up to LH_G2_SUM_T points)
 extern "C" int lh_g2_sum(const void* x, const void* y, const void* z,
-                         long long n, void* ox, void* oy, void* oz,
-                         void* stream) {
+                         long long n, void* part, void* ox, void* oy,
+                         void* oz, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     const long long blocks = g2_sum_blocks(n);
     if (blocks == 1) {
@@ -181,31 +196,23 @@ extern "C" int lh_g2_sum(const void* x, const void* y, const void* z,
             (int32_t*)ox, (int32_t*)oy, (int32_t*)oz);
         return (int)cudaGetLastError();
     }
-    // the partials, stream-ordered (from the device's default pool, on
-    // every call): freed once the second launch has run
-    int32_t* part = nullptr;
+    int32_t* px = (int32_t*)part;
     const long long words = blocks * 2 * LH_LIMBS;
-    cudaError_t rc = cudaMallocAsync((void**)&part,
-                                     3 * words * sizeof(int32_t), s);
-    if (rc != cudaSuccess) return (int)rc;
     g2_sum_kernel<<<(unsigned)blocks, LH_G2_SUM_T, LH_G2_SUM_SMEM, s>>>(
-        (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, n, part,
-        part + words, part + 2 * words);
-    rc = cudaGetLastError();
-    if (rc == cudaSuccess) {
-        g2_sum_kernel<<<1, LH_G2_SUM_T, LH_G2_SUM_SMEM, s>>>(
-            part, part + words, part + 2 * words, blocks, (int32_t*)ox,
-            (int32_t*)oy, (int32_t*)oz);
-        rc = cudaGetLastError();
-    }
-    const cudaError_t fr = cudaFreeAsync(part, s);
-    return (int)(rc != cudaSuccess ? rc : fr);
+        (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, n, px,
+        px + words, px + 2 * words);
+    const cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess) return (int)rc;
+    g2_sum_kernel<<<1, LH_G2_SUM_T, LH_G2_SUM_SMEM, s>>>(
+        px, px + words, px + 2 * words, blocks, (int32_t*)ox, (int32_t*)oy,
+        (int32_t*)oz);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int lh_affine(int field, const void* x, const void* y,
                          const void* z, void* ox, void* oy, long long n,
                          void* stream) {
-    const int threads = 64;
+    const int threads = LH_AFFINE_THREADS;
     const unsigned blocks = (unsigned)((n + threads - 1) / threads);
     cudaStream_t s = (cudaStream_t)stream;
     if (field == 1)

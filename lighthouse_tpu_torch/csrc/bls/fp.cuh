@@ -417,9 +417,6 @@ LH_NOINL void fp_pow(Fp& r, const Fp& a, const uint32_t* e) {
     r = acc;
 }
 
-// a^(p-2): the inverse, with 0 -> 0
-LH_DEV void fp_inv(Fp& r, const Fp& a) { fp_pow(r, a, LH_EXP_INV); }
-
 // ------------------------------------------------ binary inverse, Legendre
 // Variable-time (the inputs are public): a few hundred word shifts and
 // subtractions where fp_pow runs 600 dependent multiplies.
@@ -445,23 +442,47 @@ LH_DEV void words_shr1(uint32_t* a, uint32_t top) {
     a[LH_W - 1] = (a[LH_W - 1] >> 1) | (top << 31);
 }
 
-// x / 2 mod p for x in [0, p)
-LH_DEV void fp_int_half(uint32_t* x) {
-    uint32_t c = 0;
-    if (x[0] & 1u) c = words_add(x, x, LH_P);     // x + p < 2^382
-    words_shr1(x, c);
-}
-
 // x - y mod p for x, y in [0, p)
 LH_DEV void fp_int_sub(uint32_t* x, const uint32_t* y) {
     if (words_sub(x, x, y)) words_add(x, x, LH_P);
 }
 
+// w even and nonzero: strip its trailing zeros, and divide x (in [0, p))
+// by the same power of two mod p, up to 31 bits at a time: x / 2^k =
+// (x + m p) / 2^k with m = -x p^-1 mod 2^k (LH_N0INV), as a Montgomery
+// reduction does a word, < p again
+LH_DEV void words_halve_run(uint32_t* w, uint32_t* x) {
+    while (!(w[0] & 1u)) {
+        const int k = w[0] ? __ffs((int)w[0]) - 1 : 31;
+#pragma unroll
+        for (int i = 0; i < LH_W - 1; ++i)
+            w[i] = __funnelshift_r(w[i], w[i + 1], k);
+        w[LH_W - 1] >>= k;
+        const uint32_t m = (x[0] * LH_N0INV) & ((1u << k) - 1u);
+        uint32_t t[LH_W + 1];
+        uint64_t acc = 0;
+#pragma unroll
+        for (int i = 0; i < LH_W; ++i) {
+            acc = (uint64_t)m * LH_P[i] + x[i] + (acc >> 32);
+            t[i] = (uint32_t)acc;
+        }
+        t[LH_W] = (uint32_t)(acc >> 32);
+#pragma unroll
+        for (int i = 0; i < LH_W; ++i)
+            x[i] = __funnelshift_r(t[i], t[i + 1], k);
+    }
+}
+
 // the Montgomery form of a^-1 (0 -> 0), a in [0, 2p): binary extended
 // Euclid on the integer A = aR mod p (u = x1 A, v = x2 A mod p throughout),
 // which gives A^-1 = a^-1 R^-1; then fp_mul by R^2 (LH_R2, in Montgomery
-// form) gives a^-1 R. The value of fp_inv; one multiply where fp_pow runs
-// 608.
+// form) gives a^-1 R. The value of a^(p-2) (the JAX package's Fermat
+// inverse); one multiply where that power runs 608. Every step does the
+// same work, so the lanes of a warp stay together (a lane branching its
+// own way would make the warp issue every lane's path): u, v odd, the
+// larger takes the difference (the pairs swapped so that it is u), then
+// u's run of trailing zeros goes at once (words_halve_run); ~267 steps for
+// a random a, at most ~300.
 LH_DEV void fp_inv_binary(Fp& r, const Fp& a) {
     Fp u, v, x1, x2, r2;
     fp_canon(u, a);
@@ -473,28 +494,32 @@ LH_DEV void fp_inv_binary(Fp& r, const Fp& a) {
     fp_zero(x1);
     x1.w[0] = 1;
     fp_zero(x2);
+    words_halve_run(u.w, x1.w);
     while (!words_is_one(u.w) && !words_is_one(v.w)) {
-        while (!(u.w[0] & 1u)) {
-            words_shr1(u.w, 0);
-            fp_int_half(x1.w);
+        Fp d = u, e = x1;
+        const uint32_t b = words_sub(d.w, d.w, v.w);   // u - v
+        fp_int_sub(e.w, x2.w);                         // x1 - x2
+        if (b) {                 // v > u: v - u, x2 - x1; u the smaller
+            v = u;
+            x2 = x1;
+            Fp z;
+            fp_zero(z);
+            words_sub(d.w, z.w, d.w);
+            fp_int_sub(z.w, e.w);
+            e = z;
         }
-        while (!(v.w[0] & 1u)) {
-            words_shr1(v.w, 0);
-            fp_int_half(x2.w);
-        }
-        Fp d;
-        if (!words_sub(d.w, u.w, v.w)) {              // u >= v
-            u = d;
-            fp_int_sub(x1.w, x2.w);
-        } else {
-            words_sub(v.w, v.w, u.w);
-            fp_int_sub(x2.w, x1.w);
-        }
+        u = d;
+        x1 = e;
+        words_halve_run(u.w, x1.w);
     }
     fp_set_const(r2, LH_R2);
     const Fp inv = words_is_one(u.w) ? x1 : x2;
     fp_mul(r, inv, r2);
 }
+
+// the inverse, 0 -> 0, for every caller (affine conversion, fp2_inv):
+// the binary extended Euclid, variable-time on public inputs
+LH_DEV void fp_inv(Fp& r, const Fp& a) { fp_inv_binary(r, a); }
 
 // the Legendre symbol (a / p) as 1, -1 or 0, by the binary Jacobi symbol
 // algorithm on the integer aR mod p: R = 2^384 is a square, so (aR / p) =

@@ -1,45 +1,146 @@
-// path_update: one level of a dirty-path walk up an incremental tree. For
-// each dirty leaf row r, the parent p = r >> (level + 1) gets
-// hi[p] = hash64(lo[2p] || lo[2p+1]), in place in level + 1.
+// path_update: the whole dirty-path walk of one incremental-tree update in
+// one launch. For every level l < depth and every distinct parent
+// p = r >> (l + 1) of the dirty leaf rows r, level l + 1 gets
+// hi[p] = hash64(lo[2p] || lo[2p+1]), in place, levels bottom up.
 //
-// Replaces one level of the JAX package's
-// lighthouse_tpu/ops/merkle_tree.py:105-135 `_update_fn` (gather the
-// sibling pair, hash64, scatter the parent; :117-128).
+// Replaces the JAX package's lighthouse_tpu/ops/merkle_tree.py:105-135
+// `_update_fn` (one jitted program: per level, gather the sibling pair,
+// hash64, scatter the parent; :117-128).
 //
-// Design: one thread per dirty row, one launch per level. Two dirty rows
-// under one parent (and repeated rows) write the same parent with the same
-// words; that race is harmless only because level `level` is complete
-// before this launch reads it, which stream order guarantees -- so the
-// levels are never fused into one grid without a grid-wide barrier.
-// Bound: launch latency. A 1,024-row update is 1,024 hashes a level, a few
-// microseconds of work against a launch each; a 2^20-leaf tree takes 20.
-// Left for later: fusing the levels of an update (cooperative launch with
-// a grid barrier, or one CTA per disjoint subtree) and CUDA graphs.
+// Bound: the distinct parents' hashes (the bound's own count), a few
+// microseconds of work a level at 1,024 rows; what costs more is the
+// order between the levels. Design:
+// - rows are sorted and distinct (DeviceTree.update uploads np.unique of
+//   them): at level l the thread of row t hashes its parent only where
+//   rows[t] >> (l + 1) differs from row t - 1's, so each parent is hashed
+//   once and no two threads write one node;
+// - one cooperative launch (cudaLaunchCooperativeKernel): threads
+//   grid-stride over the rows, and a grid barrier (this_grid().sync())
+//   stands between two levels. The grid is min(ceil(R / threads), the
+//   co-resident blocks), so every block is resident and the barrier
+//   cannot hang; a grid too large for the card is refused, and the C
+//   entry returns the launch's error;
+// - once the level's parents span at most blockDim.x nodes (from level
+//   ~12 on at R = 1,024 random rows of 2^20), block 0 finishes the walk
+//   alone: it marks the span's dirty parents in shared memory, and each
+//   level halves the marks, with __syncthreads between levels; the other
+//   blocks return, and the remaining grid barriers go away.
+// A level costs the latency of one SHA-256 chain and a barrier, so a walk
+// is ~20 of them; 128 threads a block was the best of 64-512 at R = 1,024
+// on the card (8 blocks: a warp a scheduler on 8 SMs).
+// The levels' pointers come by value in a struct (49 pointers, 392 bytes
+// of the 4 KB parameter space), so the kernel allocates nothing.
+#include <cooperative_groups.h>
+
 #include "sha256.cuh"
 
-namespace {
+// the deepest tree a walk takes (levels 0..depth, depth <= this)
+#define LH_PATH_MAX_DEPTH 48
+// threads a block (and the span of parents block 0 finishes alone)
+#define LH_PATH_THREADS 128
 
-__global__ void path_update_kernel(const uint32_t* __restrict__ lo,
-                                   uint32_t* __restrict__ hi,
-                                   const int* __restrict__ rows,
-                                   long long r, int level) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= r) return;
-  const long long parent = (long long)rows[t] >> (level + 1);
+struct PathLevels {
+  uint32_t* lv[LH_PATH_MAX_DEPTH + 1];
+};
+
+// level l + 1's node p from its two children in level l
+__device__ __forceinline__ void hash_parent(const uint32_t* lo, uint32_t* hi,
+                                            long long p) {
   uint32_t m[16], h[8];
-  lhsha::load8(lo + parent * 16, m);
-  lhsha::load8(lo + parent * 16 + 8, m + 8);
+  lhsha::load8(lo + p * 16, m);
+  lhsha::load8(lo + p * 16 + 8, m + 8);
   lhsha::hash64(m, h);
-  lhsha::store8(hi + parent * 8, h);
+  lhsha::store8(hi + p * 8, h);
 }
 
-}  // namespace
+__global__ void __launch_bounds__(LH_PATH_THREADS)
+path_walk_kernel(PathLevels L, int depth, const int* rows, long long r) {
+  extern __shared__ uint4 lh_smem[];
+  const long long first = rows[0], last = rows[r - 1];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // a thread's first row and the one before it (-1 before row 0: no
+  // parent is negative), kept for every level
+  const long long row0 = t0 < r ? rows[t0] : 0;
+  const long long prev0 = t0 > 0 && t0 < r ? rows[t0 - 1] : -1;
+  int l = 0;
+  // the grid's levels: the parents span more than a block
+  for (; l < depth; ++l) {
+    const int s = l + 1;
+    if ((last >> s) - (first >> s) < (long long)blockDim.x) break;
+    for (long long t = t0; t < r; t += stride) {
+      const long long row = t == t0 ? row0 : rows[t];
+      const long long prev = t == t0 ? prev0 : rows[t - 1];
+      if ((prev >> s) != (row >> s))
+        hash_parent(L.lv[l], L.lv[l + 1], row >> s);
+    }
+    cooperative_groups::this_grid().sync();
+  }
+  if (l == depth || blockIdx.x != 0) return;
+  // block 0 alone: slot j of the span is parent base + j
+  unsigned char* mark = reinterpret_cast<unsigned char*>(lh_smem);
+  unsigned char* next = mark + blockDim.x;
+  const int j = threadIdx.x;
+  long long base = first >> (l + 1);
+  mark[j] = 0;
+  __syncthreads();
+  for (long long t = j; t < r; t += blockDim.x) {
+    // in the span for sorted rows; the test keeps other rows in bounds
+    const long long at = ((long long)rows[t] >> (l + 1)) - base;
+    if (at >= 0 && at < (long long)blockDim.x) mark[at] = 1;
+  }
+  __syncthreads();
+  for (; l < depth; ++l) {
+    const bool dirty = mark[j] != 0;
+    if (dirty) hash_parent(L.lv[l], L.lv[l + 1], base + j);
+    next[j] = 0;
+    __syncthreads();
+    const long long up = base >> 1;
+    if (dirty) next[((base + j) >> 1) - up] = 1;
+    base = up;
+    unsigned char* tmp = mark;
+    mark = next;
+    next = tmp;
+    __syncthreads();
+  }
+}
 
-extern "C" int lh_path_update(const void* lo, void* hi, const void* rows,
-                              long long r, int level, void* stream) {
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((r + threads - 1) / threads);
-  path_update_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)lo, (uint32_t*)hi, (const int*)rows, r, level);
+// levels: the depth + 1 level pointers (host array; level l is u32[2^(D -
+// l), 8]); rows: r >= 1 sorted distinct leaf rows on the device.
+// Returns a cudaError_t: a bad depth, an occupancy query's error or the
+// cooperative launch's (cudaErrorCooperativeLaunchTooLarge included).
+extern "C" int lh_path_walk(void* const* levels, int depth, const void* rows,
+                            long long r, void* stream) {
+  if (depth < 1 || depth > LH_PATH_MAX_DEPTH || r < 1)
+    return (int)cudaErrorInvalidValue;
+  PathLevels L;
+  for (int l = 0; l <= depth; ++l) L.lv[l] = (uint32_t*)levels[l];
+  // the co-resident blocks of each card, asked once (0: not yet)
+  static long long resident_of[64];
+  const size_t smem = 2 * LH_PATH_THREADS;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  long long resident = dev < 64 ? resident_of[dev] : 0;
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, path_walk_kernel, LH_PATH_THREADS, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    resident = (long long)sms * per_sm;
+    if (dev < 64) resident_of[dev] = resident;
+  }
+  long long blocks = (r + LH_PATH_THREADS - 1) / LH_PATH_THREADS;
+  if (blocks > resident) blocks = resident;
+  if (blocks < 1) blocks = 1;   // no block fits: the launch refuses it
+  const int* rows_p = (const int*)rows;
+  void* args[] = {&L, &depth, &rows_p, &r};
+  rc = cudaLaunchCooperativeKernel((const void*)path_walk_kernel,
+                                   dim3((unsigned)blocks),
+                                   dim3(LH_PATH_THREADS), args, smem,
+                                   (cudaStream_t)stream);
+  if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }

@@ -554,6 +554,10 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
     lanes = len(prep["flags"])
     recs = []
 
+    def affine_ops(z, degree):
+        products, words = cost.affine_least(z, degree)
+        return products * mul + words
+
     def run(name, mode, kernel_fn, plain_fn, inputs, ops, canonical=True):
         rec, got = _kernel_check(name, mode, kernel_fn, plain_fn, inputs,
                                  ops, canonical)
@@ -575,7 +579,7 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
     run("affine", f"sharded, Fp2 {lanes} messages",
         lambda: k.jacobian_to_affine_fp2(mx, my, mz),
         lambda: k._jacobian_to_affine_fp2_plain(mx, my, mz), (mx, my, mz),
-        cost.affine(lanes, 2) * mul)
+        affine_ops(mz, 2))
 
     pk_x, pk_y, one1, bits_pk = keep["g1_in"]
     pk_int = torch.from_numpy(np.ascontiguousarray(
@@ -608,12 +612,12 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
     run("affine", f"sharded, Fp {lanes} pubkey sums",
         lambda: k.jacobian_to_affine_fp(gpx, gpy, gpz),
         lambda: k._jacobian_to_affine_fp_plain(gpx, gpy, gpz),
-        (gpx, gpy, gpz), cost.affine(lanes, 1) * mul)
+        (gpx, gpy, gpz), affine_ops(gpz, 1))
     ax, ay, az = keep["aggregate"]
     run("affine", "sharded, Fp2 aggregate",
         lambda: k.jacobian_to_affine_fp2(ax, ay, az),
         lambda: k._jacobian_to_affine_fp2_plain(ax, ay, az), (ax, ay, az),
-        cost.affine(1, 2) * mul)
+        affine_ops(az[None], 2))
 
     px, py, qx, qy, mask = local
     host_mask = mask.cpu().numpy()

@@ -214,8 +214,9 @@ CAP_FOLD = CudaKernel("cap_fold", "cap_fold.cu", "lh_cap_fold",
                       [_P, _P, _I32, _P, _P])
 FOLD_PRE = CudaKernel("fold_pre", "fold_pre.cu", "lh_fold_pre",
                       [_P, _P, _P, _I64, _I64, _I32, _P, _P])
-PATH_UPDATE = CudaKernel("path_update", "path_update.cu", "lh_path_update",
-                         [_P, _P, _P, _I64, _I32, _P])
+#: the whole dirty-path walk of an update (cooperative launch)
+PATH_UPDATE = CudaKernel("path_update", "path_update.cu", "lh_path_walk",
+                         [_P, _I32, _P, _I64, _P])
 
 #: multi-block SHA-256 of padded messages (no caller on a path)
 SHA256_MESSAGES = CudaKernel("sha256_messages", "sha256_messages.cu",
@@ -239,7 +240,7 @@ G1_SEGMENT_SUM = _bls("g1_segment_sum", "bls/aggregate.cu",
                       "lh_g1_segment_sum",
                       [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P])
 G2_SUM = _bls("g2_sum", "bls/aggregate.cu", "lh_g2_sum",
-              [_P, _P, _P, _I64, _P, _P, _P, _P])
+              [_P, _P, _P, _I64, _P, _P, _P, _P, _P])
 AFFINE = _bls("affine", "bls/aggregate.cu", "lh_affine",
               [_I32, _P, _P, _P, _P, _P, _I64, _P])
 MILLER_LOOP = _bls("miller_loop", "bls/pairing.cu", "lh_miller_loop",

@@ -1185,9 +1185,14 @@ def g2_sum(x, y, z):
     shp = (n, 2, bi.NLIMBS)
     x, y, z = _arg(x, "x", shp), _arg(y, "y", shp), _arg(z, "z", shp)
     out = [_empty((2, bi.NLIMBS), x) for _ in range(3)]
+    # the first launch's partials (x, y, z of one point a block), past a
+    # block's points
+    blocks = min(-(-n // cost.G2_SUM_THREADS), cost.G2_SUM_THREADS)
+    part = _empty((3, blocks, 2, bi.NLIMBS), x) if blocks > 1 else None
     kernels.G2_SUM.launch(x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
+                          None if part is None else part.data_ptr(),
                           *(t.data_ptr() for t in out), _stream(x),
-                          count=1 if n <= cost.G2_SUM_THREADS else 2)
+                          count=1 if blocks == 1 else 2)
     return tuple(out)
 
 

@@ -90,7 +90,6 @@ def render() -> str:
         _packs("LH_NPRIME_DREV", _digits_rev(bi.NPRIME)),
         _packs("LH_P_DREV", _digits_rev(P)),
         "// exponents (integers, read MSB first)",
-        _fp("LH_EXP_INV", _words(P - 2)),
         _fp("LH_EXP_SQRT", _words((P - 3) // 4)),
         _fp("LH_EXP_LEGENDRE", _words((P - 1) // 2)),
         "// Miller loop",

@@ -18,9 +18,13 @@ bit and the doubling fallback inside every add, then select. Each cost
 below is the kernel's formula; tests/test_torch_bls_kernel.py holds every
 constant against the plain counter, naming the few places where the two
 formulas square differently (the Fp6 inverse, the G2 affine conversion)
-or where the kernel takes another route to the same value (the binary
-inversion and Legendre symbol of ``final_exp`` and ``hash_to_g2``).
-Units: Fp products (an Fp2 product is 3, Karatsuba).
+or where the kernel takes another route to the same value (every
+kernel's binary inversion, the Legendre symbol of ``final_exp`` and
+``hash_to_g2``). Units: Fp products (an Fp2 product is 3, Karatsuba).
+The affine conversion's bound is the least work of the function, not of
+the kernel's algorithm (``affine_least``: one inverse for the whole call
+by Montgomery's batch inversion); ``affine_int_ops`` counts the kernel's
+own, an inverse a lane, whose word operations outweigh its products.
 
 The lane-group kernels (rlc_scale, g2_intake on csrc/bls/coop.cuh
 ``lg_step``) run the programs of ``ops/bls_lane.py``: squares as two
@@ -65,6 +69,7 @@ FP12_MUL = 3 * FP6_MUL
 FP12_SQR = 2 * FP6_MUL
 FP12_MUL_BY_014 = 15 * FP2_MUL
 FP12_FROB = 6 * FP2_MUL
+#: the Fermat inverse a^(p-2) (the plain versions, as the JAX package)
 FP_INV = _pow(P - 2, 1, 1)
 FP2_INV = 2 + FP_INV + 2
 FP6_INV = 3 * FP2_SQR + 9 * FP2_MUL + FP2_INV
@@ -73,10 +78,11 @@ FP2_SQRT = (_pow((P - 3) // 4, FP2_SQR, FP2_MUL)
             + _pow((P - 1) // 2, FP2_SQR, FP2_MUL) + 3 * FP2_MUL + FP2_SQR)
 FP_LEGENDRE = _pow((P - 1) // 2, 1, 1)
 FP2_IS_SQUARE = 2 + FP_LEGENDRE
-#: the cooperative kernels' inversion: a binary extended Euclid on the
-#: integer (no field multiply), then one product by R^2 back into the
-#: Montgomery domain; and their Legendre symbol, a binary Jacobi symbol
-#: (no field multiply)
+#: the kernels' inversion (fp.cuh fp_inv, fp_inv_binary): a binary
+#: extended Euclid on the integer (no field multiply; its word operations
+#: are ``binary_inverse_word_ops``), then one product by R^2 back into the
+#: Montgomery domain; and the cooperative kernels' Legendre symbol, a
+#: binary Jacobi symbol (no field multiply)
 FP_INV_BINARY = 1
 FP2_INV_BINARY = 2 + FP_INV_BINARY + 2
 FP12_INV_BINARY = FP12_INV - FP_INV + FP_INV_BINARY
@@ -160,10 +166,9 @@ def scalar_mul_const(scalar: int, degree: int) -> int:
 CLEAR_COFACTOR = (scalar_mul_const(k._BP_K1, 2) + scalar_mul_const(k._BP_K2, 2)
                   + 3 * PSI + DBL[2] + 2 * ADD[2])
 HASH_TO_G2_LANE = 2 * (SSWU + ISO) + ADD[2] + CLEAR_COFACTOR
-#: the one-thread design of wide batches: fp_pow inverses and Legendre
-#: symbols, and the square root's check
-HASH_TO_G2_LANE_SERIAL = HASH_TO_G2_LANE + 2 * (
-    FP_INV - FP_INV_BINARY + FP_LEGENDRE + FP2_SQR)
+#: the one-thread design of wide batches: fp_pow Legendre symbols and
+#: the square root's check (its inverse is the binary one, as above)
+HASH_TO_G2_LANE_SERIAL = HASH_TO_G2_LANE + 2 * (FP_LEGENDRE + FP2_SQR)
 DECOMPRESS_LANE = FP2_SQR + FP2_MUL + FP2_SQRT + FP2_TO_INT
 _X_STEPS = k._X_ABS.bit_length() - 1
 MILLER_LANE = (_X_STEPS * (FP12_SQR + MILLER_DBL + ELL)
@@ -221,8 +226,99 @@ def g2_sum(n: int) -> int:
 
 
 def affine(n: int, degree: int) -> int:
-    inv = FP_INV if degree == 1 else FP2_INV
+    """jac_to_affine's products: the binary inverse's one (in Fp2 the
+    norm's two squares and two products around it), then Z^-2, X Z^-2,
+    Z^-3 and Y Z^-3."""
+    inv = FP_INV_BINARY if degree == 1 else FP2_INV_BINARY
     return n * (inv + 4 * (1 if degree == 1 else FP2_MUL))
+
+
+#: word operations of the binary extended Euclid on 12-word integers
+#: (fp.cuh fp_inv_binary): an addition or subtraction of two (one a word);
+#: a run of up to 31 halvings (words_halve_run: a funnel shift a word of
+#: w, m = -x p^-1 mod 2^k, m p + x as 12 multiply-adds of a low and a high
+#: half, a funnel shift a word of the result). Loop tests and copies are
+#: left out, so a count stays a lower bound.
+WORD_ADD_OPS = 12
+HALVE_RUN_OPS = 12 + 2 + 2 * 12 + 12
+_P_INV_32 = (-pow(P, -1, 1 << 32)) % (1 << 32)
+
+
+def _halve_run(w: int, x: int) -> tuple[int, int, int]:
+    """words_halve_run: (w, x, its word operations)."""
+    ops = 0
+    while not w & 1:
+        k = min((w & -w).bit_length() - 1, 31)
+        m = (x * _P_INV_32) & ((1 << k) - 1)
+        w, x = w >> k, (x + m * P) >> k
+        ops += HALVE_RUN_OPS
+    return w, x, ops
+
+
+def binary_inverse_word_ops(a: int) -> int:
+    """Word operations of fp_inv_binary on the integer ``a`` it runs its
+    Euclid on (the canonical Montgomery representative, in [0, p)): a step
+    subtracts v from u and x2 from x1 (adding p back on a borrow); where
+    v > u it negates both (the pairs swap roles); then u's run of
+    trailing zeros goes by halving runs."""
+    if a % P == 0:
+        return 0
+    u, x1, ops = _halve_run(a % P, 1)
+    v, x2 = P, 0
+    while u != 1 and v != 1:
+        d, e = u - v, x1 - x2
+        ops += 2 * WORD_ADD_OPS + (WORD_ADD_OPS if e < 0 else 0)
+        e %= P
+        if d < 0:
+            v, x2 = u, x1
+            d = -d
+            ops += 2 * WORD_ADD_OPS + (WORD_ADD_OPS if e else 0)
+            e = (-e) % P
+        u, x1, o = _halve_run(d, e)
+        ops += o
+    return ops
+
+
+def _norms(z, degree: int) -> list[int]:
+    """Each lane's z (Fp), or its norm c0^2 + c1^2 (Fp2): the value whose
+    Fp inverse gives z's, canonical, from Montgomery limbs [n, 32] or [n,
+    2, 32] (any representative)."""
+    vals = k.fp_decode(z)
+    if degree == 2:
+        vals = [(c0 * c0 + c1 * c1) % P for c0, c1 in zip(vals[::2],
+                                                          vals[1::2])]
+    return vals
+
+
+def affine_int_ops(z, degree: int) -> int:
+    """Integer ops of ``lh_affine``'s own algorithm on Jacobian z
+    coordinates ``z``: its products (``affine``) x FP_MUL_INT_OPS, and the
+    Euclid's word operations on each lane's own input (the Montgomery form
+    of its norm), which depend on the data. A diagnostic beside the bound
+    (``affine_least``), as the Fermat count is."""
+    vals = _norms(z, degree)
+    euclid = sum(binary_inverse_word_ops(v * (1 << 384) % P) for v in vals)
+    return affine(len(vals), degree) * FP_MUL_INT_OPS + euclid
+
+
+def affine_least(z, degree: int) -> tuple[int, int]:
+    """(Fp products, word operations) that converting these points needs
+    at least, the bound's count: Montgomery's batch inversion over the m
+    lanes whose z is not 0 (3 (m - 1) products of the field, one inverse:
+    its products, and the Euclid's word operations on this data's one
+    input, the Montgomery form of the lanes' product's norm), then each
+    such lane's four products (Z^-2, X Z^-2, Z^-3, Y Z^-3). A lane at
+    infinity needs none."""
+    live = [v for v in _norms(z, degree) if v]
+    if not live:
+        return 0, 0
+    norm = 1
+    for v in live:
+        norm = norm * v % P
+    m, mul = len(live), 1 if degree == 1 else FP2_MUL
+    inv = FP_INV_BINARY if degree == 1 else FP2_INV_BINARY
+    return ((3 * (m - 1) + 4 * m) * mul + inv,
+            binary_inverse_word_ops(norm * (1 << 384) % P))
 
 
 def miller_loop(mask) -> int:

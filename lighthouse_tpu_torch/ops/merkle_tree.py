@@ -9,18 +9,21 @@ O(dirty rows x depth) hashes instead of a rebuild.
   (pubkey hash into chunk 0, ``pre_levels`` pair folds, zero chunks past
   ``n_live``), then one ``hash64`` launch a level, then ``cap_fold``.
 - ``update``: one ``fold_pre`` launch folds the R dirty units and scatters
-  them into level 0, then one ``path_update`` launch a level walks the R
-  dirty paths up, then ``cap_fold``. One launch a level keeps level l whole
-  before level l+1 reads it.
+  them into level 0, then one ``path_update`` launch walks the distinct
+  dirty paths up through every level (a grid barrier between levels keeps
+  level l whole before level l+1 reads it), then ``cap_fold``.
 
 Level tensors are updated in place (the analogue of the JAX package's
 donating program) unless the tree is shared (``share()``): the first write
 after a share copies the levels, so the other owner's root never moves.
 
 Kernels here, each with its plain PyTorch version beside it: ``fold_pre``
-(csrc/fold_pre.cu) and ``path_update`` (csrc/path_update.cu).
+(csrc/fold_pre.cu) and ``path_update`` (csrc/path_update.cu, through
+``DeviceTree.update``'s ``_path_walk``).
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -127,31 +130,55 @@ def fold_pre(chunks: torch.Tensor, pk: torch.Tensor | None,
 
 # -- path_update ------------------------------------------------------------------
 
-def _path_update_plain(lo, hi, rows, level):
-    parent = rows.to(torch.int64) >> (level + 1)
-    hi[parent] = _hash64_plain(lo.reshape(-1, 16)[parent])
+#: the deepest tree one walk takes (csrc/path_update.cu LH_PATH_MAX_DEPTH:
+#: the level pointers travel by value in a fixed-size struct)
+PATH_MAX_DEPTH = 48
 
 
-def path_update(lo: torch.Tensor, hi: torch.Tensor, rows: torch.Tensor,
-                level: int) -> None:
-    """One level of a dirty-path walk, in place: for each leaf row r,
-    hi[p] = hash64(lo[2p] || lo[2p+1]) with p = r >> (level + 1).
-    lo is level ``level`` (u32[2M, 8]), hi level ``level + 1`` (u32[M, 8]);
-    rows must lie in [0, 2M << level) (unchecked, as in fold_pre)."""
-    _check_words(lo, 8, "path_update")
-    _check_words(hi, 8, "path_update")
-    if lo.ndim != 2 or hi.ndim != 2 or lo.shape[0] != 2 * hi.shape[0]:
-        raise ValueError("path_update: expected lo [2M, 8] and hi [M, 8]")
-    if lo.device != hi.device:
-        raise ValueError("path_update: levels on different devices")
-    _check_rows(rows, lo.device, "path_update")
-    if lo.device.type == "cpu":
-        _path_update_plain(lo, hi, rows, level)
+def _path_walk_plain(levels, rows):
+    """Plain version of the walk: level by level, for each dirty leaf row
+    r, levels[l + 1][p] = hash64(levels[l][2p] || levels[l][2p + 1]) with
+    p = r >> (l + 1), in place."""
+    rows = rows.to(torch.int64)
+    for lvl in range(len(levels) - 1):
+        parent = rows >> (lvl + 1)
+        levels[lvl + 1][parent] = _hash64_plain(
+            levels[lvl].reshape(-1, 16)[parent])
+
+
+def _path_walk(levels: list[torch.Tensor], rows: torch.Tensor) -> None:
+    """The dirty-path walk of an update, in place, in one launch on the
+    card: levels[0] is u32[2^D, 8] (its dirty leaves already written),
+    levels[l] u32[2^(D - l), 8], D <= PATH_MAX_DEPTH; rows: the dirty leaf
+    rows, int32, sorted and distinct. The kernel hashes a parent where a
+    row's parent differs from the row before's, so it needs that order;
+    the one caller, DeviceTree.update, passes np.unique of its rows (the
+    plain version takes rows in any order)."""
+    depth = len(levels) - 1
+    if depth > PATH_MAX_DEPTH:
+        raise ValueError(f"_path_walk: depth {depth} past the kernel's "
+                         f"{PATH_MAX_DEPTH}")
+    dev = levels[0].device
+    _check_rows(rows, dev, "_path_walk")
+    ptrs = (ctypes.c_void_p * (depth + 1))()
+    for lvl, lv in enumerate(levels):
+        if (lv.dtype != torch.int32 or lv.device != dev
+                or lv.shape != (1 << (depth - lvl), 8)):
+            raise ValueError(f"_path_walk: level {lvl} is {lv.dtype} "
+                             f"{tuple(lv.shape)} on {lv.device}, expected "
+                             f"int32 ({1 << (depth - lvl)}, 8) on {dev}")
+        if dev.type == "cuda":
+            if not lv.is_contiguous() or lv.data_ptr() % 16:
+                raise ValueError(f"_path_walk: level {lvl} must be "
+                                 f"contiguous and 16-byte aligned")
+            ptrs[lvl] = lv.data_ptr()
+    if dev.type == "cpu":
+        _path_walk_plain(levels, rows)
         return
-    if rows.shape[0]:
-        kernels.PATH_UPDATE.launch(lo.data_ptr(), hi.data_ptr(),
-                                   rows.data_ptr(), int(rows.shape[0]),
-                                   int(level), kernels.stream_ptr(lo.device))
+    if depth and rows.shape[0]:
+        kernels.PATH_UPDATE.launch(ptrs, depth, rows.data_ptr(),
+                                   int(rows.shape[0]),
+                                   kernels.stream_ptr(dev))
 
 
 # -- the tree ---------------------------------------------------------------------
@@ -227,8 +254,10 @@ class DeviceTree:
         """rows: leaf indices; pre_leaf_words: u32[R * 2**pre_levels, 8].
 
         Duplicate rows are allowed only when they carry identical leaf
-        words (two writes of one slot race; identical words make the race
-        harmless). An empty ``rows`` is a no-op."""
+        words (fold_pre writes each row's words; two writes of one slot
+        race, and identical words make the race harmless). The walk takes
+        the distinct rows sorted, uploaded beside the rows in one copy:
+        each dirty parent is hashed once. An empty ``rows`` is a no-op."""
         rows = np.asarray(rows, dtype=np.int64)
         r = len(rows)
         if r == 0:
@@ -241,11 +270,12 @@ class DeviceTree:
         if self._shared:
             self.levels = [lv.clone() for lv in self.levels]
             self._shared = False
-        rows_t = torch.from_numpy(rows.astype(np.int32)).to(self.device)
+        both = torch.from_numpy(
+            np.concatenate([rows, np.unique(rows)]).astype(np.int32)
+        ).to(self.device)
         fold_pre(chunks, pk, self.pre_levels, self.n, self.levels[0],
-                 rows=rows_t)
-        for lvl in range(self.dense_depth):
-            path_update(self.levels[lvl], self.levels[lvl + 1], rows_t, lvl)
+                 rows=both[:r])
+        _path_walk(self.levels, both[r:])
         self.root_words = cap_root(self.levels[-1][0], self.dense_depth,
                                    self.limit_depth)
 

@@ -1,9 +1,14 @@
-// Stand-ins that let a BLS kernel source (csrc/bls/*.cu, its C entries
-// cut off) build with g++ and run on the host, one std::thread per CUDA
-// thread: __syncthreads and __syncwarp are std::barriers (__syncwarp(mask)
+// Stand-ins that let a kernel source (csrc/*.cu, csrc/bls/*.cu, its C
+// entries cut off) build with g++ and run on the host, one std::thread per
+// CUDA thread: __syncthreads and __syncwarp are std::barriers (__syncwarp(mask)
 // one of popcount(mask) threads for each mask a warp names), __shared__
-// memory is plain memory that the threads of the one running block
-// share, __constant__ arrays are static const. Multiply lowering 0 only
+// memory is plain memory that the threads of a block share, __constant__
+// arrays are static const. host_launch runs the blocks one after another;
+// host_launch_coop runs them all at once, as a cooperative launch does,
+// with a grid barrier for cooperative_groups::this_grid().sync() (its
+// kernel may use the dynamic shared memory in one block only: the blocks
+// share the one array). The headers of host_include/ stand in for
+// <cuda_runtime.h> and <cooperative_groups.h>. Multiply lowering 0 only
 // (no __dp4a). For the CPU tests (testing/host_cuda.py); the card remains
 // the judge of the real build.
 #pragma once
@@ -30,9 +35,12 @@ struct dim3 { unsigned x = 0, y = 0, z = 0; };
 thread_local dim3 threadIdx, blockIdx;
 dim3 blockDim, gridDim;
 struct uint4 { unsigned x, y, z, w; };
-
-std::barrier<>* lh_block_barrier = nullptr;
-std::vector<std::barrier<>*> lh_warp_barriers;
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+    return {x, y, z, w};
+}
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned shift) {
+    return (uint32_t)((((uint64_t)hi << 32) | lo) >> (shift & 31));
+}
 
 // the barriers of a warp's partial masks, made at first use
 struct LhMaskBarriers {
@@ -43,19 +51,45 @@ struct LhMaskBarriers {
         for (auto& kv : bars) delete kv.second;
     }
 };
-std::vector<LhMaskBarriers*> lh_mask_barriers;
+
+// a block's barriers: __syncthreads, each warp's, each warp's partial masks
+struct LhBlock {
+    std::barrier<> bar;
+    std::vector<std::barrier<>*> warps;
+    std::vector<LhMaskBarriers*> masks;
+    explicit LhBlock(unsigned block) : bar(block) {
+        for (unsigned w = 0; w * 32 < block; ++w) {
+            warps.push_back(new std::barrier<>(
+                block - 32 * w < 32 ? block - 32 * w : 32));
+            masks.push_back(new LhMaskBarriers);
+        }
+    }
+    ~LhBlock() {
+        for (auto* w : warps) delete w;
+        for (auto* w : masks) delete w;
+    }
+};
+thread_local LhBlock* lh_block = nullptr;
+std::barrier<>* lh_grid_barrier = nullptr;
+
+namespace cooperative_groups {
+struct grid_group {
+    void sync() const { lh_grid_barrier->arrive_and_wait(); }
+};
+inline grid_group this_grid() { return {}; }
+}  // namespace cooperative_groups
 
 inline int __clzll(long long v) {
     return v ? __builtin_clzll((unsigned long long)v) : 64;
 }
 inline int __ffs(int v) { return __builtin_ffs(v); }
-inline void __syncthreads() { lh_block_barrier->arrive_and_wait(); }
+inline void __syncthreads() { lh_block->bar.arrive_and_wait(); }
 inline void __syncwarp(unsigned mask = 0xffffffffu) {
     if (mask == 0xffffffffu) {
-        lh_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+        lh_block->warps[threadIdx.x / 32]->arrive_and_wait();
         return;
     }
-    LhMaskBarriers* w = lh_mask_barriers[threadIdx.x / 32];
+    LhMaskBarriers* w = lh_block->masks[threadIdx.x / 32];
     std::barrier<>* bar;
     {
         std::lock_guard<std::mutex> lock(w->m);
@@ -69,7 +103,7 @@ inline void __syncwarp(unsigned mask = 0xffffffffu) {
 // __any_sync(mask, p): three barriers of the mask's threads around an
 // or of their predicates (the last one lets the first thread clear it)
 inline bool __any_sync(unsigned mask, int pred) {
-    LhMaskBarriers* w = lh_mask_barriers[threadIdx.x / 32];
+    LhMaskBarriers* w = lh_block->masks[threadIdx.x / 32];
     std::barrier<>* bar;
     int* vote;
     {
@@ -97,28 +131,41 @@ template <class F> void host_launch(unsigned grid, unsigned block, F body) {
     blockDim.x = block;
     gridDim.x = grid;
     for (unsigned b = 0; b < grid; ++b) {
-        std::barrier<> bar(block);
-        lh_block_barrier = &bar;
-        std::vector<std::barrier<>*> warps;
-        std::vector<LhMaskBarriers*> masks;
-        for (unsigned w = 0; w * 32 < block; ++w) {
-            warps.push_back(new std::barrier<>(
-                block - 32 * w < 32 ? block - 32 * w : 32));
-            masks.push_back(new LhMaskBarriers);
-        }
-        lh_warp_barriers = warps;
-        lh_mask_barriers = masks;
+        LhBlock blk(block);
         std::vector<std::thread> threads;
+        for (unsigned t = 0; t < block; ++t)
+            threads.emplace_back([=, &blk] {
+                threadIdx.x = t;
+                blockIdx.x = b;
+                lh_block = &blk;
+                body();
+            });
+        for (auto& t : threads) t.join();
+    }
+}
+
+// run body() as grid blocks of block threads all at once (a cooperative
+// launch), the grid barrier held by every thread of the grid
+template <class F> void host_launch_coop(unsigned grid, unsigned block,
+                                         F body) {
+    blockDim.x = block;
+    gridDim.x = grid;
+    std::barrier<> grid_bar(grid * block);
+    lh_grid_barrier = &grid_bar;
+    std::vector<LhBlock*> blocks;
+    for (unsigned b = 0; b < grid; ++b) blocks.push_back(new LhBlock(block));
+    std::vector<std::thread> threads;
+    for (unsigned b = 0; b < grid; ++b)
         for (unsigned t = 0; t < block; ++t)
             threads.emplace_back([=] {
                 threadIdx.x = t;
                 blockIdx.x = b;
+                lh_block = blocks[b];
                 body();
             });
-        for (auto& t : threads) t.join();
-        for (auto* w : warps) delete w;
-        for (auto* w : masks) delete w;
-    }
+    for (auto& t : threads) t.join();
+    for (auto* b : blocks) delete b;
+    lh_grid_barrier = nullptr;
 }
 
 inline std::vector<int32_t> host_read(const char* path) {

@@ -1,12 +1,13 @@
-"""Build and run the thread-cooperative BLS kernels on the host.
+"""Build and run the port's cooperative kernels on the host.
 
 ``build(name, out_dir, mode)`` cuts the C entries (their launch syntax)
-off ``csrc/bls/<source>``, compiles it with g++ against the stand-ins of
+off ``csrc/<source>``, compiles it with g++ against the stand-ins of
 ``host_cuda.h`` (one std::thread a CUDA thread, barriers for
-``__syncthreads``/``__syncwarp``) and returns the program;
-``final_exp``, ``hash_to_g2``, ``g2_sum``, ``miller_loop``, ``rlc_scale``
-and ``g2_intake`` run it on
-int32 limb arrays as the kernels' C entries take them, launching the
+``__syncthreads``/``__syncwarp`` and for a cooperative launch's grid
+barrier; ``host_include/`` for the CUDA headers) and returns the
+program; ``final_exp``, ``hash_to_g2``, ``g2_sum``, ``miller_loop``,
+``rlc_scale``, ``g2_intake``, ``affine`` and ``path_walk`` run it on
+int32 arrays as the kernels' C entries take them, launching the
 kernels as the C entries do (each main repeats its entry's choice). The CPU tests hold the
 results to the plain versions: the arithmetic of the CUDA source, not
 its build for the card.
@@ -25,7 +26,7 @@ from ..kernels import CSRC
 _HERE = Path(__file__).resolve().parent
 
 _MAINS = {
-    "final_exp": ("pairing.cu", r'''
+    "final_exp": ("bls/pairing.cu", r'''
 int main(int, char** argv) {
     const int mode = atoi(argv[1]);
     const std::vector<int32_t> fs = host_read(argv[2]);
@@ -38,7 +39,7 @@ int main(int, char** argv) {
     host_write(argv[4], flag);
 }
 '''),
-    "hash_to_g2": ("hash_to_g2.cu", r'''
+    "hash_to_g2": ("bls/hash_to_g2.cu", r'''
 int main(int, char** argv) {
     const std::vector<int32_t> u0 = host_read(argv[1]), u1 = host_read(argv[2]);
     const unsigned n = u0.size() / (2 * LH_LIMBS);
@@ -58,7 +59,7 @@ int main(int, char** argv) {
     host_write(argv[5], oz);
 }
 '''),
-    "g2_sum": ("aggregate.cu", r'''
+    "g2_sum": ("bls/aggregate.cu", r'''
 int main(int, char** argv) {
     const std::vector<int32_t> x = host_read(argv[1]), y = host_read(argv[2]),
                                z = host_read(argv[3]);
@@ -79,7 +80,7 @@ int main(int, char** argv) {
     host_write(argv[6], oz);
 }
 '''),
-    "rlc_scale": ("rlc_scale.cu", r'''
+    "rlc_scale": ("bls/rlc_scale.cu", r'''
 int main(int, char** argv) {
     const int field = atoi(argv[1]), nbits = atoi(argv[2]);
     const std::vector<int32_t> x = host_read(argv[3]), y = host_read(argv[4]),
@@ -101,7 +102,7 @@ int main(int, char** argv) {
     host_write(argv[9], oz);
 }
 '''),
-    "g2_intake": ("g2_intake.cu", r'''
+    "g2_intake": ("bls/g2_intake.cu", r'''
 int main(int, char** argv) {
     const int mode = atoi(argv[1]);
     const std::vector<int32_t> x = host_read(argv[2]), b = host_read(argv[3]),
@@ -119,7 +120,7 @@ int main(int, char** argv) {
     host_write(argv[6], ok);
 }
 '''),
-    "miller_loop": ("pairing.cu", r'''
+    "miller_loop": ("bls/pairing.cu", r'''
 int main(int, char** argv) {
     const std::vector<int32_t> px = host_read(argv[1]), py = host_read(argv[2]),
                                qx = host_read(argv[3]), qy = host_read(argv[4]),
@@ -137,6 +138,46 @@ int main(int, char** argv) {
                                     qy.data(), mask.data(), out.data());
         });
     host_write(argv[6], out);
+}
+'''),
+    "affine": ("bls/aggregate.cu", r'''
+int main(int, char** argv) {
+    const int field = atoi(argv[1]);
+    const std::vector<int32_t> x = host_read(argv[2]), y = host_read(argv[3]),
+                               z = host_read(argv[4]);
+    const long long n = x.size() / (field * LH_LIMBS);
+    std::vector<int32_t> ox(x.size()), oy(x.size());
+    const int t = LH_AFFINE_THREADS;        // as lh_affine launches
+    host_launch((n + t - 1) / t, t, [&] {
+        if (field == 1)
+            affine_kernel<Fp>(x.data(), y.data(), z.data(), ox.data(),
+                              oy.data(), n);
+        else
+            affine_kernel<Fp2>(x.data(), y.data(), z.data(), ox.data(),
+                               oy.data(), n);
+    });
+    host_write(argv[5], ox);
+    host_write(argv[6], oy);
+}
+'''),
+    "path_walk": ("path_update.cu", r'''
+int main(int, char** argv) {
+    const int depth = atoi(argv[1]);
+    long long blocks = atoll(argv[2]);    // 0: as lh_path_walk picks
+    const std::vector<int32_t> rows = host_read(argv[3]);
+    std::vector<int32_t> levels = host_read(argv[4]);   // level 0 first
+    PathLevels L;
+    long long at = 0;
+    for (int l = 0; l <= depth; ++l) {
+        L.lv[l] = (uint32_t*)levels.data() + at;
+        at += (8LL << (depth - l));
+    }
+    const long long r = rows.size();
+    if (blocks == 0) blocks = (r + LH_PATH_THREADS - 1) / LH_PATH_THREADS;
+    host_launch_coop(blocks, LH_PATH_THREADS, [&] {
+        path_walk_kernel(L, depth, rows.data(), r);
+    });
+    host_write(argv[5], levels);
 }
 '''),
 }
@@ -162,7 +203,7 @@ def build(name: str, out_dir: Path, defines: tuple = (),
     to other values (``set_define``). Each build in a directory of its
     own."""
     source, main = _MAINS[name]
-    text = (CSRC / "bls" / source).read_text()
+    text = (CSRC / source).read_text()
     for macro, value in (constants or {}).items():
         text = set_define(text, macro, value)
     body = text[:text.index('extern "C"')]
@@ -174,7 +215,8 @@ def build(name: str, out_dir: Path, defines: tuple = (),
     src.write_text('#include "host_cuda.h"\n' + body + main)
     exe = out_dir / f"{name}_host"
     subprocess.run([compiler(), "-std=c++20", "-O2", "-pthread", "-w",
-                    *defines, f"-I{_HERE}", f"-I{CSRC / 'bls'}", str(src), "-o",
+                    *defines, f"-I{_HERE}", f"-I{_HERE / 'host_include'}",
+                    f"-I{CSRC}", f"-I{CSRC / 'bls'}", str(src), "-o",
                     str(exe)], check=True, capture_output=True, text=True)
     return exe
 
@@ -254,3 +296,24 @@ def g2_in_subgroup(exe: Path, x, y, z):
     """ok [n] of the g2_intake kernel's mode 1 on Jacobian points."""
     _run(exe, {"x": x, "b": y, "c": z}, ("y", "ok"), (1,))
     return _arr(exe.parent / "ok.bin", np.asarray(x).shape[0])
+
+
+def affine(exe: Path, field: int, x, y, z):
+    """(X/Z^2, Y/Z^3) of the affine kernel over Fp (field 1, [n, 32]) or
+    Fp2 (field 2, [n, 2, 32])."""
+    _run(exe, {"x": x, "y": y, "z": z}, ("ox", "oy"), (field,))
+    shape = np.asarray(x).shape
+    return tuple(_arr(exe.parent / f"o{c}.bin", shape) for c in "xy")
+
+
+def path_walk(exe: Path, levels: list, rows, blocks: int = 0):
+    """The walk kernel's levels after one cooperative launch of ``blocks``
+    blocks (0: ceil(R / threads), as ``lh_path_walk`` picks on a card with
+    room) on levels (level 0 first, u32 [2^(D - l), 8] each) and sorted
+    distinct rows."""
+    depth = len(levels) - 1
+    flat = np.concatenate([np.asarray(lv).reshape(-1) for lv in levels])
+    _run(exe, {"rows": rows, "levels": flat}, ("walked",), (depth, blocks))
+    out = _arr(exe.parent / "walked.bin", flat.shape)
+    cuts = np.cumsum([np.asarray(lv).size for lv in levels])[:-1]
+    return [a.reshape(-1, 8) for a in np.split(out, cuts)]

@@ -179,7 +179,7 @@ def test_cuda_constants_header_matches_oracle():
         "LH_N0INV": [(-pow(P, -1, 2**32)) % 2**32],
         "LH_P": _words(P), "LH_2P": _words(2 * P), "LH_ONE": _mont(1),
         "LH_HALF_P_INT": _words((P - 1) // 2),
-        "LH_EXP_INV": _words(P - 2), "LH_EXP_SQRT": _words((P - 3) // 4),
+        "LH_EXP_SQRT": _words((P - 3) // 4),
         "LH_EXP_LEGENDRE": _words((P - 1) // 2),
         "LH_TWO_INV": _mont(pow(2, -1, P)),
         "LH_B_TWIST_3": _mont2(B_G2 * Fp2(3, 0)),
@@ -263,8 +263,11 @@ def test_scalar_muls_and_affine_match_oracle():
         assert cost.scalar_mul(bits, d) == bits.size * cost.DBL[d] + \
             sum(bin(s).count("1") for s in scalars) * cost.ADD[d]
         assert rows == bits.size * (2 * cost.DBL[d] + cost.ADD[d])
+    # the plain inverse is the Fermat power (the kernel's is binary), and
     # the plain G2 affine squares 1/Z with the Fp2 square (2, not 3)
-    assert (rows_a1, rows_a2) == (cost.affine(n, 1), cost.affine(n, 2) - n)
+    fermat = n * (cost.FP_INV - cost.FP_INV_BINARY)
+    assert (rows_a1, rows_a2) == (cost.affine(n, 1) + fermat,
+                                  cost.affine(n, 2) + fermat - n)
     for i, s in enumerate(scalars):
         if s == 0:                      # infinity: z = 0, affine (0, 0)
             assert tk.fp_decode(sz[i]) == [0]
@@ -288,6 +291,59 @@ def test_scalar_muls_and_affine_match_oracle():
     w = G2_GENERATOR.mul(sum(scalars)).to_affine()
     assert tk.fp_decode(ax2) + tk.fp_decode(ay2) == \
         _fp2_ints(w[0]) + _fp2_ints(w[1])
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+def test_affine_bound_counts_one_batch_inversion(degree):
+    """bls_cost.affine_least counts Montgomery's batch inversion over the
+    lanes whose z is not 0: run here on Python integers, counting its
+    products (an Fp2 product is 3), it inverts every such lane with one
+    inverse (4 products in Fp2 around the Fp one, 1 in Fp), and the
+    bound's count equals the run's; the kernel's own count (an inverse a
+    lane) is larger."""
+    P = cost.P
+    rng = np.random.default_rng(degree)
+    n = 9
+    vals = [int(v) for v in rng.integers(1, 2**62, size=n * degree)]
+    vals[degree * 3:degree * 4] = [0] * degree            # lane 3 at infinity
+    z = tk.fp_encode(vals).reshape((n, 32) if degree == 1 else (n, 2, 32))
+    lanes = [tuple(vals[i * degree:(i + 1) * degree]) for i in range(n)]
+    count = [0]
+
+    def mul(a, b):
+        count[0] += 1 if degree == 1 else cost.FP2_MUL
+        if degree == 1:
+            return (a[0] * b[0] % P,)
+        return ((a[0] * b[0] - a[1] * b[1]) % P,
+                (a[0] * b[1] + a[1] * b[0]) % P)
+
+    def inv(a):
+        if degree == 1:
+            count[0] += cost.FP_INV_BINARY
+            return (pow(a[0], -1, P),)
+        count[0] += cost.FP2_INV_BINARY
+        t = pow((a[0] * a[0] + a[1] * a[1]) % P, -1, P)
+        return (a[0] * t % P, -a[1] * t % P)
+
+    live = [a for a in lanes if any(a)]
+    prefix = [live[0]]
+    for a in live[1:]:
+        prefix.append(mul(prefix[-1], a))
+    acc, invs = inv(prefix[-1]), [None] * len(live)
+    for i in range(len(live) - 1, 0, -1):
+        invs[i] = mul(acc, prefix[i - 1])
+        acc = mul(acc, live[i])
+    invs[0] = acc
+    per_lane = 4 * len(live) * (1 if degree == 1 else cost.FP2_MUL)
+    products, words = cost.affine_least(z, degree)
+    assert products == count[0] + per_lane
+    one = (1,) if degree == 1 else (1, 0)
+    assert all(mul(a, b) == one for a, b in zip(live, invs))
+    norm = prefix[-1][0] if degree == 1 else \
+        (prefix[-1][0] ** 2 + prefix[-1][1] ** 2) % P
+    assert words == cost.binary_inverse_word_ops(norm * (1 << 384) % P) > 0
+    assert products * cost.FP_MUL_INT_OPS + words \
+        < cost.affine_int_ops(z, degree)
 
 
 def test_segment_sum_matches_oracle():

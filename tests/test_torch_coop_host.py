@@ -48,7 +48,7 @@ def programs(tmp_path_factory):
     # the one-thread Miller design at any n
     progs["miller_loop_serial"] = host_cuda.build(
         "miller_loop", d, ("-DLH_ML_COOP_MAX=0",))
-    for name in ("rlc_scale", "g2_intake"):
+    for name in ("rlc_scale", "g2_intake", "affine"):
         progs[name] = host_cuda.build(name, d)
     # other lane-group widths than the sources' three threads (two idle a
     # warp): one, four, a whole warp
@@ -426,6 +426,127 @@ def test_g2_intake_source_on_host(programs, program, n):
     assert np.array_equal(got.astype(bool), want.numpy())
     if n > 2:
         assert not bool(want[2]) and bool(want[1])
+
+
+@pytest.fixture(scope="module")
+def walk_programs(tmp_path_factory):
+    """The walk's source at its own threads a block, and at 32 (so a few
+    hundred rows take several blocks and several grid levels)."""
+    if host_cuda.compiler() is None:
+        pytest.skip("needs g++ to build the kernels' sources on the host")
+    d = tmp_path_factory.mktemp("host_walk")
+    return {"source": host_cuda.build("path_walk", d),
+            "t32": host_cuda.build("path_walk", d,
+                                   constants={"LH_PATH_THREADS": 32})}
+
+
+def _walk_case(depth, n_rows, seed):
+    """Random levels of a depth-``depth`` tree, ``n_rows`` dirty leaves
+    written, and their sorted distinct rows."""
+    from lighthouse_tpu_torch.ops import sha256 as sh
+    rng = np.random.default_rng(seed)
+    levels = [torch.from_numpy(rng.integers(
+        0, 2**32, size=(1 << depth, 8), dtype=np.uint64).astype(
+            np.uint32).view(np.int32))]
+    for _ in range(depth):
+        levels.append(sh.hash64(levels[-1].reshape(-1, 16)))
+    rows = np.unique(rng.integers(0, 1 << depth, size=n_rows))
+    levels[0][rows] = torch.from_numpy(rng.integers(
+        0, 2**32, size=(len(rows), 8), dtype=np.uint64).astype(
+            np.uint32).view(np.int32))
+    return levels, rows.astype(np.int32)
+
+
+@pytest.mark.parametrize("program,blocks,depth,n_rows", [
+    ("source", 0, 10, 600),     # 5 blocks of 128; the grid, then block 0
+    ("source", 0, 6, 1),        # one row: block 0 from the first level
+    ("t32", 0, 8, 200),         # 6-7 blocks of 32, four grid levels
+    ("t32", 2, 8, 200),         # two blocks grid-striding over the rows
+    ("t32", 1, 8, 200),         # one block: the grid barrier of one block
+    ("t32", 0, 9, 512),         # every leaf: each level's parents all dirty
+])
+def test_path_walk_source_on_host(walk_programs, program, blocks, depth,
+                                  n_rows):
+    """The one-launch walk (csrc/path_update.cu) run as a cooperative
+    launch on the host, at several grid sizes, against the plain walk on
+    the same levels and rows: every level equal (tolerance zero)."""
+    from lighthouse_tpu_torch.ops import merkle_tree as mt
+    levels, rows = _walk_case(depth, n_rows, depth * 1000 + n_rows)
+    if n_rows == 512:
+        rows = np.arange(1 << depth, dtype=np.int32)
+    got = host_cuda.path_walk(walk_programs[program],
+                              [lv.numpy() for lv in levels], rows, blocks)
+    mt._path_walk_plain(levels, torch.from_numpy(rows))
+    for g, w in zip(got, levels):
+        assert np.array_equal(g, w.numpy())
+
+
+def test_walk_depth_limit_matches_the_source():
+    import re
+
+    from lighthouse_tpu_torch.kernels import CSRC
+    from lighthouse_tpu_torch.ops import merkle_tree as mt
+    text = (CSRC / "path_update.cu").read_text()
+    m = re.search(r"#define LH_PATH_MAX_DEPTH (\d+)", text)
+    assert m is not None and int(m.group(1)) == mt.PATH_MAX_DEPTH
+
+
+def _affine_inputs(n, g2, seed):
+    """n Jacobian points (16 distinct k_i G tiled, every lane rescaled by
+    its own random l), lanes 1, 5, 9, ... given as their representatives
+    in [p, 2p) (x and z + p), lanes 0 and n // 2 at infinity (z = 0, and
+    z = p: zero in [p, 2p)); with the oracle's affine coordinates of each
+    lane (None at infinity)."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import (
+        G1_GENERATOR, G2_GENERATOR,
+    )
+    rng = np.random.default_rng(seed)
+    gen = G2_GENERATOR if g2 else G1_GENERATOR
+    base = [gen.mul(int(rng.integers(1, 2**62))).to_affine()
+            for _ in range(16)]
+    pts = [base[i % 16] for i in range(n)]
+    enc = k.fp2_encode if g2 else k.fp_encode
+    one = k.FP2_ONE if g2 else k.FP_ONE
+    x, y = (np.ascontiguousarray(enc([p[c] for p in pts])) for c in (0, 1))
+    z = np.array(np.broadcast_to(one, x.shape))
+    x, y, z = _rescale(x, y, z, list(range(n)), g2, seed + 1)
+    want = list(pts)
+    for lane in range(1, n, 4):
+        for a in (x, z):
+            a[lane] = bi.ints_to_limbs(
+                [v % k.P_INT + k.P_INT for v in bi.limbs_to_ints(a[lane])]
+            ).reshape(a[lane].shape)
+    z[0] = 0
+    z[n // 2] = bi.ints_to_limbs([k.P_INT] * (2 if g2 else 1)).reshape(
+        z[0].shape)                         # zero as its representative p
+    want[0] = want[n // 2] = None
+    return x, y, z, want
+
+
+@pytest.mark.parametrize("g2,n", [(False, 128), (True, 129)])
+def test_affine_source_on_host(programs, g2, n):
+    """The affine conversion on the binary inverse (csrc/bls/aggregate.cu,
+    fp.cuh fp_inv_binary) at the main path's lanes (128 group sums over
+    Fp, 129 Q points over Fp2): canonically equal to the plain version
+    (the Fermat inverse) and to the pure-Python oracle's affine points,
+    infinity (z = 0) as (0, 0), inputs in [p, 2p) taken."""
+    x, y, z, want = _affine_inputs(n, g2, 40 + n)
+    got = host_cuda.affine(programs["affine"], 2 if g2 else 1, x, y, z)
+    plain = (k._jacobian_to_affine_fp2_plain if g2
+             else k._jacobian_to_affine_fp_plain)
+    for g, w in zip(got, plain(*(torch.from_numpy(a) for a in (x, y, z)))):
+        assert torch.equal(_canon(g), bi.canonical(w))
+    gx, gy = (k.fp_decode(a) for a in got)
+    d = 2 if g2 else 1
+    for i, pt in enumerate(want):
+        coords = gx[d * i:d * i + d] + gy[d * i:d * i + d]
+        if pt is None:
+            assert coords == [0] * (2 * d)
+        elif g2:
+            assert coords == [int(pt[0].c0), int(pt[0].c1), int(pt[1].c0),
+                              int(pt[1].c1)]
+        else:
+            assert coords == [int(pt[0]), int(pt[1])]
 
 
 def test_lane_programs_are_rendered():

@@ -93,21 +93,30 @@ def test_fold_pre_build_and_scatter(cuda_device, pre_levels, with_pk):
     assert torch.equal(out_g.cpu(), out_c)
 
 
-def test_path_update_with_duplicate_rows(cuda_device):
-    rng = np.random.default_rng(3)
-    depth = 6
-    lv = [sh.words_to_tensor(_words(rng, 1 << depth, 8), "cpu")]
+@pytest.mark.parametrize("depth,r", [(6, 6), (20, 1024), (20, 65536)])
+def test_path_update_with_duplicate_rows(cuda_device, depth, r):
+    """The one-launch walk on rows drawn with repeats (as DeviceTree.update
+    sends them: np.unique of the rows) against the plain walk on the same
+    levels, every level equal: at R = 1,024 on depth 20 (a rep) the grid
+    hands the upper levels to block 0; at R = 65,536 the grid is ~500
+    blocks for the lower levels."""
+    rng = np.random.default_rng(depth + r)
+    lv = [sh.words_to_tensor(_words(rng, 1 << depth, 8), cuda_device)]
     for _ in range(depth):
         lv.append(sh.hash64(lv[-1].reshape(-1, 16)))
-    rows = torch.tensor([0, 1, 1, 63, 62, 17], dtype=torch.int32)
-    lv[0][rows.long()] = sh.words_to_tensor(_words(rng, 6, 8), "cpu")
-    lv[0][2] = lv[0][1]
-    gpu = [x.to(cuda_device) for x in lv]
-    for lvl in range(depth):
-        mt.path_update(lv[lvl], lv[lvl + 1], rows, lvl)
-        mt.path_update(gpu[lvl], gpu[lvl + 1], rows.to(cuda_device), lvl)
-    for a, b in zip(gpu, lv):
-        assert torch.equal(a.cpu(), b)
+    drawn = rng.integers(0, 1 << depth, size=r)
+    drawn[1::7] = drawn[0::7][:len(drawn[1::7])]     # repeats
+    rows = np.unique(drawn)
+    lv[0][torch.from_numpy(rows).to(cuda_device)] = sh.words_to_tensor(
+        _words(rng, len(rows), 8), cuda_device)
+    plain = [x.clone() for x in lv]
+    rows_t = torch.from_numpy(rows.astype(np.int32)).to(cuda_device)
+    before = kernels.PATH_UPDATE.launches
+    mt._path_walk(lv, rows_t)
+    assert kernels.PATH_UPDATE.launches == before + 1
+    mt._path_walk_plain(plain, rows_t)
+    for a, b in zip(lv, plain):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("k", [0, 1, 40])
@@ -142,6 +151,33 @@ def test_device_tree_card_equals_cpu(cuda_device, n, limit, pre_levels,
     gpu.update(rows, new, new_pk)
     assert gpu.root() == cpu.root()
     assert other.root() == root0
+
+
+@pytest.mark.parametrize("n,rows", [
+    (64, [0, 1, 1, 63, 62, 17]),          # block 0 from the first level
+    (5000, None),                         # 1,500 rows: grid levels first
+])
+def test_device_tree_update_unsorted_repeated_rows(cuda_device, n, rows):
+    """DeviceTree.update with rows out of order and repeated (each repeat
+    carrying the same words): the card's tree (fold_pre, then the walk on
+    the distinct rows sorted) equals the CPU tree at every level."""
+    rng = np.random.default_rng(n)
+    words = _words(rng, n, 8)
+    cpu = mt.DeviceTree(n, 2**20, device="cpu")
+    gpu = mt.DeviceTree(n, 2**20, device=cuda_device)
+    cpu.build(words)
+    gpu.build(words)
+    if rows is None:
+        rows = rng.integers(0, n, size=1500)
+        rows[::5] = rows[1::5][:len(rows[::5])]
+    rows = np.asarray(rows)
+    distinct, first = np.unique(rows, return_inverse=True)
+    new = _words(rng, len(distinct), 8)[first]
+    cpu.update(rows, new)
+    gpu.update(rows, new)
+    for a, b in zip(gpu.levels, cpu.levels):
+        assert torch.equal(a.cpu(), b)
+    assert gpu.root() == cpu.root()
 
 
 def test_merkleize_words_card_equals_cpu(cuda_device):
@@ -232,6 +268,34 @@ def test_scalar_mul_and_affine_kernels(cuda_device, n, g2):
     want = mul(x, y, z, bits)
     got = mul(*(t.to(cuda_device) for t in (x, y, z)), bits)
     assert _canon_equal(got, want)
+
+
+@pytest.mark.parametrize("g2,n", [(False, 128), (True, 129)])
+def test_affine_kernel_at_the_main_path_lanes(cuda_device, g2, n):
+    """The affine conversion on the binary inverse at the batch's lanes
+    (128 group sums over Fp, the 129 Q points over Fp2 in one launch):
+    every lane its own Z, lane 0 at infinity (z = 0), lane n // 2 with z
+    = p (zero in [p, 2p)), lanes 3, 7, ... with x and z given in [p, 2p);
+    canonically equal to the plain version (the Fermat inverse)."""
+    bi, k = _bls()
+    x, y, z = _points(n, 300 + n, g2)
+    x, y, z = _rescaled(x, y, z, range(1, n), g2, n)
+    for lane in range(3, n, 4):
+        for a in (x, z):
+            a[lane] = torch.from_numpy(bi.ints_to_limbs(
+                [v % bi.P_INT + bi.P_INT
+                 for v in bi.limbs_to_ints(a[lane])])).reshape(a[lane].shape)
+    z[n // 2] = torch.from_numpy(bi.ints_to_limbs(
+        [bi.P_INT] * (2 if g2 else 1))).reshape(z[0].shape)
+    aff = k.jacobian_to_affine_fp2 if g2 else k.jacobian_to_affine_fp
+    before = kernels.AFFINE.launches
+    got = aff(*(t.to(cuda_device) for t in (x, y, z)))
+    assert kernels.AFFINE.launches == before + 1
+    want = aff(x, y, z)
+    assert _canon_equal(got, want)
+    for lane in (0, n // 2):
+        assert not bi.canonical(got[0][lane].cpu()).any()
+        assert not bi.canonical(got[1][lane].cpu()).any()
 
 
 def _rescaled(x, y, z, lanes, g2, seed):

@@ -109,3 +109,43 @@ def test_bls_backend_needs_the_card_by_default(monkeypatch):
             bls._current = prev_backend
     finally:
         device.set_device(prev)
+
+
+def _undefined_names(path: str) -> list[str]:
+    """Names a module's code reads that resolve to no binding: not in an
+    enclosing function, not at module level, not a builtin (``symtable``
+    scopes them as the compiler does)."""
+    import builtins
+    import symtable
+
+    top = symtable.symtable(open(path).read(), path, "exec")
+    defined = {s.get_name() for s in top.get_symbols()
+               if s.is_assigned() or s.is_imported() or s.is_namespace()}
+    defined |= set(dir(builtins)) | {"__file__", "__name__", "__doc__",
+                                     "__spec__", "__path__", "__package__"}
+    bad = []
+
+    def walk(table):
+        for s in table.get_symbols():
+            if (s.is_referenced() and s.is_global()
+                    and s.get_name() not in defined):
+                bad.append(f"{table.get_name()}: {s.get_name()}")
+        for child in table.get_children():
+            walk(child)
+
+    walk(top)
+    return bad
+
+
+_PORT_FILES = sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, fs in os.walk(os.path.join(REPO, "lighthouse_tpu_torch"))
+    for f in fs if f.endswith(".py")) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("rel", _PORT_FILES)
+def test_port_module_reads_no_undefined_name(rel):
+    """Every name a port module's code reads is bound somewhere it can
+    see: a helper deleted while its callers stay fails here, also in code
+    that only runs on the card."""
+    assert _undefined_names(os.path.join(REPO, rel)) == []

@@ -139,6 +139,75 @@ def test_tree_carried_across_then_updated_on_both_sides():
     _assert_same(port, ref)
 
 
+def _walk_rows(case, n, rng):
+    """The dirty rows of one walk case at n leaves."""
+    if case == "random":
+        return rng.choice(n, size=12, replace=False)
+    if case == "duplicates":
+        return np.array([9, 40, 9, 3, 40, 40])
+    if case == "one row":
+        return np.array([77])
+    if case == "every leaf":
+        return rng.permutation(n)
+    if case == "one parent":
+        return np.array([51, 50])
+    return np.array([90, 4, 63, 5, 31, 0, 99, 64])      # unsorted
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "one row",
+                                  "every leaf", "one parent", "unsorted"])
+def test_update_walk_matches_jax_on_every_level(case):
+    """DeviceTree.update (fold_pre, then the one-launch walk's plain
+    version on the sorted distinct rows) against the JAX DeviceTree at
+    depth 7: every level tensor equal (tolerance zero), not only the
+    root. Duplicate rows carry identical words."""
+    rng = np.random.default_rng(len(case))
+    n, limit = 100, 2**16
+    words = _words(rng, n)
+    port, ref = _pair(n, limit)
+    port.build(words)
+    ref.build(words)
+    rows = _walk_rows(case, n, rng)
+    for r in np.unique(rows):
+        words[r] = _words(rng, 1)[0]
+    port.update(rows, words[rows])
+    ref.update(rows, words[rows])
+    _assert_same(port, ref)
+
+
+def test_walk_plain_hashes_each_dirty_parent():
+    """The walk's plain version on unsorted rows with repeats: every
+    level equal to a rebuild from the new leaves (the kernel takes the
+    rows sorted and distinct; the plain version takes any)."""
+    import torch
+
+    from lighthouse_tpu_torch.ops import merkle_tree as mt
+    from lighthouse_tpu_torch.ops import sha256 as sh
+    rng = np.random.default_rng(8)
+    depth = 8
+    levels = [sh.words_to_tensor(_words(rng, 1 << depth), "cpu")]
+    for _ in range(depth):
+        levels.append(sh.hash64(levels[-1].reshape(-1, 16)))
+    rows = np.array([200, 3, 3, 255, 0, 128, 200])
+    levels[0][rows] = sh.words_to_tensor(_words(rng, len(rows)), "cpu")
+    mt._path_walk(levels, torch.from_numpy(rows.astype(np.int32)))
+    want = [levels[0]]
+    for _ in range(depth):
+        want.append(sh.hash64(want[-1].reshape(-1, 16)))
+    for got, w in zip(levels, want):
+        assert torch.equal(got, w)
+
+
+def test_walk_refuses_a_tree_past_the_kernels_depth():
+    import torch
+
+    from lighthouse_tpu_torch.ops import merkle_tree as mt
+    levels = [torch.zeros((1, 8), dtype=torch.int32)] * (
+        mt.PATH_MAX_DEPTH + 2)
+    with pytest.raises(ValueError, match="depth"):
+        mt._path_walk(levels, torch.zeros(1, dtype=torch.int32))
+
+
 def test_update_rejects_rows_out_of_range():
     tree = DeviceTree(10, 16)
     tree.build(np.zeros((10, 8), np.uint32))
