@@ -14,16 +14,20 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    (max_abs_err 0). Each kernel's time (CUDA events, median of repeats),
    its plain version's time and its bound (the least time the card could
    take for the same work: bytes over the memory rate, or integer ops over
-   the INT32 rate). ``path_update`` is one launch a walk, timed at
-   R = 1,024 and 65,536 dirty rows on depth 20.
+   the INT32 rate). ``path_update`` is one launch a walk, the root's zero
+   caps folded in, timed at R = 1,024 and 65,536 dirty rows on depth 20
+   with the registry's 20 caps (held against the plain walk and the
+   plain cap fold); ``cap_fold`` (its caps from a built-in table) at 20
+   caps, and 0, 1 and 44, with its chain's latency floor beside.
 3. The state-root slice: a Deneb mainnet-preset BeaconState at 1,000,000
    validators from ``seeded_columns(N_VALIDATORS, STATE_SEED)``;
    ``hash_tree_root()`` on the card must equal ``EXPECTED_STATE_ROOT_1M``;
    ``REPS`` (5) reps of the ``bench.py`` ``bench_tree_hash`` writes, each
    followed by the state root; the last must equal
    ``EXPECTED_STATE_ROOT_1M_AFTER_REPS``; a rebuild from scratch must equal
-   the incremental root; every kernel's launch count must be nonzero, and
-   ``path_update``'s one a tree update (10).
+   the incremental root; every kernel's launch count must be nonzero,
+   ``path_update``'s one a tree update (10), and ``cap_fold``'s the
+   build's alone (5: the updates fold their caps inside their walks).
 4. The BLS slice, batched signature verification: 10,000 gossip sets over
    127 messages (``bls_batch``), signed by the C++ host backend, pubkeys
    warmed into the cache. Each BLS kernel against its plain version on the
@@ -31,8 +35,10 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    field values equal (max_abs_err 0); bound from the field multiplies of
    the kernel's own algorithm on those inputs (``ops/bls_cost.py``); for
    the latency-bound kernels (``final_exp``, ``hash_to_g2``,
-   ``miller_loop``, ``g2_sum``) also their critical path in dependent
-   field multiplies and the card's time per level of it, a diagnostic,
+   ``miller_loop``, ``g2_sum``, ``g1_segment_sum``) also their critical
+   path in dependent field multiplies and the card's time per level of
+   it, a diagnostic (``g1_segment_sum`` also in additions,
+   ``bls_cost.g1_segment_sum_depth``),
    and for the two with two designs (``hash_to_g2``, ``miller_loop``) the
    design the batch's n picked; for the lane-group kernels
    (``rlc_scale``, ``g2_intake``) the products and multiply rounds their
@@ -43,8 +49,11 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    pair) and all live (a thread a pair). ``g2_sum`` is held as a point
    (``measure.g2_projective_err``: its tree adds in another order than
    the JAX one, so another Jacobian representative of the same point).
-   ``affine`` runs on the Q side (the 128 message points and the
-   aggregate, 129 Fp2 lanes) and on the 128 group sums (Fp); its bound
+   ``g1_segment_sum`` also runs on one 10,000-lane segment and on 10,000
+   one-lane segments of the batch's scaled pubkeys (phase 6 reruns all
+   three layouts in modes 1 and 2). ``affine`` runs on the Q side (the
+   128 message points and the aggregate, 129 Fp2 lanes) and on the 128
+   group sums (Fp); its bound
    is the function's least work on these inputs, one inverse a call by
    batch inversion (``bls_cost.affine_least``), with the kernel's own
    count (an inverse a lane, ``bls_cost.affine_int_ops``) and the count
@@ -146,6 +155,7 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
     the JSON rows, and the further modes checked (kernel -> list)."""
     import torch
 
+    from lighthouse_tpu_torch import kernels
     from lighthouse_tpu_torch.ops import merkle_tree as mt
     from lighthouse_tpu_torch.ops import sha256 as sh
 
@@ -260,8 +270,11 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
     # R = 1,024 dirty rows (a rep's) and at R = 65,536 (a grid of ~500
     # blocks, where one block would not hold the lower levels); rows drawn
     # with repeats, walked as DeviceTree.update sends them (sorted,
-    # distinct)
-    depth = 20
+    # distinct), the root's 20 zero caps folded in by the same launch (the
+    # registry's 2^40 limit), held against the plain walk and the plain
+    # cap fold of its top node
+    depth, limit = 20, 40
+    zeros = sh.words_to_tensor(sh.ZERO_HASH_WORDS, dev)
     levels = [rand_words(1 << depth, 8)]
     for _ in range(depth):
         levels.append(sh.hash64(levels[-1].reshape(-1, 16)))
@@ -272,27 +285,57 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
         levels[0][rows.long()] = rand_words(len(rows_np), 8)
         lv_k = [lv.clone() for lv in levels]
         lv_p = [lv.clone() for lv in levels]
-        mt._path_walk(lv_k, rows)
-        mt._path_walk_plain(lv_p, rows)
-        # the work this data needs: one hash per distinct parent per level
+
+        def walk_plain(lv_p=lv_p, rows=rows):
+            mt._path_walk_plain(lv_p, rows)
+            return sh._cap_fold_plain(lv_p[-1][0], zeros[depth:limit])
+
+        root_k = mt._path_walk(lv_k, rows, limit)
+        root_p = walk_plain()
+        # the work this data needs: one hash per distinct parent per
+        # level, then the caps
         parents = sum(len(np.unique(rows_np.astype(np.int64) >> (lvl + 1)))
-                      for lvl in range(depth))
-        record("path_update", torch.cat(lv_k), torch.cat(lv_p),
-               lambda: mt._path_walk(lv_k, rows),
-               lambda: mt._path_walk_plain(lv_p, rows),
-               parents * (64 + 32) + 4 * len(rows_np), parents * ops,
+                      for lvl in range(depth)) + limit - depth
+        record("path_update", torch.cat(lv_k + [root_k[None]]),
+               torch.cat(lv_p + [root_p[None]]),
+               lambda: mt._path_walk(lv_k, rows, limit), walk_plain,
+               parents * (64 + 32) + 4 * len(rows_np) + 32, parents * ops,
                mode=None if r == 1024 else f"R={r}, one walk")
         del lv_k, lv_p
     del levels
 
-    # cap_fold: K = 20 zero-subtree caps (registry: 2^20 dense, 2^40 limit)
+    # cap_fold: K = 20 zero-subtree caps (registry: 2^20 dense, 2^40
+    # limit; a build's), then 0, 1 and 44; the caps from the kernel's
+    # built-in table, the plain fold's from the words on the card
     root = rand_words(8)
-    zeros = sh.words_to_tensor(sh.ZERO_HASH_WORDS[20:40], dev)
-    record("cap_fold", sh.cap_fold(root, zeros),
-           sh._cap_fold_plain(root, zeros),
-           lambda: sh.cap_fold(root, zeros),
-           lambda: sh._cap_fold_plain(root, zeros),
-           (1 + 20) * 32 + 32, 20 * ops)
+    mhz = bounds.sm_clock_mhz
+
+    def cap_kernel(dense, lim):
+        """One cap_fold launch: cap_root's where there are caps; with none
+        cap_root copies the root without the kernel, so the C entry is
+        called as cap_root calls it."""
+        if dense < lim:
+            return sh.cap_root(root, dense, lim)
+        out = torch.empty(8, dtype=torch.int32, device=dev)
+        kernels.CAP_FOLD.launch(root.data_ptr(), dense, lim, out.data_ptr(),
+                                kernels.stream_ptr(dev))
+        return out
+
+    for dense, lim in ((20, 40), (20, 20), (20, 21), (0, 44)):
+        kk = lim - dense
+        record("cap_fold", cap_kernel(dense, lim),
+               sh._cap_fold_plain(root, zeros[dense:lim]),
+               lambda dense=dense, lim=lim: cap_kernel(dense, lim),
+               lambda dense=dense, lim=lim: sh._cap_fold_plain(
+                   root, zeros[dense:lim]),
+               (1 + kk) * 32 + 32, kk * ops,
+               mode=None if kk == 20 else f"k={kk}")
+        # the chain's floor: 2 k dependent compressions of 64 rounds, ~7
+        # dependent integer operations a round at ~4 cycles each
+        print(f"kernel cap_fold [k={kk}]: the chain's latency floor "
+              f"{2 * kk * 64 * 7 * 4 / mhz / 1e3:.4f} ms ({2 * kk} dependent "
+              f"compressions x 64 rounds x ~7 dependent integer ops of ~4 "
+              f"cycles at {mhz:.0f} MHz)", flush=True)
     torch.cuda.synchronize()
     return results, modes
 
@@ -332,6 +375,7 @@ def slice_phase(card: str) -> dict:
     t0 = time.perf_counter()
     root = state.hash_tree_root()
     build_ms = (time.perf_counter() - t0) * 1e3
+    build_caps = kernels.CAP_FOLD.launches
     check(root.hex() == EXPECTED_STATE_ROOT_1M,
           f"1M state root {root.hex()} != {EXPECTED_STATE_ROOT_1M}")
     print(f"slice: full build state root {root.hex()} ok, {build_ms:.1f} ms "
@@ -360,10 +404,16 @@ def slice_phase(card: str) -> dict:
           f"memory {peak_mib:.0f} MiB", flush=True)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
-    # one walk an update: the registry and the balances, each rep
+    # one walk an update: the registry and the balances, each rep; the
+    # walk folds its root's caps, so cap_fold is the build's alone (one a
+    # capped tree)
     check(launches["path_update"] == 2 * REPS,
           f"path_update launched {launches['path_update']} times, not "
           f"{2 * REPS} (one walk a tree update)")
+    check(launches["cap_fold"] == build_caps == 5,
+          f"cap_fold launched {launches['cap_fold']} times in the build and "
+          f"{REPS} reps ({build_caps} in the build), not 5 and 5 (the "
+          f"updates' caps fold inside their walks)")
 
     reset_trees(state)
     t0 = time.perf_counter()
@@ -679,10 +729,30 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
                         k._g2_scalar_mul_plain, (sig_x, sig_y, one2, sig_bits),
                         g2_issue["products"], mode="G2", issue=g2_issue,
                         old_muls=cost.scalar_mul(sig_bits_np, 2))
-    starts, ends = put(prep["starts"]), put(prep["ends"])
-    gpx, gpy, gpz = run("g1_segment_sum", k.g1_segment_sum,
-                        k._g1_segment_sum_plain, (spx, spy, spz, starts, ends),
-                        cost.g1_segment_sum(prep["starts"], prep["ends"]))
+    # the segment sums on the batch's layout (its host arrays, as the
+    # main path passes them), then on one segment of 10,000 lanes (every
+    # signer of one message) and on 10,000 one-lane segments, held limb for
+    # limb (canonically) to the plain version, which adds in the same order
+    def seg_run(starts, ends, mode=None):
+        adds = cost.g1_segment_sum_depth(starts, ends)
+        return run("g1_segment_sum", k.g1_segment_sum,
+                   k._g1_segment_sum_plain, (spx, spy, spz, starts, ends),
+                   cost.g1_segment_sum(starts, ends), mode=mode,
+                   depth=adds * cost.W_JAC_ADD_DEPTH or None,
+                   design=f"one cooperative launch, trees over pieces of "
+                          f"{k.g1_segment_t(len(starts), len(ends))} lanes, "
+                          f"{adds} additions deep (a group of four threads "
+                          f"an addition, {cost.W_JAC_ADD_DEPTH} steps)")
+
+    gpx, gpy, gpz = seg_run(prep["starts"], prep["ends"])
+    m = 10000
+    one = np.zeros(lanes, np.int32)
+    one[[0, m]] = 1
+    seg_run(one, np.array([m - 1] + [0] * (small - 1), np.int32),
+            mode=f"one segment of {m} lanes")
+    single = np.ones(lanes, np.int32)
+    seg_run(single, np.arange(m, dtype=np.int32),
+            mode=f"{m} one-lane segments")
     ax, ay, az = run("g2_sum", k.g2_sum, k._g2_sum_plain, (ssx, ssy, ssz),
                      cost.g2_sum(lanes), depth=cost.g2_sum_depth(lanes),
                      design=f"a tree over {min(-(-lanes // 128), 128)} "

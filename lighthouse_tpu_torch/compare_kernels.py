@@ -3,23 +3,40 @@ one process.
 
     git archive <commit> lighthouse_tpu_torch/csrc | tar -x -C BASE
     python -m lighthouse_tpu_torch.compare_kernels --base BASE \\
-        [--kernels path_update,affine,rlc_scale,g2_intake,g2_sum,\\
-                   miller_loop] --out compare_kernels.json
+        [--kernels g1_segment_sum,cap_fold,path_update,affine,rlc_scale,\\
+                   g2_intake,g2_sum,miller_loop] --out compare_kernels.json
 
-Builds both trees' sources of the chosen kernels (default: all six; the
+Builds both trees' sources of the chosen kernels (default: all eight; the
 BLS ones in each multiply lowering, modes 0, 1, 2) with the flags of
 ``kernels.py``, and prints this tree's ``-Xptxas -v`` report of each
 (registers, stack, spills). On seeded inputs (``default_rng(5)``: 64 G2
 and 64 G1 points, tiled and scaled by random 64-bit scalars on the card,
 so every lane is its own Jacobian point; random tree levels and leaf
-rows) it times, by CUDA events (median of 5 after a warm-up), in the
-order base, this, this, base, holding every pair of outputs equal:
+rows) it times, by CUDA events (the median of 5 runs after a warm-up,
+each run as many back-to-back calls as fill ~1 ms, at most 20, over
+their count), in the order base, this, this, base, holding every pair of
+outputs equal:
 
+- ``g1_segment_sum`` (``lh_g1_segment_sum``) on the scaled G1 points at
+  10,240 lanes (the 10k batch) and 2,560 (a rank at n = 4), m = 10,000 /
+  2,500 of them live, in three layouts: the batch's (m sets over 127
+  messages, a padding group at lane 0), one segment of m lanes, m
+  one-lane segments; in modes 0-2, then this tree's ``aggregate.cu`` with
+  ``LH_SEG_T_SHORT`` and ``LH_SEG_T_LONG`` both set to 32, 64, 128 (mode
+  0: the piece forced at every layout). Sums as points
+  (``measure.g1_projective_err``: the base walks each segment in lane
+  order, this tree adds in trees);
+- ``cap_fold`` (``lh_cap_fold``) at k = 0, 1, 20, 44 caps: the base
+  tree's entry on the caps' words on the card against this tree's on its
+  built-in table; then this tree's with the table in the constant bank
+  (``LHSHA_ZERO_SPACE`` set to ``__constant__``);
 - ``path_update``: the dirty-path walk of an update up a depth-20 tree,
   R = 1,024 and 65,536 rows (drawn with repeats, walked sorted and
-  distinct): the base tree's entry a level (``lh_path_update``, one launch
-  each) against this tree's one launch (``lh_path_walk``); then this
-  tree's source with ``LH_PATH_THREADS`` set to 64-512;
+  distinct): the base tree's walk (``lh_path_walk`` without caps) against
+  this tree's with none (its limit the tree's depth), and the base
+  tree's walk then its cap fold of the registry's 20 caps (two launches)
+  against this tree's one launch with the caps; then this tree's source
+  with ``LH_PATH_THREADS`` set to 64-512;
 - ``affine`` (``lh_affine``): 128 Fp lanes (the group sums), 129 Fp2 (the
   Q side: messages and aggregate) and 1 Fp2; then this tree's
   ``aggregate.cu`` with ``LH_AFFINE_THREADS`` set to 32, 64, 128 against
@@ -63,7 +80,9 @@ from pathlib import Path
 import numpy as np
 
 from . import kernels
-from .measure import field_err, g2_projective_err, nvidia_smi
+from .measure import (
+    field_err, g1_projective_err, g2_projective_err, nvidia_smi,
+)
 
 _MILLER_PAIRS = 10241
 _MILLER_LIVE = (129, 257, 513, 1025, 1537, 2049, 2561, 3073, 5121, 10241)
@@ -77,26 +96,40 @@ _G2I_WIDTHS = (2, 3, 4, 5, 6, 8, 16)
 _WALK_DEPTH = 20
 _WALK_ROWS = (1024, 65536)
 _WALK_THREADS = (64, 128, 256, 512)
+#: the segment sums' lanes (the batch's and a rank's at n = 4) and the
+#: piece sizes swept
+_SEG_LANES = (10240, 2560)
+_SEG_T = (32, 64, 128)
+#: the caps folded, and the walk's limit depth (the registry's 2^40)
+_CAPS = (0, 1, 20, 44)
+_WALK_LIMIT = 40
 #: the affine lanes: (field, lanes), and the block sizes swept
 _AFFINE_LANES = ((1, 128), (2, 129), (2, 1))
 _AFFINE_THREADS = (32, 64, 128)
 _P, _I32, _I64 = kernels._P, kernels._I32, kernels._I64
 #: this tree's C entries -> their argument types
-_ARGTYPES = {"lh_g2_sum": kernels.G2_SUM.argtypes,
+_ARGTYPES = {"lh_g1_segment_sum": kernels.G1_SEGMENT_SUM.argtypes,
+             "lh_cap_fold": kernels.CAP_FOLD.argtypes,
+             "lh_g2_sum": kernels.G2_SUM.argtypes,
              "lh_miller_loop": kernels.MILLER_LOOP.argtypes,
              "lh_rlc_scale": kernels.RLC_SCALE.argtypes,
              "lh_g2_intake": kernels.G2_INTAKE.argtypes,
              "lh_affine": kernels.AFFINE.argtypes,
              "lh_path_walk": kernels.PATH_UPDATE.argtypes}
-#: the base tree (the commit before the one-launch walk, dc39237) where
-#: its entries differ: the one-level walk, and a ``lh_g2_sum`` that
-#: allocates its own partials
+#: the base tree (the commit before the segment sum's trees and the
+#: caps in the walk, 1deed2d) where its entries differ: the segment walk
+#: without scratch, the cap fold of the caps' words, the walk without caps
 _BASE_ARGTYPES = {**_ARGTYPES,
-                  "lh_path_update": [_P, _P, _P, _I64, _I32, _P],
-                  "lh_g2_sum": [_P, _P, _P, _I64, _P, _P, _P, _P]}
+                  "lh_g1_segment_sum": [_P, _P, _P, _P, _I64, _P, _I64, _P,
+                                        _P, _P, _P],
+                  "lh_cap_fold": [_P, _P, _I32, _P, _P],
+                  "lh_path_walk": [_P, _I32, _P, _I64, _P]}
 #: kernel -> (source under csrc/, this tree's entry, a base tree's entry)
-_SOURCES = {"path_update": ("path_update.cu", "lh_path_walk",
-                            "lh_path_update"),
+_SOURCES = {"g1_segment_sum": ("bls/aggregate.cu", "lh_g1_segment_sum",
+                               "lh_g1_segment_sum"),
+            "cap_fold": ("cap_fold.cu", "lh_cap_fold", "lh_cap_fold"),
+            "path_update": ("path_update.cu", "lh_path_walk",
+                            "lh_path_walk"),
             "affine": ("bls/aggregate.cu", "lh_affine", "lh_affine"),
             "rlc_scale": ("bls/rlc_scale.cu", "lh_rlc_scale", "lh_rlc_scale"),
             "g2_intake": ("bls/g2_intake.cu", "lh_g2_intake", "lh_g2_intake"),
@@ -229,11 +262,15 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         jobs = {}
+        # the walk's comparison with caps takes the base tree's cap fold
+        built = chosen + (["cap_fold"] if "path_update" in chosen
+                          and "cap_fold" not in chosen else [])
         for tree, d in trees.items():
-            for name in chosen:
+            for name in built:
                 src, this_symbol, base_symbol = _SOURCES[name]
                 symbol = this_symbol if tree == "this" else base_symbol
-                for m in ((0,) if name == "path_update" else (0, 1, 2)):
+                state_root = name in ("path_update", "cap_fold")
+                for m in ((0,) if state_root else (0, 1, 2)):
                     jobs[f"{tree}_{name}{m}"] = (
                         d / src, (f"-DLH_FP_MODE={m}",), symbol)
         if "miller_loop" in chosen:
@@ -244,6 +281,8 @@ def main(argv=None) -> int:
                                               "LH_RLC_G2_WIDTH")),
                   "g2_intake": (_G2I_WIDTHS, ("LH_G2I_WIDTH",)),
                   "affine": (_AFFINE_THREADS, ("LH_AFFINE_THREADS",)),
+                  "g1_segment_sum": (_SEG_T, ("LH_SEG_T_SHORT",
+                                              "LH_SEG_T_LONG")),
                   "path_update": (_WALK_THREADS, ("LH_PATH_THREADS",))}
         for name, (ws, macros) in widths.items():
             if name in chosen:
@@ -251,6 +290,11 @@ def main(argv=None) -> int:
                 for w in ws:
                     jobs[f"w{w}_{name}"] = (
                         _width_source(tmp, src, macros, w), (), symbol)
+        if "cap_fold" in chosen:        # the zero-hash table in the
+            jobs["constant_cap_fold"] = (   # constant bank
+                _width_source(tmp, "zero_hashes.cuh", ("LHSHA_ZERO_SPACE",),
+                              "__constant__").parent / "cap_fold.cu", (),
+                "lh_cap_fold")
         fns, logs = _build(jobs, tmp)
         for tag in sorted(logs):
             if tag.startswith(("this_", "w")):
@@ -336,48 +380,108 @@ def main(argv=None) -> int:
                 lv[0][rows[r].long()] = -1 - r
             return lv, rows
 
-        def walk(fn, lv, rows, one_level):
+        from .ops import sha256 as sh
+        zeros = torch.from_numpy(sh.ZERO_HASH_WORDS.view(np.int32)).cuda()
+
+        def cap(fn, base, root, dense, limit):
+            """One cap fold: the base tree's entry on the caps' words on
+            the card, this tree's on its constant table."""
+            out = torch.empty(8, dtype=torch.int32, device="cuda")
+            args = ((zeros[dense:].data_ptr(), limit - dense) if base
+                    else (dense, limit))
+            assert fn(root.data_ptr(), *args, out.data_ptr(), stream) == 0
+            return out
+
+        def walk(fn, this, lv, rows, caps):
             """``fn`` up all levels ``lv``, in place (a walk again on its
-            own output gives the same levels): one call a level (a base
-            tree's entry) or one call."""
+            own output gives the same levels): the base tree's walk
+            (``caps``: then its cap fold, a second launch), or this tree's
+            (``this``: its root in the same launch, capped with ``caps``,
+            the top node itself without). The levels, and the capped root
+            with ``caps``."""
             r = int(rows.shape[0])
-            if one_level:
-                for lvl in range(_WALK_DEPTH):
-                    assert fn(lv[lvl].data_ptr(), lv[lvl + 1].data_ptr(),
-                              rows.data_ptr(), r, lvl, stream) == 0
-            else:
-                ptrs = (ctypes.c_void_p * (_WALK_DEPTH + 1))(
-                    *(t.data_ptr() for t in lv))
+            ptrs = (ctypes.c_void_p * (_WALK_DEPTH + 1))(
+                *(t.data_ptr() for t in lv))
+            if this:
+                root = torch.empty(8, dtype=torch.int32, device="cuda")
                 assert fn(ptrs, _WALK_DEPTH, rows.data_ptr(), r,
-                          stream) == 0
-            return lv
+                          _WALK_LIMIT if caps else _WALK_DEPTH,
+                          root.data_ptr(), stream) == 0
+                return lv + [root] if caps else lv
+            assert fn(ptrs, _WALK_DEPTH, rows.data_ptr(), r, stream) == 0
+            if not caps:
+                return lv
+            return lv + [cap(fns["base_cap_fold0"], True, lv[-1][0],
+                             _WALK_DEPTH, _WALK_LIMIT)]
 
         def level_err(a, b):
             return int(not all(torch.equal(x, y) for x, y in zip(a, b)))
 
-        def walk_pair(label, levels, rows, fn_a, one_a, fn_b, one_b):
-            """Two walks, each on its own copy of the stale levels."""
+        def walk_pair(label, levels, rows, first, second, caps):
+            """Two walks (each (entry, this tree's)), each on its own copy
+            of the stale levels."""
             a = [t.clone() for t in levels]
             b = [t.clone() for t in levels]
-            pair(label, lambda: walk(fn_a, a, rows, one_a),
-                 lambda: walk(fn_b, b, rows, one_b), level_err)
+            pair(label, lambda: walk(*first, a, rows, caps),
+                 lambda: walk(*second, b, rows, caps), level_err)
+
+        def seg_layouts(n):
+            """(label, starts, ends) of the three layouts at n lanes, m =
+            n * 10,000 / 10,240 of them live (the batch's padding at m)."""
+            m = n * 10000 // 10240
+            sizes = np.array([m // 127 + (g < m % 127) for g in range(127)])
+            firsts = np.cumsum(sizes) - sizes
+            batch = np.zeros(n, np.int32)
+            batch[firsts] = 1
+            batch[m] = 1
+            one = np.zeros(n, np.int32)
+            one[[0, m]] = 1
+            return [("the batch's 127 segments", batch,
+                     np.append(firsts + sizes - 1, 0)),
+                    (f"one segment of {m} lanes", one,
+                     np.array([m - 1] + [0] * 127)),
+                    (f"{m} one-lane segments", np.ones(n, np.int32),
+                     np.arange(m))]
+
+        def seg(fn, n, starts, ends, work):
+            """``fn`` on the first n scaled G1 points; ``work``: this
+            tree's scratch (None: the base tree's entry, which has
+            none)."""
+            x, y, z = (c[:n].contiguous() for c in lane["pk"])
+            g = int(ends.shape[0])
+            out = [torch.empty(g, 32, dtype=torch.int32, device="cuda")
+                   for _ in range(3)]
+            extra = () if work is None else (work.data_ptr(),
+                                              work.numel())
+            assert fn(x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                      starts.data_ptr(), n, ends.data_ptr(), g, *extra,
+                      *(o.data_ptr() for o in out), stream) == 0
+            return tuple(out)
 
         one_masked = np.ones(129, np.int32)
         one_masked[127] = 0                  # the batch's padding lane
         one_masked = torch.from_numpy(one_masked).cuda()
 
         def ms(call):
+            """A call's ms: the median of 5 runs of back-to-back calls
+            between two CUDA events, over the calls (as many as fill ~1 ms,
+            at most 20, so a short kernel's time is the card's and not
+            the host's launch rate), after a warm-up call."""
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
             call()
-            torch.cuda.synchronize()
+            b.record()
+            b.synchronize()
+            reps = max(1, min(20, int(1.0 / max(a.elapsed_time(b), 0.05))))
             times = []
             for _ in range(5):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
                 a.record()
-                call()
+                for _ in range(reps):
+                    call()
                 b.record()
                 b.synchronize()
-                times.append(a.elapsed_time(b))
+                times.append(a.elapsed_time(b) / reps)
             return statistics.median(times)
 
         def pair(label, first, second, err):
@@ -421,18 +525,69 @@ def main(argv=None) -> int:
                                  call(fns[f"this_{name}0"], n),
                              lambda n=n, w=w, call=call:
                                  call(fns[f"w{w}_{name}"], n), field_err)
+        if "g1_segment_sum" in chosen:
+            for n in _SEG_LANES:
+                for what, starts, ends in seg_layouts(n):
+                    st = torch.from_numpy(starts.astype(np.int32)).cuda()
+                    en = torch.from_numpy(ends.astype(np.int32)).cuda()
+                    work = torch.empty(
+                        k._seg_work_words(n, int(en.shape[0])),
+                        dtype=torch.int32, device="cuda")
+                    label = f"g1_segment_sum, {n} lanes, {what}"
+                    for m in (0, 1, 2):
+                        pair(f"mode {m} {label}: base against this",
+                             lambda m=m, n=n, st=st, en=en: seg(
+                                 fns[f"base_g1_segment_sum{m}"], n, st, en,
+                                 None),
+                             lambda m=m, n=n, st=st, en=en, work=work: seg(
+                                 fns[f"this_g1_segment_sum{m}"], n, st, en,
+                                 work), g1_projective_err)
+                    for t in _SEG_T:
+                        pair(f"mode 0 {label}: this against T = {t}",
+                             lambda n=n, st=st, en=en, work=work: seg(
+                                 fns["this_g1_segment_sum0"], n, st, en,
+                                 work),
+                             lambda n=n, st=st, en=en, work=work, t=t: seg(
+                                 fns[f"w{t}_g1_segment_sum"], n, st, en,
+                                 work), g1_projective_err)
+        if "cap_fold" in chosen:
+            root = torch.from_numpy(np.random.default_rng(5).integers(
+                0, 2**32, size=8, dtype=np.uint64).astype(np.uint32).view(
+                    np.int32)).cuda()
+            for kk in _CAPS:
+                dense = 20 if kk < 44 else 0
+                pair(f"cap_fold, k = {kk}: base against this",
+                     lambda dense=dense, kk=kk: cap(
+                         fns["base_cap_fold0"], True, root, dense,
+                         dense + kk),
+                     lambda dense=dense, kk=kk: cap(
+                         fns["this_cap_fold0"], False, root, dense,
+                         dense + kk), level_err)
+                pair(f"cap_fold, k = {kk}: this against its table in the "
+                     f"constant bank",
+                     lambda dense=dense, kk=kk: cap(
+                         fns["this_cap_fold0"], False, root, dense,
+                         dense + kk),
+                     lambda dense=dense, kk=kk: cap(
+                         fns["constant_cap_fold"], False, root, dense,
+                         dense + kk), level_err)
         if "path_update" in chosen:
             levels, walk_rows = walk_levels()
-            this_fn = fns["this_path_update0"]
+            base_walk = (fns["base_path_update0"], False)
+            this_walk = (fns["this_path_update0"], True)
             for r, rows in walk_rows.items():
                 label = (f"path_update, depth {_WALK_DEPTH}, R = {r} "
                          f"({int(rows.shape[0])} distinct)")
-                walk_pair(f"{label}: base against this", levels, rows,
-                          fns["base_path_update0"], True, this_fn, False)
+                walk_pair(f"{label}: base against this, no caps", levels,
+                          rows, base_walk, this_walk, False)
+                walk_pair(f"{label}: base walk and cap_fold of "
+                          f"{_WALK_LIMIT - _WALK_DEPTH} caps against this "
+                          f"walk with them", levels, rows, base_walk,
+                          this_walk, True)
                 for w in _WALK_THREADS:
-                    walk_pair(f"{label}: this against {w} threads a block",
-                              levels, rows, this_fn, False,
-                              fns[f"w{w}_path_update"], False)
+                    walk_pair(f"{label}: this against {w} threads a block, "
+                              f"caps", levels, rows, this_walk,
+                              (fns[f"w{w}_path_update"], True), True)
             del levels, walk_rows
         if "affine" in chosen:
             for field, n in _AFFINE_LANES:

@@ -280,8 +280,10 @@ class GpuBackend(PythonBackend):
             sig_x, sig_y, one2,
             put(k.scalars_to_bits(prep["sig_rands"], RAND_BITS)))
         # per-message pubkey sums; group g's sum lands in lane g
-        gpx, gpy, gpz = k.g1_segment_sum(spx, spy, spz, put(prep["starts"]),
-                                         put(prep["ends"]))
+        # (the layout's host arrays: checked there, each up in one copy,
+        # nothing read back)
+        gpx, gpy, gpz = k.g1_segment_sum(spx, spy, spz, prep["starts"],
+                                         prep["ends"])
         # aggregate of the scaled signatures
         ax, ay, az = k.g2_sum(ssx, ssy, ssz)
 

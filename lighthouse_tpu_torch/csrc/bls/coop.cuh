@@ -31,8 +31,10 @@
 //   independent Fp2 products (at most 10) run on lanes 3q..3q+2 (fp_mul,
 //   out of line: one copy of the multiply for the warp's whole program)
 //   and come back to every lane through the warp's 32-Fp shared scratch.
-//   The G2 Jacobian doubling and addition (w_jac_dbl, w_jac_add) run on
-//   it for hash_to_g2.cu and the top levels of aggregate.cu's tree.
+//   The Jacobian doubling and addition (w_jac_dbl, w_jac_add) run on it
+//   over G2 for hash_to_g2.cu and the top levels of aggregate.cu's G2
+//   tree, and over G1 on groups of four threads (GroupFp: an Fp product
+//   a thread) for aggregate.cu's segment sums.
 //
 // - Lane groups (lg_step): G threads of one warp serve one lane of a wide
 //   batch (rlc_scale.cu, g2_intake.cu: 10,240 lanes), several groups to a
@@ -609,97 +611,167 @@ LH_DEV void w_fp2_pow(Fp* sc, Fp2& r, const Fp2& a, const uint32_t* e) {
     r = acc;
 }
 
-// curve.cuh jac_dbl on the warp: 7 products in 3 steps
-LH_NOINL void w_jac_dbl(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p) {
-    Fp2 A, B, yz, E, C, t, Fv, D, X3, EDX, s;
+// The steps of the Jacobian formulas below. A stepper runs K independent
+// products r[i] = a[i] * b[i] at once and hands every one to each of its
+// threads: WarpFp2 on a warp (w_step: G2, Karatsuba), GroupFp on a group
+// of LH_GROUP_FP threads of one warp (G1: product i on thread i).
+struct WarpFp2 {
+    typedef Fp2 F;
+    Fp* sc;         // the warp's 32 Fp of shared scratch
+    template <int K>
+    LH_DEV void step(Fp2 (&r)[K], const Fp2 (&a)[K],
+                     const Fp2 (&b)[K]) const {
+        w_step<K>(sc, r, a, b, 0);
+    }
+};
+
+// threads of a G1 group: the widest step of jac_add is 4 products
+#define LH_GROUP_FP 4
+
+struct GroupFp {
+    typedef Fp F;
+    Fp* sc;         // the group's LH_GROUP_FP Fp of shared scratch
+    unsigned mask;  // the group's threads
+    int t;          // this thread's rank in the group
+    // product i on thread i (fp_mul out of line: one copy for the group's
+    // whole program); __syncwarp of the group's threads around the
+    // exchange. r may alias a and b.
+    template <int K>
+    LH_DEV void step(Fp (&r)[K], const Fp (&a)[K], const Fp (&b)[K]) const {
+        static_assert(K <= LH_GROUP_FP, "a step of more products than "
+                                        "threads");
+        Fp x, y;
+        bool act = false;
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+            if (i != t) continue;
+            x = a[i];
+            y = b[i];
+            act = true;
+        }
+        if (act) {
+            Fp p;
+            fp_mul(p, x, y);
+            sc[t] = p;
+        }
+        __syncwarp(mask);
+#pragma unroll
+        for (int i = 0; i < K; ++i) r[i] = sc[i];
+        __syncwarp(mask);
+    }
+};
+
+// curve.cuh jac_dbl on a stepper: 7 products in 3 steps
+template <class S>
+LH_NOINL void w_jac_dbl(const S& st, Jac<typename S::F>& r,
+                        const Jac<typename S::F>& p) {
+    typedef typename S::F F;
+    F A, B, yz, E, C, t, Fv, D, X3, s;
     {
-        Fp2 R[3];
-        const Fp2 a[3] = {p.x, p.y, p.y}, b[3] = {p.x, p.y, p.z};
-        w_step<3>(sc, R, a, b, 0);
+        F R[3];
+        const F a[3] = {p.x, p.y, p.y}, b[3] = {p.x, p.y, p.z};
+        st.template step<3>(R, a, b);
         A = R[0]; B = R[1]; yz = R[2];
     }
     f_muln(E, A, 3);
-    fp2_add(s, p.x, B);
+    f_add(s, p.x, B);
     {
-        Fp2 R[3];
-        const Fp2 a[3] = {B, s, E}, b[3] = {B, s, E};
-        w_step<3>(sc, R, a, b, 0);
+        F R[3];
+        const F a[3] = {B, s, E}, b[3] = {B, s, E};
+        st.template step<3>(R, a, b);
         C = R[0]; t = R[1]; Fv = R[2];
     }
-    fp2_sub(s, t, A);
-    fp2_sub(s, s, C);
+    f_sub(s, t, A);
+    f_sub(s, s, C);
     f_muln(D, s, 2);
     f_muln(s, D, 2);
-    fp2_sub(X3, Fv, s);
-    fp2_sub(s, D, X3);
-    w_mul(sc, EDX, E, s);
-    f_muln(s, C, 8);
-    fp2_sub(r.y, EDX, s);
+    f_sub(X3, Fv, s);
+    f_sub(s, D, X3);
+    {
+        F R[1];
+        const F a[1] = {E}, b[1] = {s};
+        st.template step<1>(R, a, b);
+        f_muln(s, C, 8);
+        f_sub(r.y, R[0], s);
+    }
     f_muln(r.z, yz, 2);
     r.x = X3;
 }
 
-// curve.cuh jac_add on the warp: 16 products in 5 steps, the same
+// curve.cuh jac_add on a stepper: 16 products in 5 steps, the same
 // infinity and doubling branches
-LH_NOINL void w_jac_add(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p,
-                        const Jac<Fp2>& q) {
-    const bool inf1 = fp2_is_zero(p.z), inf2 = fp2_is_zero(q.z);
-    Fp2 Z1Z1, Z2Z2, zz, U1, U2, z2c, z1c, H, H2, S1, S2, I, rr, J, V, rr2;
-    Fp2 X3, Y3, Z3, rVX, S1J, s, d;
-    fp2_add(s, p.z, q.z);
+template <class S>
+LH_NOINL void w_jac_add(const S& st, Jac<typename S::F>& r,
+                        const Jac<typename S::F>& p,
+                        const Jac<typename S::F>& q) {
+    typedef typename S::F F;
+    const bool inf1 = f_is_zero(p.z), inf2 = f_is_zero(q.z);
+    F Z1Z1, Z2Z2, zz, U1, U2, z2c, z1c, H, H2, S1, S2, I, rr, J, V, rr2;
+    F X3, Y3, Z3, rVX, S1J, s, d;
+    f_add(s, p.z, q.z);
     {
-        Fp2 R[3];
-        const Fp2 a[3] = {p.z, q.z, s}, b[3] = {p.z, q.z, s};
-        w_step<3>(sc, R, a, b, 0);
+        F R[3];
+        const F a[3] = {p.z, q.z, s}, b[3] = {p.z, q.z, s};
+        st.template step<3>(R, a, b);
         Z1Z1 = R[0]; Z2Z2 = R[1]; zz = R[2];
     }
     {
-        Fp2 R[4];
-        const Fp2 a[4] = {p.x, q.x, q.z, p.z}, b[4] = {Z2Z2, Z1Z1, Z2Z2, Z1Z1};
-        w_step<4>(sc, R, a, b, 0);
+        F R[4];
+        const F a[4] = {p.x, q.x, q.z, p.z}, b[4] = {Z2Z2, Z1Z1, Z2Z2, Z1Z1};
+        st.template step<4>(R, a, b);
         U1 = R[0]; U2 = R[1]; z2c = R[2]; z1c = R[3];
     }
-    fp2_sub(H, U2, U1);
+    f_sub(H, U2, U1);
     f_muln(H2, H, 2);
     {
-        Fp2 R[3];
-        const Fp2 a[3] = {p.y, q.y, H2}, b[3] = {z2c, z1c, H2};
-        w_step<3>(sc, R, a, b, 0);
+        F R[3];
+        const F a[3] = {p.y, q.y, H2}, b[3] = {z2c, z1c, H2};
+        st.template step<3>(R, a, b);
         S1 = R[0]; S2 = R[1]; I = R[2];
     }
-    const bool same_x = fp2_is_zero(H);
-    fp2_sub(d, S2, S1);
-    const bool same_y = fp2_is_zero(d);
+    const bool same_x = f_is_zero(H);
+    f_sub(d, S2, S1);
+    const bool same_y = f_is_zero(d);
     f_muln(rr, d, 2);
     {
-        Fp2 R[3];
-        const Fp2 a[3] = {H, U1, rr}, b[3] = {I, I, rr};
-        w_step<3>(sc, R, a, b, 0);
+        F R[3];
+        const F a[3] = {H, U1, rr}, b[3] = {I, I, rr};
+        st.template step<3>(R, a, b);
         J = R[0]; V = R[1]; rr2 = R[2];
     }
-    fp2_sub(X3, rr2, J);
+    f_sub(X3, rr2, J);
     f_muln(s, V, 2);
-    fp2_sub(X3, X3, s);
-    fp2_sub(s, V, X3);
-    fp2_sub(d, zz, Z1Z1);
-    fp2_sub(d, d, Z2Z2);
+    f_sub(X3, X3, s);
+    f_sub(s, V, X3);
+    f_sub(d, zz, Z1Z1);
+    f_sub(d, d, Z2Z2);
     {
-        Fp2 R[3];
-        const Fp2 a[3] = {rr, S1, d}, b[3] = {s, J, H};
-        w_step<3>(sc, R, a, b, 0);
+        F R[3];
+        const F a[3] = {rr, S1, d}, b[3] = {s, J, H};
+        st.template step<3>(R, a, b);
         rVX = R[0]; S1J = R[1]; Z3 = R[2];
     }
     f_muln(s, S1J, 2);
-    fp2_sub(Y3, rVX, s);
-    Jac<Fp2> out;
+    f_sub(Y3, rVX, s);
+    Jac<F> out;
     out.x = X3;
     out.y = Y3;
     out.z = Z3;
-    if (same_x && same_y && !inf1 && !inf2) w_jac_dbl(sc, out, p);
-    if (same_x && !same_y && !inf1 && !inf2) fp2_zero(out.z);
+    if (same_x && same_y && !inf1 && !inf2) w_jac_dbl(st, out, p);
+    if (same_x && !same_y && !inf1 && !inf2) f_zero(out.z);
     if (inf1) out = q;
     if (inf2 && !inf1) out = p;
     r = out;
+}
+
+// the G2 forms on the warp (sc: its 32 Fp of shared scratch)
+LH_DEV void w_jac_dbl(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p) {
+    w_jac_dbl(WarpFp2{sc}, r, p);
+}
+
+LH_DEV void w_jac_add(Fp* sc, Jac<Fp2>& r, const Jac<Fp2>& p,
+                      const Jac<Fp2>& q) {
+    w_jac_add(WarpFp2{sc}, r, p, q);
 }
 
 // ========================================================= lane groups

@@ -28,11 +28,21 @@
 // A level costs the latency of one SHA-256 chain and a barrier, so a walk
 // is ~20 of them; 128 threads a block was the best of 64-512 at R = 1,024
 // on the card (8 blocks: a warp a scheduler on 8 SMs).
+// Block 0 marks the span's dirty parents by a binary search of the sorted
+// rows a slot (log2 R dependent loads, where a pass over all R rows took
+// R / blockDim.x of them).
+// The root's zero-subtree caps (ops/merkle_tree.py `_cap_root`, the JAX
+// update's last step) fold in the same launch: once the top level is
+// written (after block 0's last __syncthreads, or, were the grid to walk
+// every level, behind the last grid barrier: one exit, block 0's tail, for
+// both), thread 0 of block 0 folds the limit_depth - depth caps
+// (zero_hashes.cuh lhsha::cap_root, cap_fold.cu's fold) and writes the
+// capped root, so an update launches nothing after its walk.
 // The levels' pointers come by value in a struct (49 pointers, 392 bytes
 // of the 4 KB parameter space), so the kernel allocates nothing.
 #include <cooperative_groups.h>
 
-#include "sha256.cuh"
+#include "zero_hashes.cuh"
 
 // the deepest tree a walk takes (levels 0..depth, depth <= this)
 #define LH_PATH_MAX_DEPTH 48
@@ -54,7 +64,8 @@ __device__ __forceinline__ void hash_parent(const uint32_t* lo, uint32_t* hi,
 }
 
 __global__ void __launch_bounds__(LH_PATH_THREADS)
-path_walk_kernel(PathLevels L, int depth, const int* rows, long long r) {
+path_walk_kernel(PathLevels L, int depth, const int* rows, long long r,
+                 int limit_depth, uint32_t* root) {
   extern __shared__ uint4 lh_smem[];
   const long long first = rows[0], last = rows[r - 1];
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -76,18 +87,24 @@ path_walk_kernel(PathLevels L, int depth, const int* rows, long long r) {
     }
     cooperative_groups::this_grid().sync();
   }
-  if (l == depth || blockIdx.x != 0) return;
-  // block 0 alone: slot j of the span is parent base + j
+  // block 0 alone from level l on (none left when the grid walked them
+  // all: the top level is then in, behind the last grid barrier)
+  if (blockIdx.x != 0) return;
+  // slot j of the span is parent base + j
   unsigned char* mark = reinterpret_cast<unsigned char*>(lh_smem);
   unsigned char* next = mark + blockDim.x;
   const int j = threadIdx.x;
   long long base = first >> (l + 1);
-  mark[j] = 0;
-  __syncthreads();
-  for (long long t = j; t < r; t += blockDim.x) {
-    // in the span for sorted rows; the test keeps other rows in bounds
-    const long long at = ((long long)rows[t] >> (l + 1)) - base;
-    if (at >= 0 && at < (long long)blockDim.x) mark[at] = 1;
+  if (l < depth) {
+    // slot j is dirty if a row has parent base + j: the first row at or
+    // past that parent's first leaf
+    const long long key = (base + j) << (l + 1);
+    long long lo = 0, hi = r;
+    while (lo < hi) {
+      const long long mid = (lo + hi) >> 1;
+      if (rows[mid] < key) lo = mid + 1; else hi = mid;
+    }
+    mark[j] = lo < r && ((long long)rows[lo] >> (l + 1)) == base + j;
   }
   __syncthreads();
   for (; l < depth; ++l) {
@@ -103,15 +120,21 @@ path_walk_kernel(PathLevels L, int depth, const int* rows, long long r) {
     next = tmp;
     __syncthreads();
   }
+  if (threadIdx.x == 0)
+    lhsha::cap_root(L.lv[depth], depth, limit_depth, root);
 }
 
 // levels: the depth + 1 level pointers (host array; level l is u32[2^(D -
-// l), 8]); rows: r >= 1 sorted distinct leaf rows on the device.
+// l), 8]); rows: r >= 1 sorted distinct leaf rows on the device; root:
+// u32[8] for the top node capped to limit_depth (depth <= limit_depth <=
+// LHSHA_ZERO_DEPTHS; limit_depth == depth: the top node itself).
 // Returns a cudaError_t: a bad depth, an occupancy query's error or the
 // cooperative launch's (cudaErrorCooperativeLaunchTooLarge included).
 extern "C" int lh_path_walk(void* const* levels, int depth, const void* rows,
-                            long long r, void* stream) {
-  if (depth < 1 || depth > LH_PATH_MAX_DEPTH || r < 1)
+                            long long r, int limit_depth, void* root,
+                            void* stream) {
+  if (depth < 1 || depth > LH_PATH_MAX_DEPTH || r < 1 ||
+      limit_depth < depth || limit_depth > LHSHA_ZERO_DEPTHS)
     return (int)cudaErrorInvalidValue;
   PathLevels L;
   for (int l = 0; l <= depth; ++l) L.lv[l] = (uint32_t*)levels[l];
@@ -136,7 +159,8 @@ extern "C" int lh_path_walk(void* const* levels, int depth, const void* rows,
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;   // no block fits: the launch refuses it
   const int* rows_p = (const int*)rows;
-  void* args[] = {&L, &depth, &rows_p, &r};
+  uint32_t* root_p = (uint32_t*)root;
+  void* args[] = {&L, &depth, &rows_p, &r, &limit_depth, &root_p};
   rc = cudaLaunchCooperativeKernel((const void*)path_walk_kernel,
                                    dim3((unsigned)blocks),
                                    dim3(LH_PATH_THREADS), args, smem,

@@ -604,7 +604,8 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
     spx, spy, spz = keep["scaled_pubkeys"]
     starts, ends = keep["starts"], keep["ends"]
     run("g1_segment_sum", f"sharded, {lanes} segments",
-        lambda: k.g1_segment_sum(spx, spy, spz, starts, ends),
+        lambda: k.g1_segment_sum(spx, spy, spz, prep["starts"],
+                                 prep["ends"]),
         lambda: k._g1_segment_sum_plain(spx, spy, spz, starts, ends),
         (spx, spy, spz, starts, ends),
         cost.g1_segment_sum(prep["starts"], prep["ends"]) * mul)

@@ -34,8 +34,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_HEADERS = ("sha256.cuh", "bls/fp.cuh", "bls/tower.cuh", "bls/curve.cuh",
-            "bls/consts.cuh", "bls/coop.cuh", "bls/lane_prog.cuh")
+_HEADERS = ("sha256.cuh", "zero_hashes.cuh", "bls/fp.cuh", "bls/tower.cuh",
+            "bls/curve.cuh", "bls/consts.cuh", "bls/coop.cuh",
+            "bls/lane_prog.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -211,12 +212,13 @@ def stream_ptr(device) -> int:
 
 HASH64 = CudaKernel("hash64", "hash64.cu", "lh_hash64", [_P, _P, _I64, _P])
 CAP_FOLD = CudaKernel("cap_fold", "cap_fold.cu", "lh_cap_fold",
-                      [_P, _P, _I32, _P, _P])
+                      [_P, _I32, _I32, _P, _P])
 FOLD_PRE = CudaKernel("fold_pre", "fold_pre.cu", "lh_fold_pre",
                       [_P, _P, _P, _I64, _I64, _I32, _P, _P])
-#: the whole dirty-path walk of an update (cooperative launch)
+#: the whole dirty-path walk of an update and its root's caps (one
+#: cooperative launch)
 PATH_UPDATE = CudaKernel("path_update", "path_update.cu", "lh_path_walk",
-                         [_P, _I32, _P, _I64, _P])
+                         [_P, _I32, _P, _I64, _I32, _P, _P])
 
 #: multi-block SHA-256 of padded messages (no caller on a path)
 SHA256_MESSAGES = CudaKernel("sha256_messages", "sha256_messages.cu",
@@ -238,7 +240,8 @@ RLC_SCALE = _bls("rlc_scale", "bls/rlc_scale.cu", "lh_rlc_scale",
                  [_I32, _P, _P, _P, _P, _I32, _P, _P, _P, _I64, _P])
 G1_SEGMENT_SUM = _bls("g1_segment_sum", "bls/aggregate.cu",
                       "lh_g1_segment_sum",
-                      [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P])
+                      [_P, _P, _P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _P,
+                       _P])
 G2_SUM = _bls("g2_sum", "bls/aggregate.cu", "lh_g2_sum",
               [_P, _P, _P, _I64, _P, _P, _P, _P, _P])
 AFFINE = _bls("affine", "bls/aggregate.cu", "lh_affine",

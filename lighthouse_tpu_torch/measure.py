@@ -25,6 +25,7 @@ class Bounds:
     NVLink."""
 
     def __init__(self, sm_clock_mhz: float):
+        self.sm_clock_mhz = sm_clock_mhz
         self.int_ops_per_s = SMS * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
 
     def __call__(self, n_bytes: float, n_ops: float,
@@ -101,6 +102,19 @@ def g2_projective_err(got, want) -> int:
         want[2]).all(-1)
     return field_err(k._jacobian_to_affine_fp2_plain(*got),
                      k._jacobian_to_affine_fp2_plain(*want)) + int(
+        not torch.equal(inf_g, inf_w))
+
+
+def g1_projective_err(got, want) -> int:
+    """``g2_projective_err`` for Jacobian G1 points, each [..., 32]."""
+    import torch
+
+    from .ops import bigint as bi
+    from .ops import bls12_381 as k
+    want = tuple(w.to(got[0].device) for w in want)
+    inf_g, inf_w = bi.is_zero_mod(got[2]), bi.is_zero_mod(want[2])
+    return field_err(k._jacobian_to_affine_fp_plain(*got),
+                     k._jacobian_to_affine_fp_plain(*want)) + int(
         not torch.equal(inf_g, inf_w))
 
 

@@ -30,10 +30,11 @@ Three layers:
 
 Two sums order their additions otherwise than the JAX package, so their
 Jacobian outputs are the same points in other representatives (compare
-them projectively): ``g1_segment_sum`` walks each segment in lane order
-(kernel and plain version alike; the JAX version is a log-depth segmented
-scan), and the ``g2_sum`` kernel adds in a pairwise tree whose order n
-alone fixes (its plain version keeps the JAX row-then-partials order).
+them projectively): ``g1_segment_sum`` sums each range in pairwise trees
+over pieces of T lanes (``g1_segment_t``; kernel and plain version alike,
+in the same order; the JAX version is a log-depth segmented scan), and the
+``g2_sum`` kernel adds in a pairwise tree whose order n alone fixes (its
+plain version keeps the JAX row-then-partials order).
 """
 from __future__ import annotations
 
@@ -556,27 +557,114 @@ g2_dbl, g2_add, _g2_scalar_mul_plain, g2_scalar_mul_const = _make_point_ops(
     fp2_add, fp2_sub, fp2_muln, fp2_is_zero, _where_fp2, _fp2_products)
 
 
+#: csrc/bls/aggregate.cu LH_SEG_T_SHORT, LH_SEG_T_LONG: the lanes of a
+#: piece of a segment sum, short where its ranges average at most that
+#: many lanes
+G1_SEGMENT_T = (32, 128)
+
+
+def g1_segment_t(n: int, g: int) -> int:
+    """The piece of a segment sum of n lanes into g ranges, as
+    aggregate.cu seg_piece_lanes picks it."""
+    short, long_ = G1_SEGMENT_T
+    return short if n <= short * g else long_
+
+
+def _host_ints(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v).astype(np.int64).reshape(-1)
+
+
+def segment_ranges(starts, ends) -> tuple[np.ndarray, np.ndarray]:
+    """(first, length) of each range of a segment sum, host int64: range g
+    runs from the last lane at or before ends[g] whose start flag is set
+    (lane 0 if none) to ends[g]."""
+    starts, ends = _host_ints(starts), _host_ints(ends)
+    lanes = np.arange(starts.shape[0])
+    seg = np.maximum.accumulate(np.where(starts != 0, lanes, 0))
+    first = seg[ends] if ends.size else ends
+    return first, ends - first + 1
+
+
+def _tree_sums(x, y, z, base, width):
+    """Pairwise trees over the runs [base[p], base[p] + width[p]) of the
+    slots (x, y, z) [S, 32], a level at a time over all runs, in place:
+    each level slot i of a run takes slot i + ceil(w / 2). Leaves each
+    run's sum at its base."""
+    w = np.asarray(width, np.int64).copy()
+    base = np.asarray(base, np.int64)
+    while True:
+        h = (w + 1) // 2
+        m = w - h
+        total = int(m.sum())
+        if total == 0:
+            return
+        run = np.repeat(np.arange(w.size), m)
+        li = np.arange(total) - np.repeat(np.cumsum(m) - m, m)
+        dst = torch.from_numpy(base[run] + li).to(x.device)
+        src = torch.from_numpy(base[run] + li + h[run]).to(x.device)
+        sx, sy, sz = g1_add(x[dst], y[dst], z[dst], x[src], y[src], z[src])
+        x[dst], y[dst], z[dst] = sx, sy, sz
+        w = h
+
+
 def _g1_segment_sum_plain(x, y, z, starts, ends):
-    """Per-segment Jacobian G1 sums: out[g] is the sum, in lane order, of
-    the lanes from the start of the segment holding lane ends[g] up to
-    ends[g] (the segmented inclusive prefix at ends[g], as the JAX
-    version gathers it). Vectorized over the outputs, one add a step."""
-    starts = torch.as_tensor(starts, device=x.device).to(torch.int64)
-    ends = torch.as_tensor(ends, device=x.device).to(torch.int64)
-    lanes = torch.arange(starts.shape[0], device=x.device)
-    seg_start = torch.cummax(torch.where(starts != 0, lanes,
-                                         torch.zeros_like(lanes)), 0)[0]
-    first = seg_start[ends]
-    length = ends - first + 1
-    ax, ay, az = x[first], y[first], z[first]
-    for t in range(1, int(length.max().item()) if length.numel() else 0):
-        idx = torch.clamp(first + t, max=starts.shape[0] - 1)
-        sx, sy, sz = g1_add(ax, ay, az, x[idx], y[idx], z[idx])
-        use = t < length
-        ax = _where_fp(use, sx, ax)
-        ay = _where_fp(use, sy, ay)
-        az = _where_fp(use, sz, az)
-    return ax, ay, az
+    """Per-range Jacobian G1 sums (``segment_ranges``) in the kernel's
+    order: each range cut into pieces of T lanes (``g1_segment_t``) from
+    its first lane, a pairwise tree over each piece; a range of more
+    pieces then folds its pieces' sums into min(pieces, T) slots (slot s
+    takes pieces s, s + S, ... in turn) and takes a tree over them.
+    Vectorised a level at a time over all pieces, then over the long
+    ranges."""
+    t = g1_segment_t(x.shape[0], len(ends))
+    first, length = segment_ranges(starts, ends)
+    n_out = first.shape[0]
+    pieces = -(-length // t)
+    rng = np.repeat(np.arange(n_out), pieces)
+    j = np.arange(rng.size) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    width = np.minimum(t, length[rng] - j * t)
+    base = np.cumsum(width) - width
+    lanes = np.repeat(first[rng] + j * t - base, width) + np.arange(
+        int(width.sum()))
+    idx = torch.from_numpy(lanes).to(x.device)
+    sx, sy, sz = x[idx], y[idx], z[idx]
+    _tree_sums(sx, sy, sz, base, width)
+    # each range's first piece's sum; the long ranges' sums replace theirs
+    head = base[np.cumsum(pieces) - pieces]
+    at_head = torch.from_numpy(head).to(x.device)
+    ox, oy, oz = sx[at_head], sy[at_head], sz[at_head]
+    longs = np.flatnonzero(pieces > 1)
+    if longs.size:
+        slots = np.minimum(pieces[longs], t)
+        sbase = np.cumsum(slots) - slots
+        owner = np.repeat(np.arange(longs.size), slots)
+        s_of = np.arange(int(slots.sum())) - np.repeat(sbase, slots)
+
+        def piece_slot(i, q):
+            """The slot of piece q of long range i (its pieces but the
+            last are T wide)."""
+            return head[longs[i]] + q * t
+
+        pick = torch.from_numpy(piece_slot(owner, s_of)).to(x.device)
+        ax, ay, az = sx[pick], sy[pick], sz[pick]
+        step = 1
+        while True:
+            q = s_of + step * slots[owner]
+            live = np.flatnonzero(q < pieces[longs][owner])
+            if live.size == 0:
+                break
+            d = torch.from_numpy(live).to(x.device)
+            sl = torch.from_numpy(piece_slot(owner[live], q[live])).to(
+                x.device)
+            rx, ry, rz = g1_add(ax[d], ay[d], az[d], sx[sl], sy[sl], sz[sl])
+            ax[d], ay[d], az[d] = rx, ry, rz
+            step += 1
+        _tree_sums(ax, ay, az, sbase, slots)
+        at = torch.from_numpy(longs).to(x.device)
+        top = torch.from_numpy(sbase).to(x.device)
+        ox[at], oy[at], oz[at] = ax[top], ay[top], az[top]
+    return ox, oy, oz
 
 
 def _jacobian_to_affine_fp2_plain(x, y, z):
@@ -1143,28 +1231,52 @@ def g2_scalar_mul(x, y, z, bits):
     return _scalar_mul(FP2, x, y, z, bits)
 
 
+def _seg_work_words(n: int, g: int) -> int:
+    """int32 words of the segment sum's scratch (csrc/bls/aggregate.cu
+    seg_work_words: the ranges' tables, the long ranges' partials)."""
+    return 4 * 512 + 40 * g + 37 * n
+
+
 def g1_segment_sum(x, y, z, starts, ends):
-    """Per-segment Jacobian G1 sums over host-sorted lanes: ``starts`` is
-    1 at each segment's first lane, ``ends[g]`` the last lane of segment g
-    (any lane for padding groups). Output lane g holds group g's sum."""
+    """Per-range Jacobian G1 sums over host-sorted lanes: ``starts`` is 1
+    at each segment's first lane; output g is the sum of the lanes from
+    the first lane of the segment that holds lane ``ends[g]`` up to it
+    (``segment_ranges``; a padding group's ``ends[g] = 0`` gives lane 0).
+
+    On the card ``starts`` and ``ends`` may be host arrays (the batch
+    path's: the range check runs on them, each goes up in one copy, and
+    nothing is read back) or tensors on x's device (the range check then
+    reads ``ends``' least and largest back, one sync). The kernel is one
+    cooperative launch (csrc/bls/aggregate.cu)."""
     if _on_cpu(x, y, z):
         return _g1_segment_sum_plain(x, y, z, starts, ends)
     from .. import kernels
     n = x.shape[0]
     shp = (n, bi.NLIMBS)
     x, y, z = _arg(x, "x", shp), _arg(y, "y", shp), _arg(z, "z", shp)
+    if any(t.data_ptr() % 16 for t in (x, y, z)):
+        raise ValueError("g1_segment_sum: x, y, z must be 16-byte aligned "
+                         "(the kernel loads rows in 16-byte words)")
+    if isinstance(ends, torch.Tensor):
+        lo, hi = (torch.stack(torch.aminmax(ends.reshape(-1).long())).tolist()
+                  if ends.numel() else (0, 0))
+    else:
+        ends = np.asarray(ends).reshape(-1)
+        lo, hi = (int(ends.min()), int(ends.max())) if ends.size else (0, 0)
+    if lo < 0 or hi >= n:
+        raise ValueError("g1_segment_sum: ends out of range")
     starts = _flags(starts, n, x)
     ends = torch.as_tensor(ends, device=x.device).to(torch.int32)
     g = ends.shape[0]
     ends = ends.contiguous()
-    if g and (int(ends.min()) < 0 or int(ends.max()) >= n):
-        raise ValueError("g1_segment_sum: ends out of range")
     out = [_empty((g, bi.NLIMBS), x) for _ in range(3)]
     if g:
+        words = _seg_work_words(n, g)
+        work = _empty((words,), x)
         kernels.G1_SEGMENT_SUM.launch(x.data_ptr(), y.data_ptr(),
                                       z.data_ptr(), starts.data_ptr(), n,
-                                      ends.data_ptr(), g,
-                                      *(t.data_ptr() for t in out),
+                                      ends.data_ptr(), g, work.data_ptr(),
+                                      words, *(t.data_ptr() for t in out),
                                       _stream(x))
     return tuple(out)
 

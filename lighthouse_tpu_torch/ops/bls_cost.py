@@ -211,11 +211,34 @@ def scalar_mul(bits, degree: int) -> int:
 
 
 def g1_segment_sum(starts, ends) -> int:
-    """Thread g adds the lanes after its segment's first up to ends[g]."""
-    starts, ends = np.asarray(starts), np.asarray(ends)
-    lanes = np.arange(starts.shape[0])
-    first = np.maximum.accumulate(np.where(starts != 0, lanes, 0))
-    return int((ends - first[ends]).sum() * ADD[1])
+    """The L - 1 additions of each range of L lanes (the kernel's trees
+    add no padding: a piece's tree w - 1, the partials' pieces - 1)."""
+    _, length = k.segment_ranges(starts, ends)
+    return int((length - 1).sum() * ADD[1])
+
+
+def _levels(w: int) -> int:
+    """The levels of a pairwise tree over w >= 1 slots: ceil(log2 w)."""
+    return (int(w) - 1).bit_length()
+
+
+def g1_segment_sum_depth(starts, ends) -> int:
+    """The additions on the critical path of ``lh_g1_segment_sum``: the
+    deepest range's, a range of L <= T lanes its tree's ceil(log2 L)
+    levels; a longer one its full pieces' log2 T, then the fold of its
+    pieces into min(pieces, T) slots (ceil(pieces / T) - 1 in series) and
+    their tree (T the kernel's for the layout, ``g1_segment_t``). Each
+    addition is a group's w_jac_add, W_JAC_ADD_DEPTH dependent
+    multiplies."""
+    t = k.g1_segment_t(len(starts), len(ends))
+    _, length = k.segment_ranges(starts, ends)
+    depth = 0
+    for L in set(int(v) for v in length):
+        pieces = -(-L // t)
+        d = _levels(L) if pieces == 1 else (
+            _levels(t) + -(-pieces // t) - 1 + _levels(min(pieces, t)))
+        depth = max(depth, d)
+    return depth
 
 
 def g2_sum(n: int) -> int:

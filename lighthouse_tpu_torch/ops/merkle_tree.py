@@ -11,7 +11,8 @@ O(dirty rows x depth) hashes instead of a rebuild.
 - ``update``: one ``fold_pre`` launch folds the R dirty units and scatters
   them into level 0, then one ``path_update`` launch walks the distinct
   dirty paths up through every level (a grid barrier between levels keeps
-  level l whole before level l+1 reads it), then ``cap_fold``.
+  level l whole before level l+1 reads it) and folds the root's zero
+  caps from its table (``csrc/zero_hashes.cuh``).
 
 Level tensors are updated in place (the analogue of the JAX package's
 donating program) unless the tree is shared (``share()``): the first write
@@ -31,8 +32,8 @@ import torch
 from .. import kernels
 from ..device import resolve
 from .sha256 import (
-    _check_words, _hash64_plain, cap_root, hash64, root_bytes,
-    words_to_tensor,
+    ZERO_HASH_WORDS, _check_words, _hash64_plain, cap_root, hash64,
+    root_bytes, words_to_tensor,
 )
 
 #: ``pre_levels`` the fold_pre kernel is built for (template instances):
@@ -146,18 +147,25 @@ def _path_walk_plain(levels, rows):
             levels[lvl].reshape(-1, 16)[parent])
 
 
-def _path_walk(levels: list[torch.Tensor], rows: torch.Tensor) -> None:
-    """The dirty-path walk of an update, in place, in one launch on the
-    card: levels[0] is u32[2^D, 8] (its dirty leaves already written),
-    levels[l] u32[2^(D - l), 8], D <= PATH_MAX_DEPTH; rows: the dirty leaf
-    rows, int32, sorted and distinct. The kernel hashes a parent where a
-    row's parent differs from the row before's, so it needs that order;
-    the one caller, DeviceTree.update, passes np.unique of its rows (the
-    plain version takes rows in any order)."""
+def _path_walk(levels: list[torch.Tensor], rows: torch.Tensor,
+               limit_depth: int) -> torch.Tensor:
+    """The dirty-path walk of an update, in place, and the root capped to
+    ``limit_depth``, in one launch on the card: levels[0] is u32[2^D, 8]
+    (its dirty leaves already written), levels[l] u32[2^(D - l), 8],
+    1 <= D <= PATH_MAX_DEPTH; rows: the dirty leaf rows, int32,
+    sorted and distinct. The kernel hashes a parent where a row's parent
+    differs from the row before's, so it needs that order; the one caller,
+    DeviceTree.update, passes np.unique of its rows (the plain version
+    takes rows in any order). The same launch folds the zero caps D ..
+    limit_depth - 1 into the top node; returns that root (u32[8]; the top
+    node itself when limit_depth == D)."""
     depth = len(levels) - 1
-    if depth > PATH_MAX_DEPTH:
-        raise ValueError(f"_path_walk: depth {depth} past the kernel's "
-                         f"{PATH_MAX_DEPTH}")
+    if not 1 <= depth <= PATH_MAX_DEPTH:
+        raise ValueError(f"_path_walk: depth {depth} outside the kernel's "
+                         f"1..{PATH_MAX_DEPTH}")
+    if not depth <= limit_depth <= ZERO_HASH_WORDS.shape[0]:
+        raise ValueError(f"_path_walk: limit depth {limit_depth} outside "
+                         f"{depth}..{ZERO_HASH_WORDS.shape[0]}")
     dev = levels[0].device
     _check_rows(rows, dev, "_path_walk")
     ptrs = (ctypes.c_void_p * (depth + 1))()
@@ -174,11 +182,13 @@ def _path_walk(levels: list[torch.Tensor], rows: torch.Tensor) -> None:
             ptrs[lvl] = lv.data_ptr()
     if dev.type == "cpu":
         _path_walk_plain(levels, rows)
-        return
-    if depth and rows.shape[0]:
-        kernels.PATH_UPDATE.launch(ptrs, depth, rows.data_ptr(),
-                                   int(rows.shape[0]),
-                                   kernels.stream_ptr(dev))
+    if dev.type == "cpu" or rows.shape[0] == 0:     # the kernel takes R >= 1
+        return cap_root(levels[-1][0], depth, limit_depth)
+    root = torch.empty(8, dtype=torch.int32, device=dev)
+    kernels.PATH_UPDATE.launch(ptrs, depth, rows.data_ptr(),
+                               int(rows.shape[0]), limit_depth,
+                               root.data_ptr(), kernels.stream_ptr(dev))
+    return root
 
 
 # -- the tree ---------------------------------------------------------------------
@@ -275,9 +285,13 @@ class DeviceTree:
         ).to(self.device)
         fold_pre(chunks, pk, self.pre_levels, self.n, self.levels[0],
                  rows=both[:r])
-        _path_walk(self.levels, both[r:])
-        self.root_words = cap_root(self.levels[-1][0], self.dense_depth,
-                                   self.limit_depth)
+        if self.dense_depth:
+            # the walk folds the root's caps in the same launch
+            self.root_words = _path_walk(self.levels, both[r:],
+                                         self.limit_depth)
+        else:
+            self.root_words = cap_root(self.levels[-1][0], 0,
+                                       self.limit_depth)
 
     def root(self) -> bytes:
         return root_bytes(self.root_words)

@@ -13,7 +13,11 @@ Kernels (csrc/, bound in kernels.py), each with its plain PyTorch version
 beside it:
 
 - ``hash64``: SHA-256 of 64-byte blocks (``hash64.cu``).
-- ``cap_fold``: the serial zero-subtree cap fold (``cap_fold.cu``).
+- ``cap_fold`` (under ``cap_root``): the serial zero-subtree cap fold
+  (``cap_fold.cu``), its caps from the table built into the library,
+  ``csrc/zero_hashes.cuh`` (``render_zero_hashes``); ``DeviceTree.update``
+  folds them inside its walk instead (``path_update.cu``). The function
+  ``cap_fold`` is the JAX-shaped fold of explicit caps, on the CPU.
 - ``sha256_messages``: SHA-256 of pre-padded equal-length messages
   (``sha256_messages.cu``); ``pad_messages`` pads on the host, as in JAX.
 
@@ -123,6 +127,72 @@ def _zero_hash_words(max_depth: int = 64) -> np.ndarray:
 
 
 ZERO_HASH_WORDS = _zero_hash_words()
+
+
+def render_zero_hashes() -> str:
+    """``csrc/zero_hashes.cuh``: ``ZERO_HASH_WORDS`` as a table built into
+    the kernels' libraries, and the cap fold that reads it
+    (tests/test_torch_sha256.py holds the file to this). Regenerate with
+
+        python -m lighthouse_tpu_torch.ops.sha256 > \\
+            lighthouse_tpu_torch/csrc/zero_hashes.cuh
+    """
+    rows = ",\n".join("    {" + ", ".join(f"0x{int(w):08x}u" for w in row)
+                      + "}" for row in ZERO_HASH_WORDS)
+    return f"""// Generated by lighthouse_tpu_torch/ops/sha256.py render_zero_hashes();
+// do not edit. The roots of the all-zero subtrees of depth 0..63 as
+// big-endian u32 words (ops/sha256.py ZERO_HASH_WORDS), a table built
+// into the library, and the zero-subtree cap fold that reads it.
+#pragma once
+#include "sha256.cuh"
+
+#define LHSHA_ZERO_DEPTHS {ZERO_HASH_WORDS.shape[0]}
+// where the table lives: global memory, read through the cache (in the
+// constant bank the chain ran ~10 % slower on an H100: compare_kernels)
+#define LHSHA_ZERO_SPACE __device__ const
+
+LHSHA_ZERO_SPACE uint32_t LHSHA_ZERO_HASHES[LHSHA_ZERO_DEPTHS][8] = {{
+{rows}}};
+
+namespace lhsha {{
+
+// r = hash64(r || zero_hash[d]) for d = from .. to - 1, in order: one
+// thread's serial chain, each cap's 8 words from the table, the next
+// cap's loaded while the current one hashes
+__device__ __forceinline__ void fold_zero_caps(uint32_t r[8], int from,
+                                               int to) {{
+  uint32_t z[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    z[j] = from < to ? LHSHA_ZERO_HASHES[from][j] : 0u;
+#pragma unroll 1
+  for (int d = from; d < to; ++d) {{
+    uint32_t m[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {{
+      m[j] = r[j];
+      m[8 + j] = z[j];
+    }}
+    const int nx = d + 1 < to ? d + 1 : d;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) z[j] = LHSHA_ZERO_HASHES[nx][j];
+    hash64(m, r);
+  }}
+}}
+
+// out = root with the caps from .. to - 1 folded in (one thread): the cap
+// fold of cap_fold.cu and of the walk's root (path_update.cu), out of
+// line, so a kernel's own loops keep their code
+__device__ __noinline__ void cap_root(const uint32_t* root, int from,
+                                      int to, uint32_t* out) {{
+  uint32_t r[8];
+  load8(root, r);
+  fold_zero_caps(r, from, to);
+  store8(out, r);
+}}
+
+}}  // namespace lhsha
+"""
 
 
 # -- plain versions (int64 arithmetic masked to 32 bits) -----------------------
@@ -278,21 +348,18 @@ def hash64(blocks: torch.Tensor) -> torch.Tensor:
 
 def cap_fold(root: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
     """Fold ``root`` (u32[8]) with zero-subtree roots ``zeros`` (u32[K, 8]):
-    r = hash64(r || zeros[i]) for i in order."""
+    r = hash64(r || zeros[i]) for i in order. The JAX-shaped fold of
+    explicit caps, CPU tensors only: on the card the caps come from the
+    kernel's built-in table (``cap_root``)."""
     _check_words(root, 8, "cap_fold")
     _check_words(zeros, 8, "cap_fold")
     if root.shape != (8,) or zeros.ndim != 2:
         raise ValueError("cap_fold: expected root [8] and zeros [K, 8]")
-    if root.device != zeros.device:
-        raise ValueError("cap_fold: root and zeros on different devices")
-    if root.device.type == "cpu":
-        got = _cap_fold_cpu(root.numpy().tobytes(), zeros.numpy().tobytes())
-        return torch.frombuffer(bytearray(got), dtype=torch.int32)
-    out = torch.empty(8, dtype=torch.int32, device=root.device)
-    kernels.CAP_FOLD.launch(root.data_ptr(), zeros.data_ptr(),
-                            int(zeros.shape[0]), out.data_ptr(),
-                            kernels.stream_ptr(root.device))
-    return out
+    if root.device.type != "cpu" or zeros.device.type != "cpu":
+        raise ValueError("cap_fold: takes CPU tensors; on the card "
+                         "cap_root folds the caps from the kernel's table")
+    got = _cap_fold_cpu(root.numpy().tobytes(), zeros.numpy().tobytes())
+    return torch.frombuffer(bytearray(got), dtype=torch.int32)
 
 
 def sha256_messages(msgs: torch.Tensor) -> torch.Tensor:
@@ -344,13 +411,26 @@ def merkleize_dense(leaves: torch.Tensor, depth: int) -> torch.Tensor:
 
 def cap_root(root: torch.Tensor, dense_depth: int,
              limit_depth: int) -> torch.Tensor:
-    """Fold the zero-subtree caps between ``dense_depth`` and
-    ``limit_depth`` into a dense root (a copy of it when there are none)."""
-    if dense_depth >= limit_depth:
+    """``root`` (u32[8]) with the zero-subtree caps dense_depth ..
+    limit_depth - 1 folded in, into a new tensor (a copy of the root when
+    there are none). On the card one ``cap_fold`` launch reads the caps
+    from its built-in table (nothing is copied to the card); on the CPU
+    the plain fold."""
+    _check_words(root, 8, "cap_root")
+    if root.shape != (8,):
+        raise ValueError("cap_root: expected a root [8]")
+    if not 0 <= dense_depth <= limit_depth <= ZERO_HASH_WORDS.shape[0]:
+        raise ValueError(f"cap_root: depths {dense_depth}, {limit_depth} "
+                         f"out of range")
+    if root.device.type == "cpu":
+        return cap_fold(root.contiguous(), torch.from_numpy(
+            ZERO_HASH_WORDS[dense_depth:limit_depth].view(np.int32)))
+    if dense_depth == limit_depth:
         return root.clone()
-    zeros = words_to_tensor(ZERO_HASH_WORDS[dense_depth:limit_depth],
-                            root.device)
-    return cap_fold(root, zeros)
+    out = torch.empty(8, dtype=torch.int32, device=root.device)
+    kernels.CAP_FOLD.launch(root.data_ptr(), dense_depth, limit_depth,
+                            out.data_ptr(), kernels.stream_ptr(root.device))
+    return out
 
 
 def merkleize_words(leaf_words, limit: int, device=None) -> torch.Tensor:
@@ -381,3 +461,7 @@ def mix_in_length_words(root: torch.Tensor, length: int) -> torch.Tensor:
     length_words = chunks_to_words(int(length).to_bytes(32, "little"))[0]
     block = torch.cat([root, words_to_tensor(length_words, root.device)])
     return hash64(block[None])[0]
+
+
+if __name__ == "__main__":
+    print(render_zero_hashes(), end="")

@@ -171,8 +171,9 @@ def miller_pairs(mesh: Mesh, prep: dict, keep: dict | None = None):
     # alone fixes, as the single-device path does: the two aggregates are
     # equal limb for limb
     ax, ay, az = k.g2_sum(ssx, ssy, ssz)
-    starts, ends = _put(mesh, prep["starts"]), _put(mesh, prep["ends"])
-    gpx, gpy, gpz = k.g1_segment_sum(spx, spy, spz, starts, ends)
+    # the layout's host arrays: checked there, each up in one copy
+    gpx, gpy, gpz = k.g1_segment_sum(spx, spy, spz, prep["starts"],
+                                     prep["ends"])
     apx, apy = k.jacobian_to_affine_fp(gpx, gpy, gpz)
     aax, aay = k.jacobian_to_affine_fp2(ax, ay, az)
 
@@ -180,8 +181,10 @@ def miller_pairs(mesh: Mesh, prep: dict, keep: dict | None = None):
         keep.update(sig_x=sig_x, sig_y=sig_y, u0=u0, u1=u1,
                     msg=(mx, my, mz), msg_affine=(msg_x, msg_y),
                     g1_in=g1_in, g2_in=g2_in,
-                    scaled_pubkeys=(spx, spy, spz), starts=starts,
-                    ends=ends, pubkey_sums=(gpx, gpy, gpz),
+                    scaled_pubkeys=(spx, spy, spz),
+                    starts=_put(mesh, prep["starts"]),
+                    ends=_put(mesh, prep["ends"]),
+                    pubkey_sums=(gpx, gpy, gpz),
                     aggregate=(ax, ay, az))
     # pad the (+1 aggregate) pair batch to a mesh multiple with masked
     # lanes so the shard split stays even

@@ -1,13 +1,14 @@
 // Stand-ins that let a kernel source (csrc/*.cu, csrc/bls/*.cu, its C
 // entries cut off) build with g++ and run on the host, one std::thread per
 // CUDA thread: __syncthreads and __syncwarp are std::barriers (__syncwarp(mask)
-// one of popcount(mask) threads for each mask a warp names), __shared__
+// one of popcount(mask) threads for each mask a warp names; the shuffles of
+// a full warp exchange through memory between two), __shared__
 // memory is plain memory that the threads of a block share, __constant__
 // arrays are static const. host_launch runs the blocks one after another;
 // host_launch_coop runs them all at once, as a cooperative launch does,
 // with a grid barrier for cooperative_groups::this_grid().sync() (its
-// kernel may use the dynamic shared memory in one block only: the blocks
-// share the one array). The headers of host_include/ stand in for
+// kernel may use the dynamic shared memory lh_smem in one block only: the
+// blocks share the one array; LH_BLOCK_SMEM is each block's own). The headers of host_include/ stand in for
 // <cuda_runtime.h> and <cooperative_groups.h>. Multiply lowering 0 only
 // (no __dp4a). For the CPU tests (testing/host_cuda.py); the card remains
 // the judge of the real build.
@@ -47,17 +48,20 @@ struct LhMaskBarriers {
     std::mutex m;
     std::map<unsigned, std::barrier<>*> bars;
     std::map<unsigned, int> votes;
+    long long xchg[32];     // the lanes' values of a shuffle
     ~LhMaskBarriers() {
         for (auto& kv : bars) delete kv.second;
     }
 };
 
-// a block's barriers: __syncthreads, each warp's, each warp's partial masks
+// a block's barriers: __syncthreads, each warp's, each warp's partial
+// masks; and its own dynamic shared memory (LH_BLOCK_SMEM)
 struct LhBlock {
     std::barrier<> bar;
     std::vector<std::barrier<>*> warps;
     std::vector<LhMaskBarriers*> masks;
-    explicit LhBlock(unsigned block) : bar(block) {
+    std::vector<uint4> smem;
+    explicit LhBlock(unsigned block) : bar(block), smem(16384) {
         for (unsigned w = 0; w * 32 < block; ++w) {
             warps.push_back(new std::barrier<>(
                 block - 32 * w < 32 ? block - 32 * w : 32));
@@ -70,6 +74,9 @@ struct LhBlock {
     }
 };
 thread_local LhBlock* lh_block = nullptr;
+// a block's dynamic shared memory, for a source that asks for it by this
+// name (lh_smem below is one array that all blocks share)
+#define LH_BLOCK_SMEM (lh_block->smem.data())
 std::barrier<>* lh_grid_barrier = nullptr;
 
 namespace cooperative_groups {
@@ -83,6 +90,7 @@ inline int __clzll(long long v) {
     return v ? __builtin_clzll((unsigned long long)v) : 64;
 }
 inline int __ffs(int v) { return __builtin_ffs(v); }
+template <class T> inline T __ldg(const T* p) { return *p; }
 inline void __syncthreads() { lh_block->bar.arrive_and_wait(); }
 inline void __syncwarp(unsigned mask = 0xffffffffu) {
     if (mask == 0xffffffffu) {
@@ -121,6 +129,26 @@ inline bool __any_sync(unsigned mask, int pred) {
     if ((unsigned)__builtin_ctz(mask) == threadIdx.x % 32)
         __atomic_store_n(vote, 0, __ATOMIC_SEQ_CST);
     return any;
+}
+
+// __shfl_up_sync / __shfl_sync of a warp of 32 threads (the full mask):
+// each lane writes its value, a barrier, each reads its source lane's, a
+// barrier
+template <class T> inline T lh_shfl(T v, int src) {
+    std::barrier<>* bar = lh_block->warps[threadIdx.x / 32];
+    long long* x = lh_block->masks[threadIdx.x / 32]->xchg;
+    x[threadIdx.x % 32] = (long long)v;
+    bar->arrive_and_wait();
+    const T got = (T)x[src];
+    bar->arrive_and_wait();
+    return got;
+}
+template <class T> inline T __shfl_up_sync(unsigned, T v, unsigned d) {
+    const int l = threadIdx.x % 32;
+    return lh_shfl(v, l >= (int)d ? l - (int)d : l);
+}
+template <class T> inline T __shfl_sync(unsigned, T v, int src) {
+    return lh_shfl(v, src);
 }
 
 // the dynamic shared memory of the kernels (extern __shared__ lh_smem[])

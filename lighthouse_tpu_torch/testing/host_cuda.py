@@ -6,7 +6,8 @@ off ``csrc/<source>``, compiles it with g++ against the stand-ins of
 ``__syncthreads``/``__syncwarp`` and for a cooperative launch's grid
 barrier; ``host_include/`` for the CUDA headers) and returns the
 program; ``final_exp``, ``hash_to_g2``, ``g2_sum``, ``miller_loop``,
-``rlc_scale``, ``g2_intake``, ``affine`` and ``path_walk`` run it on
+``rlc_scale``, ``g2_intake``, ``affine``, ``g1_segment_sum``,
+``cap_fold`` and ``path_walk`` run it on
 int32 arrays as the kernels' C entries take them, launching the
 kernels as the C entries do (each main repeats its entry's choice). The CPU tests hold the
 results to the plain versions: the arithmetic of the CUDA source, not
@@ -160,12 +161,63 @@ int main(int, char** argv) {
     host_write(argv[6], oy);
 }
 '''),
+    "g1_segment_sum": ("bls/aggregate.cu", r'''
+// as lh_g1_segment_sum: one cooperative launch at its T
+template <int T>
+void seg_run(long long grid, const int32_t* x, const int32_t* y,
+             const int32_t* z, const int32_t* starts, long long n,
+             const int32_t* ends, long long g, SegWork w, int32_t* ox,
+             int32_t* oy, int32_t* oz) {
+    host_launch_coop(grid, SegShape<T>::threads, [&] {
+        seg_sum_kernel<T>(x, y, z, starts, n, ends, g, w, ox, oy, oz);
+    });
+}
+
+int main(int, char** argv) {
+    const long long cap = atoll(argv[1]);     // the co-resident blocks
+    const std::vector<int32_t> x = host_read(argv[2]), y = host_read(argv[3]),
+                               z = host_read(argv[4]),
+                               starts = host_read(argv[5]),
+                               ends = host_read(argv[6]);
+    const long long n = starts.size(), g = ends.size();
+    std::vector<int32_t> work(seg_work_words(n, g)), ox(g * LH_LIMBS),
+        oy(ox.size()), oz(ox.size());
+    const SegWork w = seg_work(work.data(), n, g);
+    const int t = seg_piece_lanes(n, g);
+    const long long grid = seg_grid(n, t, cap);
+    if (t == LH_SEG_T_SHORT)
+        seg_run<LH_SEG_T_SHORT>(grid, x.data(), y.data(), z.data(),
+                                starts.data(), n, ends.data(), g, w,
+                                ox.data(), oy.data(), oz.data());
+    else
+        seg_run<LH_SEG_T_LONG>(grid, x.data(), y.data(), z.data(),
+                               starts.data(), n, ends.data(), g, w,
+                               ox.data(), oy.data(), oz.data());
+    host_write(argv[7], ox);
+    host_write(argv[8], oy);
+    host_write(argv[9], oz);
+}
+'''),
+    "cap_fold": ("cap_fold.cu", r'''
+int main(int, char** argv) {
+    const int dense = atoi(argv[1]), limit = atoi(argv[2]);
+    const std::vector<int32_t> root = host_read(argv[3]);
+    std::vector<int32_t> out(8);
+    host_launch(1, 1, [&] {
+        cap_fold_kernel((const uint32_t*)root.data(), dense, limit,
+                        (uint32_t*)out.data());
+    });
+    host_write(argv[4], out);
+}
+'''),
     "path_walk": ("path_update.cu", r'''
 int main(int, char** argv) {
     const int depth = atoi(argv[1]);
     long long blocks = atoll(argv[2]);    // 0: as lh_path_walk picks
-    const std::vector<int32_t> rows = host_read(argv[3]);
-    std::vector<int32_t> levels = host_read(argv[4]);   // level 0 first
+    const int limit = atoi(argv[3]);      // the root's caps' limit
+    const std::vector<int32_t> rows = host_read(argv[4]);
+    std::vector<int32_t> levels = host_read(argv[5]);   // level 0 first
+    std::vector<int32_t> root(8);
     PathLevels L;
     long long at = 0;
     for (int l = 0; l <= depth; ++l) {
@@ -175,9 +227,11 @@ int main(int, char** argv) {
     const long long r = rows.size();
     if (blocks == 0) blocks = (r + LH_PATH_THREADS - 1) / LH_PATH_THREADS;
     host_launch_coop(blocks, LH_PATH_THREADS, [&] {
-        path_walk_kernel(L, depth, rows.data(), r);
+        path_walk_kernel(L, depth, rows.data(), r, limit,
+                         (uint32_t*)root.data());
     });
-    host_write(argv[5], levels);
+    host_write(argv[6], levels);
+    host_write(argv[7], root);
 }
 '''),
 }
@@ -306,14 +360,36 @@ def affine(exe: Path, field: int, x, y, z):
     return tuple(_arr(exe.parent / f"o{c}.bin", shape) for c in "xy")
 
 
-def path_walk(exe: Path, levels: list, rows, blocks: int = 0):
-    """The walk kernel's levels after one cooperative launch of ``blocks``
-    blocks (0: ceil(R / threads), as ``lh_path_walk`` picks on a card with
-    room) on levels (level 0 first, u32 [2^(D - l), 8] each) and sorted
-    distinct rows."""
+def cap_fold(exe: Path, root, dense_depth: int, limit_depth: int):
+    """The cap_fold kernel's u32[8] root with the zero caps dense_depth ..
+    limit_depth - 1 (from its constant table) folded in."""
+    _run(exe, {"root": root}, ("out",), (dense_depth, limit_depth))
+    return _arr(exe.parent / "out.bin", 8)
+
+
+def g1_segment_sum(exe: Path, x, y, z, starts, ends, resident: int = 3):
+    """The per-range sums (x, y, z) [g, 32] of the segment sum's one
+    cooperative launch (its grid as ``lh_g1_segment_sum`` picks it, with
+    ``resident`` co-resident blocks) on Jacobian G1 lanes [n, 32], flags
+    ``starts`` [n] and ``ends`` [g]."""
+    g = len(ends)
+    _run(exe, {"x": x, "y": y, "z": z, "starts": starts, "ends": ends},
+         ("ox", "oy", "oz"), (resident,))
+    return tuple(_arr(exe.parent / f"o{c}.bin", (g, 32)) for c in "xyz")
+
+
+def path_walk(exe: Path, levels: list, rows, limit_depth: int,
+              blocks: int = 0):
+    """The walk kernel's levels and root after one cooperative launch of
+    ``blocks`` blocks (0: ceil(R / threads), as ``lh_path_walk`` picks on
+    a card with room) on levels (level 0 first, u32 [2^(D - l), 8] each)
+    and sorted distinct rows: (levels, the top node with the zero caps D
+    .. limit_depth - 1 folded in by the same launch)."""
     depth = len(levels) - 1
     flat = np.concatenate([np.asarray(lv).reshape(-1) for lv in levels])
-    _run(exe, {"rows": rows, "levels": flat}, ("walked",), (depth, blocks))
+    _run(exe, {"rows": rows, "levels": flat}, ("walked", "root"),
+         (depth, blocks, limit_depth))
     out = _arr(exe.parent / "walked.bin", flat.shape)
     cuts = np.cumsum([np.asarray(lv).size for lv in levels])[:-1]
-    return [a.reshape(-1, 8) for a in np.split(out, cuts)]
+    walked = [a.reshape(-1, 8) for a in np.split(out, cuts)]
+    return walked, _arr(exe.parent / "root.bin", 8)

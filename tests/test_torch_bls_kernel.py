@@ -353,10 +353,12 @@ def test_segment_sum_matches_oracle():
     starts = np.array([1, 0, 1, 1, 0, 0], np.int32)
     ends = np.array([1, 2, 5, 0], np.int32)
     (ox, oy, oz), rows = _rows(tk.g1_segment_sum, x, y, z, starts, ends)
-    # a kernel thread adds its segment's lanes up to ends[g] (1 + 0 + 2 +
-    # 0); the plain version adds for every output on all 2 steps
+    # each range of L lanes is L - 1 additions (1 + 0 + 2 + 0), in the
+    # kernel's trees and in the plain version's (which computes each
+    # addition's doubling too)
     assert cost.g1_segment_sum(starts, ends) == 3 * cost.ADD[1]
-    assert rows == 2 * 4 * (cost.ADD[1] + cost.DBL[1])
+    assert rows == 3 * (cost.ADD[1] + cost.DBL[1])
+    assert cost.g1_segment_sum_depth(starts, ends) == 2
     ax, ay = tk.jacobian_to_affine_fp(ox, oy, oz)
     for g, s in enumerate([3, 3, 15, 1]):
         w = G1_GENERATOR.mul(s).to_affine()

@@ -9,6 +9,12 @@ SSWU's exceptional input, the Miller loop with a masked lane, the G2 sum
 over blocks with infinity, doubling and opposite points, the scalar
 multiplies with infinity, zero and all-ones scalars and lanes of either
 z, decompression with an x that has no root, and the subgroup check.
+The segment sums' trees (csrc/bls/aggregate.cu, at T = 128 and at T = 8
+where ranges take several pieces and a fold past T^2 lanes) on ranges of
+~40, one-lane ranges, ends in the middle of segments, padding ends at 0,
+and lanes at infinity, doubling and opposite; the walk with its root's
+caps folded in (csrc/path_update.cu) and the standalone cap fold
+(csrc/cap_fold.cu) against the CPU tree and the JAX ``_cap_root``.
 The lane programs' tables (csrc/bls/lane_prog.cuh) are checked against
 their generator and run with Python integers against the formulas. Canonical
 field values equal (tolerance zero); the G2 sum, whose tree adds in
@@ -474,11 +480,44 @@ def test_path_walk_source_on_host(walk_programs, program, blocks, depth,
     levels, rows = _walk_case(depth, n_rows, depth * 1000 + n_rows)
     if n_rows == 512:
         rows = np.arange(1 << depth, dtype=np.int32)
-    got = host_cuda.path_walk(walk_programs[program],
-                              [lv.numpy() for lv in levels], rows, blocks)
+    got, root = host_cuda.path_walk(walk_programs[program],
+                                    [lv.numpy() for lv in levels], rows,
+                                    depth, blocks)
     mt._path_walk_plain(levels, torch.from_numpy(rows))
     for g, w in zip(got, levels):
         assert np.array_equal(g, w.numpy())
+    assert np.array_equal(root, levels[-1][0].numpy())
+
+
+@pytest.mark.parametrize("program,blocks,depth,n_rows,limit", [
+    ("source", 0, 10, 600, 40),     # the grid's levels, then block 0's
+    ("source", 0, 6, 1, 6),         # block 0 from the first level; no cap
+    ("t32", 0, 8, 200, 9),          # four grid levels, one cap
+    ("t32", 1, 9, 512, 64),         # one block, every leaf; 55 caps
+])
+def test_path_walk_folds_the_caps_on_host(walk_programs, program, blocks,
+                                          depth, n_rows, limit):
+    """The walk with its root's zero caps folded in by the same launch:
+    the levels as the plain walk's, and the capped root equal to the CPU
+    tree's (``_path_walk`` on CPU levels: the plain walk and cap fold) and
+    to the JAX package's ``_cap_root`` of the walked top node."""
+    import jax.numpy as jnp
+
+    from lighthouse_tpu.ops.merkle_tree import _cap_root
+    from lighthouse_tpu_torch.ops import merkle_tree as mt
+    levels, rows = _walk_case(depth, n_rows, depth * 7 + n_rows)
+    if n_rows == 512:
+        rows = np.arange(1 << depth, dtype=np.int32)
+    got, root = host_cuda.path_walk(walk_programs[program],
+                                    [lv.numpy() for lv in levels], rows,
+                                    limit, blocks)
+    want = mt._path_walk(levels, torch.from_numpy(rows), limit)
+    for g, w in zip(got, levels):
+        assert np.array_equal(g, w.numpy())
+    assert np.array_equal(root, want.numpy())
+    top = jnp.asarray(levels[-1][0].numpy().view(np.uint32))
+    assert np.array_equal(root.view(np.uint32),
+                          np.asarray(_cap_root(top, depth, limit)))
 
 
 def test_walk_depth_limit_matches_the_source():
@@ -489,6 +528,204 @@ def test_walk_depth_limit_matches_the_source():
     text = (CSRC / "path_update.cu").read_text()
     m = re.search(r"#define LH_PATH_MAX_DEPTH (\d+)", text)
     assert m is not None and int(m.group(1)) == mt.PATH_MAX_DEPTH
+
+
+@pytest.fixture(scope="module")
+def seg_programs(tmp_path_factory):
+    """The segment sum's source as it is (pieces of 32 or 128 lanes), and
+    with pieces of 4 or 8 (a range of ~40 lanes takes five pieces, one of
+    300 a fold past T^2 = 64 lanes; a block of 8 or 16 threads)."""
+    if host_cuda.compiler() is None:
+        pytest.skip("needs g++ to build the kernels' sources on the host")
+    d = tmp_path_factory.mktemp("host_seg")
+    return {"source": (host_cuda.build("g1_segment_sum", d), (32, 128)),
+            "small": (host_cuda.build("g1_segment_sum", d, constants={
+                "LH_SEG_T_SHORT": 4, "LH_SEG_T_LONG": 8}), (4, 8))}
+
+
+def _seg_layout(name, n):
+    """(starts, ends) of a named layout of n lanes."""
+    starts = np.zeros(n, np.int32)
+    if name == "ranges of 40":
+        starts[::40] = 1
+        ends = np.append(np.arange(39, n, 40), n - 1)
+    elif name == "one range":
+        starts[0] = 1
+        ends = np.array([n - 1, 0, 0])
+    elif name == "one-lane ranges":
+        starts[:] = 1
+        ends = np.arange(n)
+    elif name == "ends mid-segment":
+        starts[[0, 100, 101, 250]] = 1
+        ends = np.array([37, 99, 100, 180, 101, 249, 260, n - 1, 5])
+    elif name == "short pieces":            # many padding ends: the
+        starts[[0, 100, 101, 250]] = 1      # short piece, long ranges
+        ends = np.array([99, 100, 249, n - 1] + [0] * 80)
+    else:                                   # "padding at 0"
+        starts[[0, 3, 60, 200]] = 1
+        ends = np.array([2, 59, 199, n - 1] + [0] * 12)
+    return starts, ends.astype(np.int32)
+
+
+def _seg_points(n, seed):
+    """n Jacobian G1 points s_i G with random Z (scalars s_i, 0 at
+    infinity): lanes 5 and 41 at infinity, lane 9 the point of lane 8
+    (a doubling in a tree), lane 13 the negation of lane 12. The points
+    from the reference's pure-Python curve (lighthouse_tpu.crypto)."""
+    from lighthouse_tpu.crypto.bls12_381 import G1_GENERATOR
+    from lighthouse_tpu.crypto.bls12_381.fields import R
+    rng = np.random.default_rng(seed)
+    scal = [int(v) for v in rng.integers(1, 2**62, size=n)]
+    scal[9], scal[13] = scal[8], R - scal[12]
+    pts = [G1_GENERATOR.mul(v).to_affine() for v in scal]
+    lam = torch.from_numpy(k.fp_encode(
+        [int.from_bytes(rng.bytes(48), "little") % k.P_INT
+         for _ in range(n)]))
+    x = torch.from_numpy(k.fp_encode([int(p[0]) for p in pts]))
+    y = torch.from_numpy(k.fp_encode([int(p[1]) for p in pts]))
+    l2 = k.fp_mul(lam, lam)
+    x, y, z = k.fp_mul(x, l2), k.fp_mul(y, k.fp_mul(l2, lam)), lam
+    for i in (5, 41)[:1 + (n > 41)]:
+        z[i] = 0
+        scal[i] = 0
+    return (x, y, z), scal
+
+
+def _assert_range_sums(sums, scal, starts, ends):
+    """Each range's sum (Jacobian) is the reference curve's multiple of G
+    by the sum of its lanes' scalars."""
+    from lighthouse_tpu.crypto.bls12_381 import G1_GENERATOR
+    from lighthouse_tpu.crypto.bls12_381.fields import R
+    first, length = k.segment_ranges(starts, ends)
+    ax, ay = k.jacobian_to_affine_fp(*sums)
+    for g in range(len(ends)):
+        s = sum(scal[first[g]:first[g] + length[g]]) % R
+        if s == 0:
+            assert k.fp_decode(sums[2][g]) == [0]
+            continue
+        w = G1_GENERATOR.mul(s).to_affine()
+        assert k.fp_decode(ax[g]) + k.fp_decode(ay[g]) == [int(w[0]),
+                                                           int(w[1])]
+
+
+@pytest.mark.parametrize("program,resident", [("source", 3), ("small", 3),
+                                              ("small", 1)])
+@pytest.mark.parametrize("layout", ["ranges of 40", "one range",
+                                    "one-lane ranges", "ends mid-segment",
+                                    "short pieces", "padding at 0"])
+def test_g1_segment_sum_source_on_host(seg_programs, monkeypatch, program,
+                                       resident, layout):
+    """The segment sum's cooperative launch (the ranges' phases, the
+    tiles, the long ranges) at 300 lanes on a grid of at most
+    ``resident`` blocks, limb for limb (canonically) against the plain
+    version in the same order, and the plain version as points against
+    the reference's sums of each range's scalars."""
+    n = 300
+    exe, pieces = seg_programs[program]
+    (x, y, z), scal = _seg_points(n, 7)
+    starts, ends = _seg_layout(layout, n)
+    monkeypatch.setattr(k, "G1_SEGMENT_T", pieces)
+    want = k._g1_segment_sum_plain(x, y, z, starts, ends)
+    got = host_cuda.g1_segment_sum(exe, x.numpy(), y.numpy(), z.numpy(),
+                                   starts, ends, resident)
+    for g, w in zip(got, want):
+        assert torch.equal(_canon(g), bi.canonical(w))
+    _assert_range_sums(want, scal, starts, ends)
+
+
+def test_g1_segment_sum_plain_in_pieces_matches_the_reference(monkeypatch):
+    """The plain version's order with pieces of 2 or 4 lanes (ranges of
+    several pieces, one folded past T^2 = 16 lanes, an end mid-segment, a
+    lane at infinity) on 24 lanes: each range's sum the reference curve's
+    (lighthouse_tpu.crypto) multiple of G."""
+    n = 24
+    (x, y, z), scal = _seg_points(n, 11)
+    starts = np.zeros(n, np.int32)
+    starts[[0, 2, 20, 21]] = 1
+    ends = np.array([1, 19, 20, 23, 10, 0, 0], np.int32)
+    monkeypatch.setattr(k, "G1_SEGMENT_T", (2, 4))
+    assert k.g1_segment_t(n, len(ends)) == 4
+    sums = k._g1_segment_sum_plain(x, y, z, starts, ends)
+    _assert_range_sums(sums, scal, starts, ends)
+
+
+def test_segment_piece_lanes_match_the_source():
+    """ops/bls12_381.py G1_SEGMENT_T and g1_segment_t are aggregate.cu's
+    LH_SEG_T_SHORT / LH_SEG_T_LONG and seg_piece_lanes' rule."""
+    import re
+
+    from lighthouse_tpu_torch.kernels import CSRC
+    text = (CSRC / "bls" / "aggregate.cu").read_text()
+    got = tuple(int(re.search(rf"#define LH_SEG_T_{w} (\d+)", text).group(1))
+                for w in ("SHORT", "LONG"))
+    assert got == k.G1_SEGMENT_T
+    assert "return n <= (long long)LH_SEG_T_SHORT * g ? LH_SEG_T_SHORT" \
+        in text
+    short, long_ = got
+    assert k.g1_segment_t(10240, 128) == long_        # the batch
+    assert k.g1_segment_t(2560, 128) == short         # a rank at n = 4
+    assert k.g1_segment_t(10240, 10000) == short      # one-lane ranges
+    assert k.g1_segment_t(short * 7, 7) == short
+    assert k.g1_segment_t(short * 7 + 1, 7) == long_
+
+
+def test_g1_segment_sum_depth_and_count():
+    """bls_cost's count (L - 1 additions a range) and critical path (the
+    deepest range's tree levels, a long range's pieces, fold and partials
+    tree) on the layouts the smoke drives."""
+    from lighthouse_tpu_torch.ops import bls_cost as cost
+    n = 10240
+    starts = np.zeros(n, np.int32)
+    starts[:10000:79] = 1                  # ~127 segments of 79 lanes
+    starts[10000] = 1                       # the padding lanes
+    seg_ends = np.append(np.flatnonzero(starts)[1:128] - 1, 0)
+    assert cost.g1_segment_sum_depth(starts, seg_ends) == 7
+    # a rank's 2,560 lanes: ranges of ~20 lanes in pieces of 32
+    rank = np.zeros(2560, np.int32)
+    rank[:2500:20] = 1
+    rank[2500] = 1
+    rank_ends = np.append(np.flatnonzero(rank)[1:126] - 1, [2499, 0, 0])
+    assert cost.g1_segment_sum_depth(rank, rank_ends) == 5
+    one = np.zeros(n, np.int32)
+    one[[0, 10000]] = 1
+    ends = np.array([9999] + [0] * 127)
+    # 79 pieces of 128: 7 levels in a piece, 7 over the partials
+    assert cost.g1_segment_sum_depth(one, ends) == 14
+    assert cost.g1_segment_sum(one, ends) == 9999 * cost.ADD[1]
+    lanes = np.ones(n, np.int32)
+    assert cost.g1_segment_sum_depth(lanes, np.arange(10000)) == 0
+    assert cost.g1_segment_sum(lanes, np.arange(10000)) == 0
+    # past T^2 lanes: a fold of ceil(pieces / T) - 1 in series
+    big = np.zeros(20000, np.int32)
+    big[0] = 1
+    assert cost.g1_segment_sum_depth(big, [19999]) == 7 + 1 + 7
+
+
+@pytest.fixture(scope="module")
+def cap_program(tmp_path_factory):
+    if host_cuda.compiler() is None:
+        pytest.skip("needs g++ to build the kernels' sources on the host")
+    return host_cuda.build("cap_fold", tmp_path_factory.mktemp("host_cap"))
+
+
+@pytest.mark.parametrize("dense,limit", [(20, 20), (20, 21), (20, 40),
+                                         (0, 44), (19, 64)])
+def test_cap_fold_source_on_host(cap_program, dense, limit):
+    """The standalone cap fold (its caps from csrc/zero_hashes.cuh) at k =
+    0, 1, 20, 44 and 45 caps against the plain fold of the table's rows
+    and the JAX package's _fold_zero_caps."""
+    import jax.numpy as jnp
+
+    from lighthouse_tpu.ops.sha256 import _fold_zero_caps
+    from lighthouse_tpu_torch.ops import sha256 as sh
+    rng = np.random.default_rng(dense * 100 + limit)
+    root = rng.integers(0, 2**32, size=8, dtype=np.uint64).astype(np.uint32)
+    got = host_cuda.cap_fold(cap_program, root.view(np.int32), dense, limit)
+    want = sh.cap_root(torch.from_numpy(root.view(np.int32)), dense, limit)
+    assert np.array_equal(got, want.numpy())
+    jax_root = np.asarray(_fold_zero_caps(
+        jnp.asarray(root), jnp.asarray(sh.ZERO_HASH_WORDS[dense:limit])))
+    assert np.array_equal(got.view(np.uint32), jax_root)
 
 
 def _affine_inputs(n, g2, seed):

@@ -112,11 +112,12 @@ def test_path_update_with_duplicate_rows(cuda_device, depth, r):
     plain = [x.clone() for x in lv]
     rows_t = torch.from_numpy(rows.astype(np.int32)).to(cuda_device)
     before = kernels.PATH_UPDATE.launches
-    mt._path_walk(lv, rows_t)
+    root = mt._path_walk(lv, rows_t, depth)
     assert kernels.PATH_UPDATE.launches == before + 1
     mt._path_walk_plain(plain, rows_t)
     for a, b in zip(lv, plain):
         assert torch.equal(a, b)
+    assert torch.equal(root, plain[-1][0])
 
 
 @pytest.mark.parametrize("k", [0, 1, 40])
@@ -126,6 +127,44 @@ def test_cap_root_depths(cuda_device, k):
     want = sh.cap_root(root, 10, 10 + k)
     assert torch.equal(sh.cap_root(root.to(cuda_device), 10, 10 + k).cpu(),
                        want)
+
+
+@pytest.mark.parametrize("dense,limit", [(20, 20), (20, 21), (20, 40),
+                                         (0, 44), (0, 64)])
+def test_cap_fold_kernel_depths(cuda_device, dense, limit):
+    """One cap_fold launch (the caps from its constant table) against the
+    plain fold, at 1, 20, 44 and 64 caps; at none cap_root copies the
+    root without a launch."""
+    rng = np.random.default_rng(dense + limit)
+    root = sh.words_to_tensor(_words(rng, 8), "cpu")
+    before = kernels.CAP_FOLD.launches
+    got = sh.cap_root(root.to(cuda_device), dense, limit)
+    assert kernels.CAP_FOLD.launches == before + (dense < limit)
+    assert torch.equal(got.cpu(), sh.cap_root(root, dense, limit))
+
+
+@pytest.mark.parametrize("depth,r,limit", [(6, 1, 6), (10, 600, 40),
+                                           (20, 1024, 40)])
+def test_path_walk_folds_the_caps(cuda_device, depth, r, limit):
+    """The walk with the root's caps in the same launch: the levels as the
+    plain walk's, the root as the plain cap fold of its top node, and no
+    cap_fold launch."""
+    rng = np.random.default_rng(depth + r)
+    lv = [sh.words_to_tensor(_words(rng, 1 << depth, 8), cuda_device)]
+    for _ in range(depth):
+        lv.append(sh.hash64(lv[-1].reshape(-1, 16)))
+    rows = np.unique(rng.integers(0, 1 << depth, size=r))
+    lv[0][torch.from_numpy(rows).to(cuda_device)] = sh.words_to_tensor(
+        _words(rng, len(rows), 8), cuda_device)
+    plain = [x.cpu() for x in lv]
+    rows_t = torch.from_numpy(rows.astype(np.int32))
+    caps = kernels.CAP_FOLD.launches
+    root = mt._path_walk(lv, rows_t.to(cuda_device), limit)
+    assert kernels.CAP_FOLD.launches == caps
+    want = mt._path_walk(plain, rows_t, limit)
+    for a, b in zip(lv, plain):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(root.cpu(), want)
 
 
 @pytest.mark.parametrize("n,limit,pre_levels,with_pk",
@@ -342,6 +381,42 @@ def test_aggregate_kernels(cuda_device, n):
     got = k.g2_sum(*dev2)
     assert g2_projective_err(got, want) == 0
     assert all(torch.equal(a, b) for a, b in zip(got, k.g2_sum(*dev2)))
+
+
+@pytest.mark.parametrize("layout", ["batch", "one segment", "one-lane"])
+def test_g1_segment_sum_layouts(cuda_device, layout):
+    """The segment sum at 10,240 lanes on the smoke's three layouts (the
+    10k batch's 127 segments of ~79 and a padding group at lane 0, one
+    10,000-lane segment, 10,000 one-lane segments), ends as host arrays
+    and as tensors on the card: canonically equal to the plain version
+    (the same order), one launch a call, the same limbs twice."""
+    _, k = _bls()
+    n = 10240
+    x, y, z = _points(64, 64, False)
+    x, y, z = (t[torch.arange(n) % 64].contiguous() for t in (x, y, z))
+    starts = np.zeros(n, np.int32)
+    starts[10000] = 1
+    if layout == "batch":
+        starts[:10000:79] = 1
+        ends = np.append(np.flatnonzero(starts)[1:128] - 1, 0)
+    elif layout == "one segment":
+        starts[0] = 1
+        ends = np.array([9999] + [0] * 127)
+    else:
+        starts[:10000] = 1
+        ends = np.arange(10000)
+    ends = ends.astype(np.int32)
+    want = k._g1_segment_sum_plain(x, y, z, starts, ends)
+    dev = [t.to(cuda_device) for t in (x, y, z)]
+    before = kernels.G1_SEGMENT_SUM.launches
+    got = k.g1_segment_sum(*dev, starts, ends)
+    assert kernels.G1_SEGMENT_SUM.launches == before + 1
+    assert _canon_equal(got, want)
+    again = k.g1_segment_sum(*dev, torch.from_numpy(starts).to(cuda_device),
+                             torch.from_numpy(ends).to(cuda_device))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="out of range"):
+        k.g1_segment_sum(*dev, starts, np.array([n], np.int32))
 
 
 class _mode:

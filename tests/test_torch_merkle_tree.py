@@ -190,7 +190,9 @@ def test_walk_plain_hashes_each_dirty_parent():
         levels.append(sh.hash64(levels[-1].reshape(-1, 16)))
     rows = np.array([200, 3, 3, 255, 0, 128, 200])
     levels[0][rows] = sh.words_to_tensor(_words(rng, len(rows)), "cpu")
-    mt._path_walk(levels, torch.from_numpy(rows.astype(np.int32)))
+    root = mt._path_walk(levels, torch.from_numpy(rows.astype(np.int32)),
+                         depth)
+    assert torch.equal(root, levels[-1][0])
     want = [levels[0]]
     for _ in range(depth):
         want.append(sh.hash64(want[-1].reshape(-1, 16)))
@@ -205,7 +207,8 @@ def test_walk_refuses_a_tree_past_the_kernels_depth():
     levels = [torch.zeros((1, 8), dtype=torch.int32)] * (
         mt.PATH_MAX_DEPTH + 2)
     with pytest.raises(ValueError, match="depth"):
-        mt._path_walk(levels, torch.zeros(1, dtype=torch.int32))
+        mt._path_walk(levels, torch.zeros(1, dtype=torch.int32),
+                      mt.PATH_MAX_DEPTH + 1)
 
 
 def test_update_rejects_rows_out_of_range():

@@ -96,6 +96,45 @@ def test_cap_fold_matches_jax():
     np.testing.assert_array_equal(tk.ZERO_HASH_WORDS, jk.ZERO_HASH_WORDS)
 
 
+def test_zero_hash_table_is_rendered_from_the_words():
+    """csrc/zero_hashes.cuh is render_zero_hashes()'s output, and its
+    constant table, read back from the file, is _zero_hash_words() (the
+    zero-subtree roots of utils/hash.py) row for row, and the JAX
+    package's table."""
+    import re
+
+    from lighthouse_tpu_torch.kernels import CSRC
+    text = (CSRC / "zero_hashes.cuh").read_text()
+    assert text == tk.render_zero_hashes()
+    body = text[text.index("LHSHA_ZERO_HASHES["):text.index("};")]
+    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]{8})u", body)]
+    table = np.array(words, dtype=np.uint32).reshape(-1, 8)
+    np.testing.assert_array_equal(table, tk._zero_hash_words())
+    np.testing.assert_array_equal(table, jk.ZERO_HASH_WORDS)
+
+
+@pytest.mark.parametrize("dense,limit", [(0, 0), (20, 21), (20, 40),
+                                         (0, 44)])
+def test_cap_root_copies_no_caps(monkeypatch, dense, limit):
+    """cap_root folds from the table in place: no
+    words_to_tensor of the caps (the per-root copy the card's path made),
+    and the JAX package's fold of the same caps."""
+    rng = np.random.default_rng(dense + limit)
+    root = rng.integers(0, 2**32, size=8, dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(jk._fold_zero_caps(root,
+                                         jk.ZERO_HASH_WORDS[dense:limit]))
+    t = tk.words_to_tensor(root)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a cap copied with words_to_tensor")
+
+    monkeypatch.setattr(tk, "words_to_tensor", refuse)
+    np.testing.assert_array_equal(
+        tk.tensor_to_words(tk.cap_root(t, dense, limit)), want)
+    with pytest.raises(ValueError):
+        tk.cap_root(t, limit + 1, limit)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     blocks = torch.zeros((4, 16), dtype=torch.int64)
     with pytest.raises(TypeError):
