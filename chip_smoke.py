@@ -32,8 +32,11 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    127 messages (``bls_batch``), signed by the C++ host backend, pubkeys
    warmed into the cache. Each BLS kernel against its plain version on the
    batch's own lane inputs (10,240 lanes, 128 message lanes), canonical
-   field values equal (max_abs_err 0); bound from the field multiplies of
-   the kernel's own algorithm on those inputs (``ops/bls_cost.py``); for
+   field values equal (max_abs_err 0); ``fp_ops`` first as the main path
+   launches it, the Montgomery entry of the lane inputs packed in one
+   array (4 x 10,240 elements), then mul, add and sub; bound from the
+   field multiplies of the kernel's own algorithm on those inputs
+   (``ops/bls_cost.py``); for
    the latency-bound kernels (``final_exp``, ``hash_to_g2``,
    ``miller_loop``, ``g2_sum``, ``g1_segment_sum``) also their critical
    path in dependent field multiplies and the card's time per level of
@@ -61,8 +64,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    ``crypto.bls.verify_signature_sets`` on its default backend
    (``gpu``): True on the batch and equal to the C++ backend; five
    negative batches False on both; a 100-set batch True; every BLS kernel
-   launched on that path (``affine`` twice); the first call and the
-   median of three warm calls, sets/s, host prep.
+   launched on that path (``affine`` twice, ``fp_ops`` once); the first
+   call and the median of three warm calls, sets/s, host prep.
 5. The sharded paths on every card (``n = torch.cuda.device_count()``, one
    rank a card, NCCL; ``lighthouse_tpu_torch/entry.py``): the dryrun's
    four checks (a sharded state-root step, a sharded pairing check, the
@@ -93,8 +96,9 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    ``verify_signature_sets`` (True; the five negatives False, as on the
    C++ backend; every variant launched); ``sha256_messages`` against
    hashlib and its plain version (2^20 messages of 200 bytes),
-   ``fp12_pow_const`` (1,024 lanes, exponent |x|) and
-   ``reduce_wide_mod_p`` (10,240 rows) under each mode.
+   ``fp12_pow_const`` (1,024 lanes, exponent |x|; five lanes at
+   exponents 0, 1 and of 100 bits) and ``reduce_wide_mod_p`` (10,240
+   rows, one launch) under each mode.
 
 The two expected roots are the JAX package's, pinned by
 tests/test_torch_state_root.py. Importing this module touches no CUDA.
@@ -680,16 +684,17 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
     def put(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
-    sx_int, r2 = put(prep["sig_x"]), put(np.broadcast_to(
-        bi.R2_LIMBS, (lanes, 2, bi.NLIMBS)))
-    sig_x = run("fp_ops", lambda a, b: bi.fp_ops_kernel(bi.FP_MUL, a, b),
-                bi._mont_mul_plain, (sx_int, r2), 2 * lanes)
-    for mode, op, plain in (("add", bi.FP_ADD, bi._add_mod_plain),
+    # the lane inputs' Montgomery entry, one launch on their packed array
+    # (4 x lanes elements), as the main path runs it; then mul, add, sub
+    entry = run("fp_ops", lambda a: bi.fp_ops_kernel(bi.FP_TO_MONT, a),
+                bi._mont_from_int_plain, (put(prep["lane_ints"]),),
+                4 * lanes)
+    sig_x, pk_x, pk_y = gb.split_lane_ints(entry, lanes)
+    for mode, op, plain in (("mul", bi.FP_MUL, bi._mont_mul_plain),
+                            ("add", bi.FP_ADD, bi._add_mod_plain),
                             ("sub", bi.FP_SUB, bi._sub_mod_plain)):
         run("fp_ops", lambda a, b, op=op: bi.fp_ops_kernel(op, a, b), plain,
-            (sig_x, sig_x), 0, mode=mode)
-    pk_x = bi.mont_from_int_limbs(put(prep["pk_x"]))
-    pk_y = bi.mont_from_int_limbs(put(prep["pk_y"]))
+            (sig_x, sig_x), 2 * lanes if op == bi.FP_MUL else 0, mode=mode)
     flags = put(prep["flags"].astype(np.int32))
 
     sig_y, _ = run("g2_intake", k.g2_decompress_batch,
@@ -900,6 +905,9 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
         check(count > 0, f"kernel {name} was not launched on the BLS path")
     check(launches["affine"] == 2, f"affine launched {launches['affine']} "
                                    f"times, not 2 (the P side, the Q side)")
+    check(launches["fp_ops"] == 1, f"fp_ops launched {launches['fp_ops']} "
+                                   f"times, not once (the lane inputs' "
+                                   f"Montgomery entry)")
 
     warm = []
     for _ in range(3):
@@ -1104,6 +1112,9 @@ def mxu_batch(setup: dict, negative_cpp: dict, mxu: int, card: str) -> dict:
         check(count > 0, f"kernel {name} was not launched on the mode-{mxu} "
                          f"BLS path")
     check(not mode0, f"mode-0 kernels launched under mode {mxu}: {mode0}")
+    check(launches[f"fp_ops_mxu{mxu}"] == 1,
+          f"fp_ops_mxu{mxu} launched {launches[f'fp_ops_mxu{mxu}']} times, "
+          f"not once (the lane inputs' Montgomery entry)")
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1137,11 +1148,14 @@ def mxu_batch(setup: dict, negative_cpp: dict, mxu: int, card: str) -> dict:
 def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
     """``sha256_messages`` (against hashlib at the JAX test's lengths;
     driven and timed at 2^20 messages of 200 bytes, 4 blocks) and
-    ``fp12_pow_const`` (1,024 lanes, exponent |x|, under each multiply
-    lowering), each against its plain version on the same inputs; and
-    ``reduce_wide_mod_p`` (three fp_ops launches) on 10,240 rows under
-    each lowering. Counts are set to 0 before each entry point is driven
-    and read after it; the checks and timings come after."""
+    ``fp12_pow_const`` (1,024 lanes, exponent |x|, and 5 lanes at
+    exponents 0, 1 and of 100 bits, under each multiply lowering), each
+    against its plain version on the same inputs; and
+    ``reduce_wide_mod_p`` (one fp_ops launch) on 10,240 rows under each
+    lowering. Counts are set to 0 before each entry point is driven and
+    read after it; the checks and timings come after. (A short kernel's
+    device time alone is ``compare_kernels``': late in a long process the
+    profiler here lost most of its events.)"""
     import hashlib
 
     import torch
@@ -1210,12 +1224,10 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
     wide = torch.from_numpy(np.concatenate(
         [bi.ints_to_limbs([v & mask for v in wide_vals]),
          bi.ints_to_limbs([v >> 384 for v in wide_vals])], axis=1)).to(dev)
-    r2, r3 = bi.const(bi.R2_LIMBS, wide), bi.const(bi.R3_LIMBS, wide)
-
-    def wide_plain(w):
-        lo, hi = w[:, :bi.NLIMBS], w[:, bi.NLIMBS:]
-        return bi._add_mod_plain(bi._mont_mul_plain(lo, r2),
-                                 bi._mont_mul_plain(hi, r3))
+    # the edges of the exponent on a few lanes: 0 (f itself), 1, 100 bits
+    edges = (0, 1, (1 << 99) | 0x5A5A5A5A5A5)
+    few = f[:5].contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     prev = bi.mxu_mode()
     try:
@@ -1229,16 +1241,31 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
             want, plain_ms = timed(lambda: k._fp12_pow_const_plain(f, e))
             err = field_err(got, want)
             check(err == 0, f"{kern.name} != plain (max_abs_err {err})")
+            for edge in edges:
+                got_e = k.fp12_pow_const(few, edge)
+                err_e = field_err(got_e, k._fp12_pow_const_plain(few, edge))
+                check(err_e == 0 and (edge or torch.equal(got_e, few)),
+                      f"{kern.name} at a {edge.bit_length()}-bit exponent "
+                      f"!= plain (max_abs_err {err_e})")
             ms = time_cuda(lambda: k.fp12_pow_const(f, e), 3)
             muls = cost.fp12_pow(lanes, e)
             bound = bounds(2 * f.numel() * 4, muls * cost.FP_MUL_INT_OPS)
             alg_ms = bounds(2 * f.numel() * 4,
                             muls * cost.fp_mul_pipe_ops(mxu)["issue"])[0]
+            picked = cost.fp12_pow_lanes(lanes, sms)
+            steps = cost.fp12_pow_depth(e)
             report[f"{kern.name}_algorithm_bound_ms"] = alg_ms
+            report[f"{kern.name}_design"] = {
+                "lanes_a_block": picked, "steps": steps,
+                "us_per_step": ms * 1e3 / steps}
             print(f"kernel {kern.name}: ok canonical-exact, {lanes} lanes, "
-                  f"exponent |x|, {ms:.4f} ms (plain {plain_ms:.1f} ms, "
-                  f"bound {bound[0]:.4f} ms by {bound[1]}; the lowering's "
-                  f"own issue count: {alg_ms:.4f} ms) [{card}]", flush=True)
+                  f"exponent |x| (and 5 lanes at exponents of 0, 1 and 100 "
+                  f"bits), {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}; the lowering's own "
+                  f"issue count: {alg_ms:.4f} ms); {picked} lanes a block, "
+                  f"critical path {steps} dependent steps, "
+                  f"{ms * 1e3 / steps:.2f} us a step [{card}]",
+                  flush=True)
             row(kern.name, "bls/fp12_pow.cu",
                 "lighthouse_tpu/ops/bls12_381.py:337", launches, err, ms,
                 plain_ms, bound)
@@ -1247,14 +1274,15 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
             got = bi.reduce_wide_mod_p(wide)
             torch.cuda.synchronize()
             fp_launches = kernels.FP_OPS.variant(mxu).launches
-            want, plain_ms = timed(lambda: wide_plain(wide))
+            want, plain_ms = timed(lambda: bi._reduce_wide_plain(wide))
             err = field_err(got, want)
-            check(err == 0 and fp_launches == 3,
+            check(err == 0 and fp_launches == 1,
                   f"reduce_wide_mod_p under mode {mxu}: max_abs_err {err}, "
-                  f"{fp_launches} fp_ops launches")
+                  f"{fp_launches} fp_ops launches, not one")
             ms = time_cuda(lambda: bi.reduce_wide_mod_p(wide), 10)
-            # its three launches: each reads two operands, writes one
-            n_bytes, muls = 3 * 3 * got.numel() * 4, 2 * len(wide_vals)
+            # the function's least work: one read of the [n, 64] rows, one
+            # write of [n, 32], two products a row
+            muls, n_bytes = cost.fp_ops(bi.FP_WIDE, len(wide_vals))
             bound = bounds(n_bytes, muls * cost.FP_MUL_INT_OPS)
             alg_ms = bounds(n_bytes,
                             muls * cost.fp_mul_pipe_ops(mxu)["issue"])[0]
@@ -1264,10 +1292,11 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "algorithm_bound_ms": alg_ms}
             print(f"reduce_wide_mod_p mode {mxu}: ok canonical-exact, "
-                  f"{len(wide_vals)} rows, {fp_launches} fp_ops launches, "
-                  f"{ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
-                  f"{bound[0]:.4f} ms by {bound[1]}; the lowering's own "
-                  f"issue count: {alg_ms:.4f} ms) [{card}]", flush=True)
+                  f"{len(wide_vals)} rows, {fp_launches} fp_ops launch, "
+                  f"{ms:.4f} ms a call with the wrapper (plain "
+                  f"{plain_ms:.1f} ms, bound {bound[0]:.4f} ms by "
+                  f"{bound[1]}; the lowering's own issue count: "
+                  f"{alg_ms:.4f} ms) [{card}]", flush=True)
     finally:
         bi.set_mxu_mode(prev)
     return rows, report

@@ -4,9 +4,12 @@ one process.
     git archive <commit> lighthouse_tpu_torch/csrc | tar -x -C BASE
     python -m lighthouse_tpu_torch.compare_kernels --base BASE \\
         [--kernels g1_segment_sum,cap_fold,path_update,affine,rlc_scale,\\
-                   g2_intake,g2_sum,miller_loop] --out compare_kernels.json
+                   g2_intake,g2_sum,miller_loop,fp12_pow,fp_ops] \\
+        --out compare_kernels.json
 
-Builds both trees' sources of the chosen kernels (default: all eight; the
+The base is a commit whose C entries take this tree's arguments (the
+parent, c6abbce, or later; ``_BASE_ARGTYPES`` keys any that differ).
+Builds both trees' sources of the chosen kernels (default: all ten; the
 BLS ones in each multiply lowering, modes 0, 1, 2) with the flags of
 ``kernels.py``, and prints this tree's ``-Xptxas -v`` report of each
 (registers, stack, spills). On seeded inputs (``default_rng(5)``: 64 G2
@@ -24,19 +27,15 @@ outputs equal:
   one-lane segments; in modes 0-2, then this tree's ``aggregate.cu`` with
   ``LH_SEG_T_SHORT`` and ``LH_SEG_T_LONG`` both set to 32, 64, 128 (mode
   0: the piece forced at every layout). Sums as points
-  (``measure.g1_projective_err``: the base walks each segment in lane
-  order, this tree adds in trees);
-- ``cap_fold`` (``lh_cap_fold``) at k = 0, 1, 20, 44 caps: the base
-  tree's entry on the caps' words on the card against this tree's on its
-  built-in table; then this tree's with the table in the constant bank
-  (``LHSHA_ZERO_SPACE`` set to ``__constant__``);
+  (``measure.g1_projective_err``);
+- ``cap_fold`` (``lh_cap_fold``) at k = 0, 1, 20, 44 caps; then this
+  tree's with its table in the constant bank (``LHSHA_ZERO_SPACE`` set
+  to ``__constant__``);
 - ``path_update``: the dirty-path walk of an update up a depth-20 tree,
   R = 1,024 and 65,536 rows (drawn with repeats, walked sorted and
-  distinct): the base tree's walk (``lh_path_walk`` without caps) against
-  this tree's with none (its limit the tree's depth), and the base
-  tree's walk then its cap fold of the registry's 20 caps (two launches)
-  against this tree's one launch with the caps; then this tree's source
-  with ``LH_PATH_THREADS`` set to 64-512;
+  distinct), without caps (the limit the tree's depth) and with the
+  registry's 20 caps; then this tree's source with ``LH_PATH_THREADS``
+  set to 64-512;
 - ``affine`` (``lh_affine``): 128 Fp lanes (the group sums), 129 Fp2 (the
   Q side: messages and aggregate) and 1 Fp2; then this tree's
   ``aggregate.cu`` with ``LH_AFFINE_THREADS`` set to 32, 64, 128 against
@@ -59,7 +58,19 @@ outputs equal:
   past 128 messages: 10,241 pairs of which L are live (the first L - 1
   and the last), a thread a pair on all against a block a pair on the L
   live pairs gathered, their outputs scattered back among identities, as
-  ``miller_loop_batch`` does.
+  ``miller_loop_batch`` does;
+- ``fp12_pow`` (``lh_fp12_pow``; the base takes the exponent's bits from
+  the top one after it, this tree from the bottom one) on random Fp12
+  values at 128-10,240 lanes, e = |x|, in modes 0-2, and at
+  1,024 lanes at e = 0, 1 and a 100-bit e; then this tree against each
+  build of ``LH_POW_LANES`` (1, 2, 4) and ``LH_POW_TPL`` (32, 64 threads
+  a lane) at 128-10,240 lanes;
+- ``fp_ops`` (``lh_fp_ops``), each call also by its device time alone
+  (``torch.profiler``): the multiply on 40,960 elements (the batch's
+  packed lane inputs); the Montgomery entry, the base's multiply by a
+  tensor of R^2 against this tree's op 3; the wide reduction of 10,240
+  rows, the base's three launches against this tree's op 4; in modes
+  0-2.
 
 Field values are held canonically, flags and tree levels exactly. Prints
 a line a measurement, with the card's name and power limit, and writes
@@ -81,7 +92,7 @@ import numpy as np
 
 from . import kernels
 from .measure import (
-    field_err, g1_projective_err, g2_projective_err, nvidia_smi,
+    device_us, field_err, g1_projective_err, g2_projective_err, nvidia_smi,
 )
 
 _MILLER_PAIRS = 10241
@@ -103,6 +114,14 @@ _SEG_T = (32, 64, 128)
 #: the caps folded, and the walk's limit depth (the registry's 2^40)
 _CAPS = (0, 1, 20, 44)
 _WALK_LIMIT = 40
+#: fp12_pow: the lanes timed, and the lanes a block and threads a lane
+#: swept (``LH_POW_LANES``, ``LH_POW_TPL``)
+_POW_N = (128, 264, 512, 1024, 2048, 4096, 6144, 10240)
+_POW_LANES = (1, 2, 4)
+_POW_TPL = (32, 64)
+#: fp_ops: the batch's packed lane inputs (4 x 10,240) and the wide rows
+_FP_N = 40960
+_WIDE_N = 10240
 #: the affine lanes: (field, lanes), and the block sizes swept
 _AFFINE_LANES = ((1, 128), (2, 129), (2, 1))
 _AFFINE_THREADS = (32, 64, 128)
@@ -115,15 +134,13 @@ _ARGTYPES = {"lh_g1_segment_sum": kernels.G1_SEGMENT_SUM.argtypes,
              "lh_rlc_scale": kernels.RLC_SCALE.argtypes,
              "lh_g2_intake": kernels.G2_INTAKE.argtypes,
              "lh_affine": kernels.AFFINE.argtypes,
-             "lh_path_walk": kernels.PATH_UPDATE.argtypes}
-#: the base tree (the commit before the segment sum's trees and the
-#: caps in the walk, 1deed2d) where its entries differ: the segment walk
-#: without scratch, the cap fold of the caps' words, the walk without caps
-_BASE_ARGTYPES = {**_ARGTYPES,
-                  "lh_g1_segment_sum": [_P, _P, _P, _P, _I64, _P, _I64, _P,
-                                        _P, _P, _P],
-                  "lh_cap_fold": [_P, _P, _I32, _P, _P],
-                  "lh_path_walk": [_P, _I32, _P, _I64, _P]}
+             "lh_path_walk": kernels.PATH_UPDATE.argtypes,
+             "lh_fp12_pow": kernels.FP12_POW.argtypes,
+             "lh_fp_ops": kernels.FP_OPS.argtypes}
+#: the base tree (the parent commit, c6abbce) where its entries differ:
+#: none (fp12_pow and fp_ops keep their signatures; fp12_pow's bits come
+#: from the top bit there, ``pow_pairs``)
+_BASE_ARGTYPES = dict(_ARGTYPES)
 #: kernel -> (source under csrc/, this tree's entry, a base tree's entry)
 _SOURCES = {"g1_segment_sum": ("bls/aggregate.cu", "lh_g1_segment_sum",
                                "lh_g1_segment_sum"),
@@ -135,7 +152,9 @@ _SOURCES = {"g1_segment_sum": ("bls/aggregate.cu", "lh_g1_segment_sum",
             "g2_intake": ("bls/g2_intake.cu", "lh_g2_intake", "lh_g2_intake"),
             "g2_sum": ("bls/aggregate.cu", "lh_g2_sum", "lh_g2_sum"),
             "miller_loop": ("bls/pairing.cu", "lh_miller_loop",
-                            "lh_miller_loop")}
+                            "lh_miller_loop"),
+            "fp12_pow": ("bls/fp12_pow.cu", "lh_fp12_pow", "lh_fp12_pow"),
+            "fp_ops": ("bls/fp_ops.cu", "lh_fp_ops", "lh_fp_ops")}
 
 
 def _build(jobs: dict, out_dir: Path) -> tuple[dict, dict]:
@@ -235,6 +254,127 @@ def _inputs(n_max: int):
                                    "dx": dx, "flags": flags, "pk": pk}
 
 
+def pow_pairs(fns, pair) -> None:
+    """fp12_pow: the base (a thread a lane, the exponent's bits from the
+    top one after it) against this tree (the cooperative walk from the
+    bottom bit) on random Fp12 values, e = |x|, at ``_POW_N`` lanes in
+    modes 0-2, and at 1,024 lanes at e = 0, 1 and a 100-bit e; then this
+    tree against every lanes-a-block and threads-a-lane build."""
+    import torch
+
+    from .ops import bls12_381 as k
+    from .ops import bls_cost as cost
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(5)
+    n_max = max(_POW_N)
+    vals = [int.from_bytes(rng.bytes(48), "little") % k.P_INT
+            for _ in range(12 * n_max)]
+    f = torch.from_numpy(k.fp_encode(vals).reshape(n_max, 2, 3, 2,
+                                                   32)).cuda()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bits(e, base):
+        """(bits tensor, count): the base tree's from the top bit after
+        the leading one, this tree's from the bottom bit."""
+        b = ([int(c) for c in bin(e)[3:]] if base else
+             [(e >> i) & 1 for i in range(e.bit_length())])
+        return torch.tensor(b or [0], dtype=torch.int32,
+                            device="cuda"), len(b)
+
+    def run(fn, n, e, base):
+        bt, nb = bits(e, base)
+        x = f[:n]
+        out = torch.empty_like(x)
+
+        def call():
+            assert fn(x.data_ptr(), bt.data_ptr(), nb, out.data_ptr(), n,
+                      stream) == 0
+            return out
+        return call
+
+    def design(n):
+        return f"{cost.fp12_pow_lanes(n, sms)} lanes a block"
+
+    for m in (0, 1, 2):
+        for n in _POW_N:
+            pair(f"mode {m} fp12_pow, {n} lanes, e = |x|: base against this "
+                 f"({design(n)})",
+                 run(fns[f"base_fp12_pow{m}"], n, k._X_ABS, True),
+                 run(fns[f"this_fp12_pow{m}"], n, k._X_ABS, False),
+                 field_err)
+    for e in (0, 1, (1 << 99) | 0x5A5A5A5A5A5):
+        pair(f"mode 0 fp12_pow, 1024 lanes, a {e.bit_length()}-bit e: base "
+             f"against this",
+             run(fns["base_fp12_pow0"], 1024, e, True),
+             run(fns["this_fp12_pow0"], 1024, e, False), field_err)
+    for n in _POW_N:
+        for lanes in _POW_LANES:
+            for tpl in _POW_TPL:
+                pair(f"mode 0 fp12_pow, {n} lanes, e = |x|: this "
+                     f"({design(n)}) against {lanes} lanes a block, "
+                     f"{tpl} threads a lane",
+                     run(fns["this_fp12_pow0"], n, k._X_ABS, False),
+                     run(fns[f"pow_L{lanes}_T{tpl}"], n, k._X_ABS, False),
+                     field_err)
+
+
+def fp_ops_pairs(fns, pair, stream) -> None:
+    """fp_ops on the batch's shapes, with each call's device time alone:
+    the multiply (op 0) on 40,960 elements; the Montgomery entry, the
+    base's multiply by a tensor of R^2 against this tree's op 3; the wide
+    reduction of 10,240 rows, the base's three launches (lo R^2, hi R^3,
+    their sum; lo and hi sliced beforehand) against this tree's one; in
+    modes 0-2."""
+    import torch
+
+    from .ops import bigint as bi
+
+    rng = np.random.default_rng(5)
+
+    def limbs(n):
+        return torch.from_numpy(bi.ints_to_limbs(
+            [int.from_bytes(rng.bytes(48), "little") % bi.P_INT
+             for _ in range(n)])).cuda()
+
+    x, y = limbs(_FP_N), limbs(_FP_N)
+    wide = torch.cat([limbs(_WIDE_N), limbs(_WIDE_N)], dim=1)
+    lo, hi = wide[:, :32].contiguous(), wide[:, 32:].contiguous()
+    r2 = bi.const(bi.R2_LIMBS, x).expand_as(x).contiguous()
+    r2w = r2[:_WIDE_N]
+    r3w = bi.const(bi.R3_LIMBS, x).expand_as(lo).contiguous()
+
+    def op(fn, code, a, b=None):
+        out = torch.empty(a.shape[0], 32, dtype=torch.int32, device="cuda")
+
+        def call():
+            assert fn(code, a.data_ptr(), None if b is None else
+                      b.data_ptr(), out.data_ptr(), a.shape[0], stream) == 0
+            return out
+        return call
+
+    def three(fn):
+        u, v = op(fn, 0, lo, r2w), op(fn, 0, hi, r3w)
+        add = op(fn, 1, u(), v())       # on u's and v's output buffers
+
+        def call():
+            u()
+            v()
+            return add()
+        return call
+
+    for m in (0, 1, 2):
+        base, this = fns[f"base_fp_ops{m}"], fns[f"this_fp_ops{m}"]
+        pair(f"mode {m} fp_ops mul, {_FP_N} elements: base against this",
+             op(base, 0, x, y), op(this, 0, x, y), field_err, device=True)
+        pair(f"mode {m} fp_ops Montgomery entry, {_FP_N} elements: base "
+             f"(mul by an R^2 tensor) against this (op 3)",
+             op(base, 0, x, r2), op(this, 3, x), field_err, device=True)
+        pair(f"mode {m} fp_ops wide reduction, {_WIDE_N} rows: base (three "
+             f"launches) against this (op 4)",
+             three(base), op(this, 4, wide), field_err, device=True)
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -262,11 +402,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         jobs = {}
-        # the walk's comparison with caps takes the base tree's cap fold
-        built = chosen + (["cap_fold"] if "path_update" in chosen
-                          and "cap_fold" not in chosen else [])
         for tree, d in trees.items():
-            for name in built:
+            for name in chosen:
                 src, this_symbol, base_symbol = _SOURCES[name]
                 symbol = this_symbol if tree == "this" else base_symbol
                 state_root = name in ("path_update", "cap_fold")
@@ -290,6 +427,13 @@ def main(argv=None) -> int:
                 for w in ws:
                     jobs[f"w{w}_{name}"] = (
                         _width_source(tmp, src, macros, w), (), symbol)
+        if "fp12_pow" in chosen:        # lanes a block x threads a lane
+            pow_src = trees["this"] / "bls" / "fp12_pow.cu"
+            for lanes in _POW_LANES:
+                for tpl in _POW_TPL:
+                    jobs[f"pow_L{lanes}_T{tpl}"] = (
+                        pow_src, (f"-DLH_POW_LANES={lanes}",
+                                  f"-DLH_POW_TPL={tpl}"), "lh_fp12_pow")
         if "cap_fold" in chosen:        # the zero-hash table in the
             jobs["constant_cap_fold"] = (   # constant bank
                 _width_source(tmp, "zero_hashes.cuh", ("LHSHA_ZERO_SPACE",),
@@ -305,17 +449,15 @@ def main(argv=None) -> int:
         n_max = max(_MILLER_PAIRS, max(_SUM_SWEEP))
         sig, pairs, lane = _inputs(n_max)
 
-        def g2_sum(fn, n, partials):
-            """The base tree's entry allocates its partials (partials
-            False), this tree's takes them."""
+        def g2_sum(fn, n):
             x, y, z = (c[:n].contiguous() for c in sig)
             out = [torch.empty(2, 32, dtype=torch.int32, device="cuda")
                    for _ in range(3)]
             part = torch.empty(3 * 128 * 2 * 32, dtype=torch.int32,
                                device="cuda")
             assert fn(x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
-                      *((part.data_ptr(),) if partials else ()),
-                      *(o.data_ptr() for o in out), stream) == 0
+                      part.data_ptr(), *(o.data_ptr() for o in out),
+                      stream) == 0
             return tuple(out)
 
         def rlc(fn, field, n):
@@ -380,50 +522,37 @@ def main(argv=None) -> int:
                 lv[0][rows[r].long()] = -1 - r
             return lv, rows
 
-        from .ops import sha256 as sh
-        zeros = torch.from_numpy(sh.ZERO_HASH_WORDS.view(np.int32)).cuda()
-
-        def cap(fn, base, root, dense, limit):
-            """One cap fold: the base tree's entry on the caps' words on
-            the card, this tree's on its constant table."""
+        def cap(fn, root, dense, limit):
+            """One cap fold on the entry's built-in table."""
             out = torch.empty(8, dtype=torch.int32, device="cuda")
-            args = ((zeros[dense:].data_ptr(), limit - dense) if base
-                    else (dense, limit))
-            assert fn(root.data_ptr(), *args, out.data_ptr(), stream) == 0
+            assert fn(root.data_ptr(), dense, limit, out.data_ptr(),
+                      stream) == 0
             return out
 
-        def walk(fn, this, lv, rows, caps):
+        def walk(fn, lv, rows, caps):
             """``fn`` up all levels ``lv``, in place (a walk again on its
-            own output gives the same levels): the base tree's walk
-            (``caps``: then its cap fold, a second launch), or this tree's
-            (``this``: its root in the same launch, capped with ``caps``,
-            the top node itself without). The levels, and the capped root
-            with ``caps``."""
+            own output gives the same levels), its root in the same
+            launch, capped with ``caps`` (the top node itself without).
+            The levels, and the capped root with ``caps``."""
             r = int(rows.shape[0])
             ptrs = (ctypes.c_void_p * (_WALK_DEPTH + 1))(
                 *(t.data_ptr() for t in lv))
-            if this:
-                root = torch.empty(8, dtype=torch.int32, device="cuda")
-                assert fn(ptrs, _WALK_DEPTH, rows.data_ptr(), r,
-                          _WALK_LIMIT if caps else _WALK_DEPTH,
-                          root.data_ptr(), stream) == 0
-                return lv + [root] if caps else lv
-            assert fn(ptrs, _WALK_DEPTH, rows.data_ptr(), r, stream) == 0
-            if not caps:
-                return lv
-            return lv + [cap(fns["base_cap_fold0"], True, lv[-1][0],
-                             _WALK_DEPTH, _WALK_LIMIT)]
+            root = torch.empty(8, dtype=torch.int32, device="cuda")
+            assert fn(ptrs, _WALK_DEPTH, rows.data_ptr(), r,
+                      _WALK_LIMIT if caps else _WALK_DEPTH,
+                      root.data_ptr(), stream) == 0
+            return lv + [root] if caps else lv
 
         def level_err(a, b):
             return int(not all(torch.equal(x, y) for x, y in zip(a, b)))
 
         def walk_pair(label, levels, rows, first, second, caps):
-            """Two walks (each (entry, this tree's)), each on its own copy
-            of the stale levels."""
+            """Two walks (two entries), each on its own copy of the stale
+            levels."""
             a = [t.clone() for t in levels]
             b = [t.clone() for t in levels]
-            pair(label, lambda: walk(*first, a, rows, caps),
-                 lambda: walk(*second, b, rows, caps), level_err)
+            pair(label, lambda: walk(first, a, rows, caps),
+                 lambda: walk(second, b, rows, caps), level_err)
 
         def seg_layouts(n):
             """(label, starts, ends) of the three layouts at n lanes, m =
@@ -444,17 +573,15 @@ def main(argv=None) -> int:
                      np.arange(m))]
 
         def seg(fn, n, starts, ends, work):
-            """``fn`` on the first n scaled G1 points; ``work``: this
-            tree's scratch (None: the base tree's entry, which has
-            none)."""
+            """``fn`` on the first n scaled G1 points, ``work`` its
+            scratch."""
             x, y, z = (c[:n].contiguous() for c in lane["pk"])
             g = int(ends.shape[0])
             out = [torch.empty(g, 32, dtype=torch.int32, device="cuda")
                    for _ in range(3)]
-            extra = () if work is None else (work.data_ptr(),
-                                              work.numel())
             assert fn(x.data_ptr(), y.data_ptr(), z.data_ptr(),
-                      starts.data_ptr(), n, ends.data_ptr(), g, *extra,
+                      starts.data_ptr(), n, ends.data_ptr(), g,
+                      work.data_ptr(), work.numel(),
                       *(o.data_ptr() for o in out), stream) == 0
             return tuple(out)
 
@@ -484,9 +611,9 @@ def main(argv=None) -> int:
                 times.append(a.elapsed_time(b) / reps)
             return statistics.median(times)
 
-        def pair(label, first, second, err):
+        def pair(label, first, second, err, device=False):
             """first(), second(), second(), first(); outputs equal by
-            ``err``."""
+            ``err``; with ``device`` also each one's device time alone."""
             e = err(first(), second())
             if e != 0:
                 raise SystemExit(f"{label}: the two differ "
@@ -494,8 +621,14 @@ def main(argv=None) -> int:
             t = [ms(first), ms(second), ms(second), ms(first)]
             rec = {"label": label, "first_ms": [t[0], t[3]],
                    "second_ms": [t[1], t[2]], "card": card}
+            extra = ""
+            if device:
+                rec["first_device_us"] = device_us(first)
+                rec["second_device_us"] = device_us(second)
+                extra = (f"; device {rec['first_device_us']:.2f} against "
+                         f"{rec['second_device_us']:.2f} us a call")
             print(f"{label}: outputs equal; {t[0]:.4f} / {t[3]:.4f} ms "
-                  f"against {t[1]:.4f} / {t[2]:.4f} ms [{card}]",
+                  f"against {t[1]:.4f} / {t[2]:.4f} ms{extra} [{card}]",
                   flush=True)
             report.append(rec)
 
@@ -536,9 +669,9 @@ def main(argv=None) -> int:
                     label = f"g1_segment_sum, {n} lanes, {what}"
                     for m in (0, 1, 2):
                         pair(f"mode {m} {label}: base against this",
-                             lambda m=m, n=n, st=st, en=en: seg(
+                             lambda m=m, n=n, st=st, en=en, work=work: seg(
                                  fns[f"base_g1_segment_sum{m}"], n, st, en,
-                                 None),
+                                 work),
                              lambda m=m, n=n, st=st, en=en, work=work: seg(
                                  fns[f"this_g1_segment_sum{m}"], n, st, en,
                                  work), g1_projective_err)
@@ -558,36 +691,33 @@ def main(argv=None) -> int:
                 dense = 20 if kk < 44 else 0
                 pair(f"cap_fold, k = {kk}: base against this",
                      lambda dense=dense, kk=kk: cap(
-                         fns["base_cap_fold0"], True, root, dense,
-                         dense + kk),
+                         fns["base_cap_fold0"], root, dense, dense + kk),
                      lambda dense=dense, kk=kk: cap(
-                         fns["this_cap_fold0"], False, root, dense,
-                         dense + kk), level_err)
+                         fns["this_cap_fold0"], root, dense, dense + kk),
+                     level_err)
                 pair(f"cap_fold, k = {kk}: this against its table in the "
                      f"constant bank",
                      lambda dense=dense, kk=kk: cap(
-                         fns["this_cap_fold0"], False, root, dense,
-                         dense + kk),
+                         fns["this_cap_fold0"], root, dense, dense + kk),
                      lambda dense=dense, kk=kk: cap(
-                         fns["constant_cap_fold"], False, root, dense,
-                         dense + kk), level_err)
+                         fns["constant_cap_fold"], root, dense, dense + kk),
+                     level_err)
         if "path_update" in chosen:
             levels, walk_rows = walk_levels()
-            base_walk = (fns["base_path_update0"], False)
-            this_walk = (fns["this_path_update0"], True)
+            base_walk = fns["base_path_update0"]
+            this_walk = fns["this_path_update0"]
             for r, rows in walk_rows.items():
                 label = (f"path_update, depth {_WALK_DEPTH}, R = {r} "
                          f"({int(rows.shape[0])} distinct)")
                 walk_pair(f"{label}: base against this, no caps", levels,
                           rows, base_walk, this_walk, False)
-                walk_pair(f"{label}: base walk and cap_fold of "
-                          f"{_WALK_LIMIT - _WALK_DEPTH} caps against this "
-                          f"walk with them", levels, rows, base_walk,
-                          this_walk, True)
+                walk_pair(f"{label}: base against this, with "
+                          f"{_WALK_LIMIT - _WALK_DEPTH} caps", levels, rows,
+                          base_walk, this_walk, True)
                 for w in _WALK_THREADS:
                     walk_pair(f"{label}: this against {w} threads a block, "
                               f"caps", levels, rows, this_walk,
-                              (fns[f"w{w}_path_update"], True), True)
+                              fns[f"w{w}_path_update"], True)
             del levels, walk_rows
         if "affine" in chosen:
             for field, n in _AFFINE_LANES:
@@ -609,18 +739,18 @@ def main(argv=None) -> int:
         if "g2_sum" in chosen:
             for m in (0, 1, 2):
                 pair(f"mode {m} g2_sum, 10240 points: base against this",
-                     lambda m=m: g2_sum(fns[f"base_g2_sum{m}"], 10240,
-                                        False),
-                     lambda m=m: g2_sum(fns[f"this_g2_sum{m}"], 10240,
-                                        True),
+                     lambda m=m: g2_sum(fns[f"base_g2_sum{m}"], 10240),
+                     lambda m=m: g2_sum(fns[f"this_g2_sum{m}"], 10240),
                      g2_projective_err)
             for n in _SUM_SWEEP:
                 pair(f"mode 0 g2_sum, {n} points: base against this",
-                     lambda n=n: g2_sum(fns["base_g2_sum0"], n,
-                                        False),
-                     lambda n=n: g2_sum(fns["this_g2_sum0"], n,
-                                        True),
+                     lambda n=n: g2_sum(fns["base_g2_sum0"], n),
+                     lambda n=n: g2_sum(fns["this_g2_sum0"], n),
                      g2_projective_err)
+        if "fp12_pow" in chosen:
+            pow_pairs(fns, pair)
+        if "fp_ops" in chosen:
+            fp_ops_pairs(fns, pair, stream)
         if "miller_loop" in chosen:
             p129 = [c[:129] for c in pairs]
             for m in (0, 1, 2):

@@ -6,7 +6,8 @@ Pipeline for a batch of sets:
 
   host:   parse+range-check compressed bytes, aggregate cached pubkeys,
           expand_message_xmd (a few SHA-256 calls per message)
-  device: lane inputs into the Montgomery domain (fp_ops), batched G2
+  device: lane inputs into the Montgomery domain (one fp_ops launch on
+          their one packed array), batched G2
           signature decompression (sqrt + sign select) and psi subgroup
           checks (g2_intake), SSWU+isogeny+cofactor hash-to-G2
           (hash_to_g2), RLC 64-bit scalar muls (rlc_scale), per-message
@@ -99,6 +100,27 @@ class _PadCache:
         return np.broadcast_to(arr, (pad,) + arr.shape[1:])
 
 
+def split_lane_ints(packed, lanes: int):
+    """(sig_x [lanes, 2, 32], pk_x [r, 32], pk_y [r, 32]): views of packed
+    lane inputs ([2 lanes + 2 r, 32]: the signatures' x coefficients, then
+    r pubkeys' x, then their y; ``host_prepare``'s have r = lanes,
+    ``rank_lane_ints``' a rank's block; a numpy array or a tensor, before
+    or after the Montgomery entry)."""
+    r = (packed.shape[0] - 2 * lanes) // 2
+    sig_x = packed[:2 * lanes].reshape(lanes, 2, packed.shape[-1])
+    return sig_x, packed[2 * lanes:2 * lanes + r], packed[2 * lanes + r:]
+
+
+def rank_lane_ints(packed: np.ndarray, lanes: int, lo: int,
+                   hi: int) -> np.ndarray:
+    """``host_prepare``'s packed lane inputs cut to every signature's x
+    and the pubkeys of lanes lo:hi (a rank's block on the sharded path),
+    laid out as ``split_lane_ints`` reads them."""
+    sig_x, pk_x, pk_y = split_lane_ints(packed, lanes)
+    return np.concatenate([sig_x.reshape(2 * lanes, -1), pk_x[lo:hi],
+                           pk_y[lo:hi]])
+
+
 _PAD: _PadCache | None = None
 
 
@@ -145,9 +167,11 @@ def parse_sets(backend, sets):
 def host_prepare(pks, sig_xs, sig_flags, msgs, lanes: int, small: int):
     """Pad/group host prep: same-message grouping (segment layout for
     `g1_segment_sum`), RLC scalars, and the padded lane inputs. Signature
-    x and pubkey coordinates stay integer limbs (the device converts them
-    into the Montgomery domain); the hash-to-field outputs are Montgomery
-    limbs. Returns a dict of arrays + layout."""
+    x and pubkey coordinates stay integer limbs, in one array
+    (``lane_ints``, [4 lanes, 32]; ``split_lane_ints`` gives its parts),
+    which the device converts into the Montgomery domain; the
+    hash-to-field outputs are Montgomery limbs. Returns a dict of arrays
+    + layout."""
     from ...ops import bigint as bi
     from ...ops import bls12_381 as k
     from ..bls12_381.hash_to_curve import DST_POP
@@ -173,24 +197,24 @@ def host_prepare(pks, sig_xs, sig_flags, msgs, lanes: int, small: int):
     rands = [1] if m == 1 else [secrets.randbits(RAND_BITS) | 1
                                 for _ in range(m)]
 
+    # the lane inputs in one array (split_lane_ints), so that they go to
+    # the card in one copy and into the Montgomery domain in one launch
+    lane_ints = np.empty((4 * lanes, bi.NLIMBS), dtype=np.int32)
+    sig_x, pk_x, pk_y = split_lane_ints(lane_ints, lanes)
     sig_x_ints: list[int] = []
     for c0, c1 in sig_xs:
         sig_x_ints += [c0, c1]
-    sig_x_real = bi.ints_to_limbs(sig_x_ints).reshape(m, 2, bi.NLIMBS)
-    cat = np.concatenate
-    sig_x = cat([sig_x_real, pad_c.tile(pad_c.sig_x, pad)]) if pad \
-        else sig_x_real
+    sig_x[:m] = bi.ints_to_limbs(sig_x_ints).reshape(m, 2, bi.NLIMBS)
+    sig_x[m:] = pad_c.sig_x
     flags = np.asarray(list(sig_flags) + [pad_c.flag] * pad, dtype=bool)
     pkx_l, pky_l = [], []
     for p in (pks[i] for i in order):
         x, y = p.to_affine()
         pkx_l.append(int(x))
         pky_l.append(int(y))
-    pk_x_real, pk_y_real = bi.ints_to_limbs(pkx_l), bi.ints_to_limbs(pky_l)
-    pk_x = cat([pk_x_real, pad_c.tile(pad_c.pk_x, pad)]) if pad \
-        else pk_x_real
-    pk_y = cat([pk_y_real, pad_c.tile(pad_c.pk_y, pad)]) if pad \
-        else pk_y_real
+    pk_x[:m], pk_y[:m] = bi.ints_to_limbs(pkx_l), bi.ints_to_limbs(pky_l)
+    pk_x[m:], pk_y[m:] = pad_c.pk_x, pad_c.pk_y
+    cat = np.concatenate
     umsgs = [None] * n_groups
     for msg, g in groups.items():
         umsgs[g] = msg
@@ -202,7 +226,7 @@ def host_prepare(pks, sig_xs, sig_flags, msgs, lanes: int, small: int):
     mask[:n_groups] = True
     mask[-1] = True                   # the aggregate/-G1 lane is real
     return {
-        "sig_x": sig_x, "flags": flags, "pk_x": pk_x, "pk_y": pk_y,
+        "lane_ints": lane_ints, "flags": flags,
         "u0": u0, "u1": u1, "starts": starts, "ends": ends, "mask": mask,
         "pk_rands": [rands[i] for i in order] + [0] * pad,
         "sig_rands": list(rands) + [0] * pad,
@@ -252,10 +276,10 @@ class GpuBackend(PythonBackend):
         def put(arr):
             return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
-        # device: lane inputs into the Montgomery domain
-        sig_x = bi.mont_from_int_limbs(put(prep["sig_x"]))
-        pk_x = bi.mont_from_int_limbs(put(prep["pk_x"]))
-        pk_y = bi.mont_from_int_limbs(put(prep["pk_y"]))
+        # device: lane inputs into the Montgomery domain, one copy and
+        # one launch for the three
+        sig_x, pk_x, pk_y = split_lane_ints(
+            bi.mont_from_int_limbs(put(prep["lane_ints"])), lanes)
 
         # device: signature decompression + subgroup check (generator
         # padding keeps both checks uniformly True on padded lanes)

@@ -21,7 +21,9 @@
 //   site of the library), stores the product; then up to three stages of
 //   post-additions spread over the threads, a barrier after each. An Fp12
 //   product (Karatsuba over fp6_mul, as tower.cuh:fp12_mul) is 54
-//   products, then 36, 18 and 12 sums; a Granger-Scott cyclotomic square
+//   products, then 36, 18 and 12 sums; a general Fp12 square (two fp6_mul,
+//   as tower.cuh:fp12_sqr) 36 products, then 24, 12 and 12 sums; a
+//   Granger-Scott cyclotomic square
 //   9 Fp2 squares (18 products), then 12 sums; a Frobenius map 18
 //   products, then 12 sums; the Miller line's sparse product
 //   (tower.cuh:fp12_mul_by_014) 45 products, then 30 and 12 sums.
@@ -66,6 +68,7 @@ enum CoKind {
     CO_MUL014,    // dst = a * b (Fp12) for the sparse line b = (b0 + b1 v)
                   // + (b4 v) w: reads b's Fp2 slots 0, 1 and 4 only
     CO_MULF,      // dst = a * b (Fp2 by Fp)
+    CO_SQR12,     // dst = a^2 (any Fp12); dst may be a
 };
 
 struct CoOp {
@@ -95,6 +98,7 @@ LH_DEV int co_nprod(int kind) {
     switch (kind) {
     case CO_MUL12: return 54;
     case CO_MUL014: return 45;
+    case CO_SQR12: return 36;
     case CO_CSQR: case CO_FROB: case CO_MUL6: return 18;
     case CO_MUL2: return 3;
     case CO_SQR2: case CO_MULF: return 2;
@@ -107,6 +111,7 @@ LH_DEV int co_nstage1(int kind) {
     switch (kind) {
     case CO_MUL12: return 36;
     case CO_MUL014: return 30;
+    case CO_SQR12: return 24;
     case CO_FROB: case CO_MUL6: return 12;
     case CO_MUL2: case CO_SQR2: case CO_MULF: return 2;
     case CO_MUL1: return 1;
@@ -118,13 +123,15 @@ LH_DEV int co_nstage1(int kind) {
 LH_DEV int co_nstage2(int kind) {
     switch (kind) {
     case CO_MUL12: return 18;
-    case CO_CSQR: case CO_MUL014: return 12;
+    case CO_CSQR: case CO_MUL014: case CO_SQR12: return 12;
     case CO_MUL6: return 6;
     default: return 0;
     }
 }
 
-LH_DEV int co_nstage3(int kind) { return kind == CO_MUL12 ? 12 : 0; }
+LH_DEV int co_nstage3(int kind) {
+    return kind == CO_MUL12 || kind == CO_SQR12 ? 12 : 0;
+}
 
 // the sum of v[i] over the set bits of m (zero for none), one add a bit
 LH_DEV void co_bits_sum(Fp& out, const Fp* v, unsigned m) {
@@ -165,6 +172,31 @@ LH_DEV void co_operand(Fp& out, const Fp* v, int hm, int jm, int em,
     co_mask_sum(out, v, pos, neg);
 }
 
+// The Karatsuba operand of y = a0 + v a1 (the second factor of
+// fp12_sqr's s, v (c0, c1, c2) = (xi c2, c0, c1), xi (y0, y1) = (y0 - y1,
+// y0 + y1)): the sum of y's coefficients e of its Fp2 slots j over the
+// sets jm, em
+LH_DEV void co_sqr_y(Fp& out, const Fp* a, int jm, int em) {
+    bool have = false;
+    for (int j = 0; j < 3; ++j) {
+        if (!((jm >> j) & 1)) continue;
+        for (int e = 0; e < 2; ++e) {
+            if (!((em >> e) & 1)) continue;
+            Fp y;
+            if (j == 0) {       // a0.c0 + xi a1.c2
+                if (e == 0) fp_sub(y, a[10], a[11]);
+                else fp_add(y, a[10], a[11]);
+                fp_add(y, a[e], y);
+            } else {            // a0.c_j + a1.c_(j-1)
+                fp_add(y, a[2 * j + e], a[6 + 2 * (j - 1) + e]);
+            }
+            if (have) fp_add(out, out, y);
+            else out = y;
+            have = true;
+        }
+    }
+}
+
 // Karatsuba-3 slots of fp6_mul: t0, t1, t2, u12, u01, u02
 LH_DEV int co_jm(int s6) {
     return s6 < 3 ? 1 << s6 : (s6 == 3 ? 6 : (s6 == 4 ? 3 : 5));
@@ -189,6 +221,15 @@ LH_DEV void co_operands(const CoOp& o, int k, Fp& x, Fp& y) {
         const bool cj = o.kind == CO_MUL12;
         co_operand(x, o.a, hm, co_jm(s6), em, cj && (o.flags & 1));
         co_operand(y, o.b, hm, co_jm(s6), em, cj && (o.flags & 2));
+        break;
+    }
+    case CO_SQR12: {
+        // t = a0 a1 (products 0-17), s = (a0 + a1)(a0 + v a1) (18-35)
+        const int s = k / 18, r = k - 18 * s, s6 = r / 3, s2 = r - 3 * s6;
+        const int em = s2 < 2 ? 1 << s2 : 3;
+        co_operand(x, o.a, s ? 3 : 1, co_jm(s6), em, false);
+        if (s) co_sqr_y(y, o.a, co_jm(s6), em);
+        else co_operand(y, o.a, 2, co_jm(s6), em, false);
         break;
     }
     case CO_CSQR: {
@@ -267,7 +308,7 @@ LH_DEV void co_fp2_post(Fp& out, const Fp* t, int e) {
 // stage 1: Fp2 recombination (and the single-stage kinds' outputs)
 LH_DEV void co_stage1(const CoOp& o, int k, const Fp* T, Fp* Q) {
     switch (o.kind) {
-    case CO_MUL12: case CO_MUL6: case CO_MUL014:
+    case CO_MUL12: case CO_MUL6: case CO_MUL014: case CO_SQR12:
         co_fp2_post(Q[k], T + 3 * (k >> 1), k & 1);
         break;
     case CO_FROB: {
@@ -372,7 +413,7 @@ LH_DEV void co_stage2(const CoOp& o, int k, const Fp* T, const Fp* Q,
         fp_add(o.dst[k], u, t);
         return;
     }
-    // MUL12 (three Fp6 products, k = 6 s12 + 2j + e) or MUL6
+    // MUL12 (three Fp6 products, k = 6 s12 + 2j + e), SQR12 (two) or MUL6
     const int s12 = k / 6, m = k - 6 * s12;
     unsigned pos, neg;
     co_fp6_masks(m >> 1, m & 1, pos, neg);
@@ -385,9 +426,24 @@ LH_DEV void co_stage2(const CoOp& o, int k, const Fp* T, const Fp* Q,
 }
 
 // stage 3 (MUL12): c0 = t0 + v t1, c1 = tm - t0 - t1 over the Fp6 products
-// S = (t0, t1, tm), v (c0, c1, c2) = (xi c2, c0, c1)
+// S = (t0, t1, tm), v (c0, c1, c2) = (xi c2, c0, c1); (SQR12) c0 = s - t
+// - v t, c1 = 2t over S = (t, s)
 LH_DEV void co_stage3(const CoOp& o, int k, const Fp* S) {
     unsigned pos, neg = 0;
+    if (o.kind == CO_SQR12) {
+        if (k >= 6) {
+            fp_dbl(o.dst[k], S[k - 6]);
+            return;
+        }
+        // s_k - t_k - (v t)_k: (v t) = (xi t2, t0, t1)
+        pos = 1u << (6 + k);
+        neg = 1u << k;
+        if (k == 0) { pos |= 1u << 5; neg |= 1u << 4; }
+        else if (k == 1) neg |= (1u << 4) | (1u << 5);
+        else neg |= 1u << (k - 2);
+        co_mask_sum(o.dst[k], S, pos, neg);
+        return;
+    }
     if (k >= 6) {
         const int m = k - 6;
         pos = 1u << (12 + m);
@@ -416,8 +472,9 @@ LH_NOINL void co_step(const CoOp* ops, int nops, Fp* scratch) {
         const int kd = ops[i].kind;
         tp[i + 1] = tp[i] + co_nprod(kd);
         tq[i + 1] = tq[i] + (kd == CO_MUL12 ? 36 : kd == CO_MUL6 ? 12
-                             : kd == CO_MUL014 ? 30 : 0);
-        ts[i + 1] = ts[i] + (kd == CO_MUL12 ? 18 : 0);
+                             : kd == CO_MUL014 ? 30 : kd == CO_SQR12 ? 24
+                             : 0);
+        ts[i + 1] = ts[i] + (kd == CO_MUL12 ? 18 : kd == CO_SQR12 ? 12 : 0);
         n1[i + 1] = n1[i] + co_nstage1(kd);
         n2[i + 1] = n2[i] + co_nstage2(kd);
         n3[i + 1] = n3[i] + co_nstage3(kd);

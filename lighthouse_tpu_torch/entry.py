@@ -352,6 +352,7 @@ def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
     import torch
 
     from .crypto import bls as bls_mod
+    from .crypto.bls import gpu_backend as gb
     from .crypto.bls12_381 import G1Point
     from .ops import bigint as bi
     from .ops import bls12_381 as k
@@ -456,8 +457,9 @@ def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
     sig_x, sig_y = keep["sig_x"], keep["sig_y"]
     g1_in, g2_in = keep["g1_in"], keep["g2_in"]
     if mesh.rank == 0:
-        pk_x = bi.mont_from_int_limbs(pb._put(mesh, prep["pk_x"]))
-        pk_y = bi.mont_from_int_limbs(pb._put(mesh, prep["pk_y"]))
+        # every lane's pubkey, as one GPU has them (one launch)
+        _, pk_x, pk_y = gb.split_lane_ints(bi.mont_from_int_limbs(
+            pb._put(mesh, prep["lane_ints"])), lanes)
         one1 = pb._put(mesh, np.broadcast_to(k.FP_ONE, (lanes, bi.NLIMBS)))
         one2 = pb._put(mesh, np.broadcast_to(k.FP2_ONE,
                                              (lanes, 2, bi.NLIMBS)))
@@ -538,8 +540,9 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
     of the padded pair batch; ``partials``: the gathered Miller products):
     the first ``hash64`` level of the rank's validator block; hash-to-G2,
     the message affine, the pubkey segment sums and their affine at the
-    full lane count; the pubkeys' Montgomery entry and both RLC scalar
-    multiplies on the rank's lanes; the aggregate's affine; the masked
+    full lane count; the Montgomery entry of every signature's x and the
+    rank's pubkeys (one launch), both RLC scalar multiplies on the rank's
+    lanes; the aggregate's affine; the masked
     Miller loop on the rank's pairs, their product, the product of the
     partials and the final exponentiation. Raises nothing: the caller
     holds each record's ``max_abs_err`` to 0."""
@@ -582,13 +585,12 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
         affine_ops(mz, 2))
 
     pk_x, pk_y, one1, bits_pk = keep["g1_in"]
-    pk_int = torch.from_numpy(np.ascontiguousarray(
-        prep["pk_x"][:pk_x.shape[0]])).to(pk_x.device)    # rank 0's block
-    r2 = bi.const(bi.R2_LIMBS, pk_int).expand_as(pk_int)
-    run("fp_ops", f"sharded, {pk_int.shape[0]} pubkey lanes",
-        lambda: bi.fp_ops_kernel(bi.FP_MUL, pk_int, r2),
-        lambda: bi._mont_mul_plain(pk_int, r2), (pk_int, r2),
-        pk_int.shape[0] * mul)
+    ints = keep["lane_ints"]
+    run("fp_ops", f"sharded, Montgomery entry of {lanes} signature and "
+                  f"{pk_x.shape[0]} pubkey lanes",
+        lambda: bi.fp_ops_kernel(bi.FP_TO_MONT, ints),
+        lambda: bi._mont_from_int_plain(ints), (ints,),
+        ints.shape[0] * mul)
     run("rlc_scale", f"sharded, G1 {pk_x.shape[0]} lanes",
         lambda: k.g1_scalar_mul(pk_x, pk_y, one1, bits_pk),
         lambda: k._g1_scalar_mul_plain(pk_x, pk_y, one1, bits_pk),

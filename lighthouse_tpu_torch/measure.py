@@ -56,6 +56,30 @@ def time_cuda(fn, repeats: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_us(call, reps: int = 20) -> float:
+    """Device microseconds a call of ``call`` (every kernel and copy it
+    issues, host work left out): ``torch.profiler``'s CUDA activity over
+    ``reps`` calls after a warm-up, summed by name over the calls. A
+    profile that recorded nothing is taken again, up to three times; then
+    it raises, as a device time was not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0)
+                    for e in prof.key_averages())
+        if total:
+            return total / reps
+    raise RuntimeError("torch.profiler recorded no device time in three "
+                       "profiles")
+
+
 def max_abs_err(a, b) -> int:
     import torch
     if a.numel() == 0:

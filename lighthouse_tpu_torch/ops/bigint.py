@@ -9,11 +9,14 @@ BLS12-381 stages (ops/bls12_381.py).
   (R = 2^384); every op returns to [0, 2p), canonicalization only at the
   edges.
 
-``mont_mul``, ``add_mod`` and ``sub_mod`` are the wrappers of the
-``fp_ops`` CUDA kernel (csrc/bls/fp_ops.cu; in mode 0 CIOS Montgomery
-over 12 32-bit words; R is 2^384 in both layouts, so the Montgomery
-domain is the same): a CUDA tensor launches the kernel, a CPU tensor takes the plain
-version. The plain versions (``_mont_mul_plain`` and friends) follow the
+``mont_mul``, ``add_mod``, ``sub_mod``, ``mont_from_int_limbs`` and
+``reduce_wide_mod_p`` are the wrappers of the ``fp_ops`` CUDA kernel
+(csrc/bls/fp_ops.cu; in mode 0 CIOS Montgomery over 12 32-bit words; R
+is 2^384 in both layouts, so the Montgomery domain is the same), one
+launch each: a CUDA tensor launches the kernel, a CPU tensor takes the
+plain version. The kernel reads R^2 and R^3 mod p from tables built into
+it, so the entry into the Montgomery domain and the wide reduction copy
+no constant to the card. The plain versions (``_mont_mul_plain`` and friends) follow the
 JAX algorithm: Toeplitz column products, two carry passes, and
 ``normalize``'s log-depth scan over {-1, 0, 1} carry triples. They run on
 any device: the tower, curve and pairing plain versions are built on
@@ -531,37 +534,68 @@ def is_zero_mod(a: torch.Tensor) -> torch.Tensor:
     return _plain(lambda xp, u: xp.all(_canonical_limbs(xp, u) == 0, -1), a)
 
 
-FP_MUL, FP_ADD, FP_SUB = 0, 1, 2
+def _mont_from_int_plain(x: torch.Tensor) -> torch.Tensor:
+    """x R mod p, the plain Montgomery product by the integer R^2 mod p."""
+    return _mont_mul_plain(x, const(R2_LIMBS, x))
+
+
+def _reduce_wide_plain(wide: torch.Tensor) -> torch.Tensor:
+    """mont(lo, R^2) + mont(hi, R^3) of [..., 64] limbs, by the plain
+    products, as the JAX package composes its jitted ones."""
+    lo, hi = wide[..., :NLIMBS], wide[..., NLIMBS:]
+    return _add_mod_plain(_mont_mul_plain(lo, const(R2_LIMBS, lo)),
+                          _mont_mul_plain(hi, const(R3_LIMBS, hi)))
+
+
+#: the ops of the ``fp_ops`` kernel: two-operand mul, add, sub over
+#: [..., 32]; one-operand entry into the Montgomery domain ([..., 32]) and
+#: wide reduction ([..., 64] -> [..., 32])
+FP_MUL, FP_ADD, FP_SUB, FP_TO_MONT, FP_WIDE = 0, 1, 2, 3, 4
 _PLAIN = {FP_MUL: _mont_mul_plain, FP_ADD: _add_mod_plain,
-          FP_SUB: _sub_mod_plain}
+          FP_SUB: _sub_mod_plain, FP_TO_MONT: _mont_from_int_plain,
+          FP_WIDE: _reduce_wide_plain}
 
 
-def _fp_op(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return _PLAIN[op](a, b)
+def _fp_op(op: int, a: torch.Tensor, b: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    if a.device.type == "cpu" and (b is None or b.device.type == "cpu"):
+        return _PLAIN[op](a) if b is None else _PLAIN[op](a, b)
     return fp_ops_kernel(op, a, b)
 
 
-def fp_ops_kernel(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch ``fp_ops`` (mul / add / sub elementwise over [..., 32]) on
-    two CUDA int32 tensors (broadcast to one shape). Raises on anything
-    else."""
+def fp_ops_kernel(op: int, a: torch.Tensor,
+                  b: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``fp_ops`` on CUDA int32 limbs: ops ``FP_MUL``, ``FP_ADD``,
+    ``FP_SUB`` elementwise over two [..., 32] tensors (broadcast to one
+    shape), ``FP_TO_MONT`` over one [..., 32], ``FP_WIDE`` over one
+    [..., 64] (out [..., 32]). Contiguous inputs of one shape go to the
+    kernel as they are. Raises on anything else."""
     from .. import kernels
-    if a.device.type != "cuda" or b.device.type != "cuda":
-        raise ValueError(f"fp_ops takes CUDA tensors, got {a.device} and "
-                         f"{b.device}")
-    if a.dtype != torch.int32 or b.dtype != torch.int32:
-        raise TypeError(f"fp_ops takes int32 limbs, got {a.dtype}, "
-                        f"{b.dtype}")
-    a, b = torch.broadcast_tensors(a, b)
-    if a.shape[-1] != NLIMBS:
-        raise ValueError(f"fp_ops takes [..., {NLIMBS}] limbs, got "
+    unary = op in (FP_TO_MONT, FP_WIDE)
+    if op not in _PLAIN or unary != (b is None):
+        raise ValueError(f"fp_ops op {op} with "
+                         f"{'no' if b is None else 'a'} second operand")
+    ts = (a,) if unary else (a, b)
+    if any(t.device.type != "cuda" for t in ts):
+        raise ValueError(f"fp_ops takes CUDA tensors, got "
+                         f"{[str(t.device) for t in ts]}")
+    if any(t.dtype != torch.int32 for t in ts):
+        raise TypeError(f"fp_ops takes int32 limbs, got "
+                        f"{[t.dtype for t in ts]}")
+    if not unary and (a.shape != b.shape or not b.is_contiguous()):
+        a, b = torch.broadcast_tensors(a, b)
+        b = b.contiguous()
+    width = 2 * NLIMBS if op == FP_WIDE else NLIMBS
+    if a.shape[-1] != width:
+        raise ValueError(f"fp_ops op {op} takes [..., {width}] limbs, got "
                          f"{tuple(a.shape)}")
-    a, b = a.contiguous(), b.contiguous()
-    out = torch.empty_like(a)
-    n = a.numel() // NLIMBS
+    a = a.contiguous()
+    out = torch.empty(a.shape[:-1] + (NLIMBS,), dtype=torch.int32,
+                      device=a.device)
+    n = out.numel() // NLIMBS
     if n:
-        kernels.FP_OPS.launch(op, a.data_ptr(), b.data_ptr(),
+        kernels.FP_OPS.launch(op, a.data_ptr(),
+                              None if unary else b.data_ptr(),
                               out.data_ptr(), n,
                               kernels.stream_ptr(a.device))
     return out
@@ -585,8 +619,9 @@ def neg_mod(a: torch.Tensor) -> torch.Tensor:
 
 
 def mont_from_int_limbs(x: torch.Tensor) -> torch.Tensor:
-    """Into Montgomery domain: x * R mod p (x < p)."""
-    return mont_mul(x, const(R2_LIMBS, x))
+    """Into Montgomery domain: x * R mod p (x < p); one launch on the card
+    (the kernel's own R^2), whatever the batch's shape."""
+    return _fp_op(FP_TO_MONT, x)
 
 
 def mont_to_int_limbs(x: torch.Tensor) -> torch.Tensor:
@@ -601,8 +636,6 @@ def mont_to_int_limbs(x: torch.Tensor) -> torch.Tensor:
 def reduce_wide_mod_p(wide: torch.Tensor) -> torch.Tensor:
     """Reduce a 64-limb (768-bit capacity) value mod p into Montgomery
     form: x*R = lo*R + hi*R^2, i.e. mont(lo, R^2) + mont(hi, R^3).
-    Returns x*R mod p in [0, 2p)."""
-    lo = wide[..., :NLIMBS].contiguous()
-    hi = wide[..., NLIMBS:].contiguous()
-    return add_mod(mont_mul(lo, const(R2_LIMBS, lo)),
-                   mont_mul(hi, const(R3_LIMBS, hi)))
+    Returns x*R mod p in [0, 2p); one launch on the card, reading the
+    [..., 64] rows as they are."""
+    return _fp_op(FP_WIDE, wide)

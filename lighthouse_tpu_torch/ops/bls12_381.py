@@ -1420,15 +1420,18 @@ def final_exponentiation(f):
 
 def fp12_pow_const(f, exponent: int):
     """f^exponent for a constant exponent, elementwise over Fp12 values
-    [n, 2, 3, 2, 32] (exponent 0 gives f, as the JAX scan does)."""
+    [n, 2, 3, 2, 32] (exponent 0 gives f, as the JAX scan does). The
+    kernel walks the exponent's bits from the bottom one (any width; none
+    for exponent 0), the plain version from the top, as JAX: the same
+    field values, other representatives."""
     if _on_cpu(f):
         return _fp12_pow_const_plain(f, exponent)
     from .. import kernels
     n = f.shape[0]
     f = _arg(f, "f", (n, 2, 3, 2, bi.NLIMBS))
-    bits = torch.tensor(_bits(exponent)[1:] or [0], dtype=torch.int32,
-                        device=f.device)
-    nbits = len(_bits(exponent)) - 1
+    nbits = exponent.bit_length()
+    bits = torch.tensor(_bits(exponent)[::-1] if nbits else [0],
+                        dtype=torch.int32, device=f.device)
     out = _empty(f.shape, f)
     if n:
         kernels.FP12_POW.launch(f.data_ptr(), bits.data_ptr(), nbits,

@@ -83,8 +83,12 @@ def render() -> str:
         _fp("LH_ONE", _mont(1)),
         _fp("LH_HALF_P_INT", _words((P - 1) // 2)),
         "// R^2 in Montgomery form: fp_mul(y, LH_R2) = y R^2 (the binary",
-        "// inversion's way back into the Montgomery domain)",
+        "// inversion's way back into the Montgomery domain); as an integer",
+        "// it is R^3 mod p (fp_ops.cu's wide reduction, mont(hi, R^3))",
         _fp("LH_R2", _mont(R * R)),
+        "// R^2 mod p as an integer: fp_mul(x, LH_R2_MOD_P) = x R, the way",
+        "// into the Montgomery domain (fp_ops.cu, bigint.py R2_LIMBS)",
+        _fp("LH_R2_MOD_P", _words(R * R % P)),
         "// digit-space fp_mul (LH_FP_MODE 1, 2): N' = -p^-1 mod 2^384 and p",
         "// as reversed packs of their 6-bit digits, one for each alignment",
         _packs("LH_NPRIME_DREV", _digits_rev(bi.NPRIME)),

@@ -349,9 +349,27 @@ def miller_loop(mask) -> int:
 
 
 def fp12_pow(n: int, exponent: int) -> int:
-    """fp12_pow: a square every bit after the leading one, a product on
-    the set ones, per lane."""
+    """fp12_pow, per lane: a general square (two Fp6 products, coop.cuh
+    CO_SQR12) every bit below the top one, a product on the set ones but
+    the lowest (the kernel walks from the bottom bit and copies the base
+    there; the JAX scan from the top skips the leading one: the same
+    counts)."""
     return n * _pow(exponent, FP12_SQR, FP12_MUL)
+
+
+#: fp_ops (csrc/bls/fp_ops.cu), an element of each op: its field
+#: multiplies, and the int32 limbs it must move (its inputs read once,
+#: its [32] output written once): mul, add, sub (two [32] inputs), the
+#: Montgomery entry (one [32], R^2 built in), the wide reduction (one
+#: [64], R^2 and R^3 built in)
+FP_OPS_MULS = (1, 0, 0, 1, 2)
+FP_OPS_LIMBS = (96, 96, 96, 64, 96)
+
+
+def fp_ops(op: int, n: int) -> tuple[int, int]:
+    """(field multiplies, bytes) of one fp_ops launch of ``op`` on n
+    elements: the function's least work."""
+    return n * FP_OPS_MULS[op], n * FP_OPS_LIMBS[op] * 4
 
 
 def final_exp(n: int, mode: int) -> int:
@@ -460,6 +478,23 @@ def g2_sum_depth(n: int) -> int:
 #: an addition follows it
 MILLER_COOP_DEPTH = (4 * _X_STEPS + 4 * (bin(k._X_ABS).count("1") - 1)
                      - (0 if k._X_ABS & 1 else 1))
+#: csrc/bls/fp12_pow.cu LH_POW_SM_LANES: one lane a block up to this many
+#: lanes an SM, two past it
+POW_SM_LANES = 2
+
+
+def fp12_pow_lanes(n: int, sms: int) -> int:
+    """The lanes a block ``lh_fp12_pow`` takes for n lanes on a card of
+    ``sms`` SMs."""
+    return 1 if n <= POW_SM_LANES * sms else 2
+
+
+def fp12_pow_depth(exponent: int) -> int:
+    """fp12_pow's critical path in dependent steps: a cooperative step a
+    bit of the exponent."""
+    return _pow_depth(exponent)
+
+
 #: csrc/bls/pairing.cu LH_ML_COOP_MAX: wider batches take the one-thread
 #: design, whose chain is all of a lane's multiplies
 ML_COOP_MAX = 2561

@@ -25,7 +25,7 @@ import torch.distributed as dist
 from ..crypto.bls import gpu_backend as gb
 from ..ops import bigint as bi
 from ..ops import bls12_381 as k
-from .mesh import Mesh, program, shard_batch
+from .mesh import Mesh, program
 
 _SRC = "lighthouse_tpu_torch/parallel/bls.py"
 MILLER_PRODUCT = program("parallel.bls.miller_product", _SRC,
@@ -119,12 +119,12 @@ def _put(mesh: Mesh, arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(mesh.device)
 
 
-def rlc_inputs(mesh: Mesh, prep: dict, sig_x, sig_y):
+def rlc_inputs(mesh: Mesh, prep: dict, sig_x, sig_y, pk_x, pk_y):
     """This rank's blocks of the scalar multiplies' inputs: (pk_x, pk_y,
-    one, bits) for G1 and (sig_x, sig_y, one, bits) for G2."""
+    one, bits) for G1 and (sig_x, sig_y, one, bits) for G2 (``pk_x``,
+    ``pk_y``: the rank's block already; ``sig_x``, ``sig_y``: all
+    lanes)."""
     lo, hi = mesh.rows(len(prep["flags"]))
-    pk_x = bi.mont_from_int_limbs(shard_batch(mesh, prep["pk_x"]))
-    pk_y = bi.mont_from_int_limbs(shard_batch(mesh, prep["pk_y"]))
     one1 = _put(mesh, np.broadcast_to(k.FP_ONE, (hi - lo, bi.NLIMBS)))
     one2 = _put(mesh, np.broadcast_to(k.FP2_ONE, (hi - lo, 2, bi.NLIMBS)))
     bits_pk = _put(mesh, k.scalars_to_bits(prep["pk_rands"][lo:hi],
@@ -149,8 +149,13 @@ def miller_pairs(mesh: Mesh, prep: dict, keep: dict | None = None):
     stage's inputs and outputs by name (to hold the kernels against their
     plain versions on this path's shapes)."""
     lanes = len(prep["flags"])
+    # ---- device: the lane inputs into the Montgomery domain (one copy,
+    # one launch: all signatures' x, the rank's pubkeys) ------------------
+    ints = _put(mesh, gb.rank_lane_ints(prep["lane_ints"], lanes,
+                                        *mesh.rows(lanes)))
+    sig_x, pk_x, pk_y = gb.split_lane_ints(bi.mont_from_int_limbs(ints),
+                                           lanes)
     # ---- device: replicated validity checks + hash map -----------------
-    sig_x = bi.mont_from_int_limbs(_put(mesh, prep["sig_x"]))
     sig_y, on_curve = k.g2_decompress_batch(sig_x, prep["flags"])
     if not bool(on_curve.all()):
         return None
@@ -162,7 +167,7 @@ def miller_pairs(mesh: Mesh, prep: dict, keep: dict | None = None):
     msg_x, msg_y = k.jacobian_to_affine_fp2(mx, my, mz)
 
     # ---- device: SHARDED RLC scalar muls, gathered ---------------------
-    g1_in, g2_in = rlc_inputs(mesh, prep, sig_x, sig_y)
+    g1_in, g2_in = rlc_inputs(mesh, prep, sig_x, sig_y, pk_x, pk_y)
     spx, spy, spz = sharded_scalar_mul(mesh, 1, *g1_in,
                                        "bls.scaled_pubkeys")
     ssx, ssy, ssz = sharded_scalar_mul(mesh, 2, *g2_in,
@@ -178,7 +183,7 @@ def miller_pairs(mesh: Mesh, prep: dict, keep: dict | None = None):
     aax, aay = k.jacobian_to_affine_fp2(ax, ay, az)
 
     if keep is not None:
-        keep.update(sig_x=sig_x, sig_y=sig_y, u0=u0, u1=u1,
+        keep.update(lane_ints=ints, sig_x=sig_x, sig_y=sig_y, u0=u0, u1=u1,
                     msg=(mx, my, mz), msg_affine=(msg_x, msg_y),
                     g1_in=g1_in, g2_in=g2_in,
                     scaled_pubkeys=(spx, spy, spz),

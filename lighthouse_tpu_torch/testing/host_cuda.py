@@ -7,7 +7,7 @@ off ``csrc/<source>``, compiles it with g++ against the stand-ins of
 barrier; ``host_include/`` for the CUDA headers) and returns the
 program; ``final_exp``, ``hash_to_g2``, ``g2_sum``, ``miller_loop``,
 ``rlc_scale``, ``g2_intake``, ``affine``, ``g1_segment_sum``,
-``cap_fold`` and ``path_walk`` run it on
+``cap_fold``, ``path_walk``, ``fp12_pow`` and ``fp_ops`` run it on
 int32 arrays as the kernels' C entries take them, launching the
 kernels as the C entries do (each main repeats its entry's choice). The CPU tests hold the
 results to the plain versions: the arithmetic of the CUDA source, not
@@ -234,6 +234,35 @@ int main(int, char** argv) {
     host_write(argv[7], root);
 }
 '''),
+    "fp12_pow": ("bls/fp12_pow.cu", r'''
+int main(int, char** argv) {
+    const int lanes = atoi(argv[1]), nbits = atoi(argv[2]);
+    const std::vector<int32_t> f = host_read(argv[3]), bits = host_read(argv[4]);
+    const long long n = f.size() / (12 * LH_LIMBS);
+    std::vector<int32_t> out(f.size());
+    auto run = [&](auto kernel) {   // as lh_fp12_pow launches at L lanes
+        host_launch((n + lanes - 1) / lanes, lanes * LH_POW_TPL, [&] {
+            kernel(f.data(), bits.data(), nbits, out.data(), n);
+        });
+    };
+    if (lanes == 1) run(fp12_pow_kernel<1>);
+    else if (lanes == 2) run(fp12_pow_kernel<2>);
+    else run(fp12_pow_kernel<4>);
+    host_write(argv[5], out);
+}
+'''),
+    "fp_ops": ("bls/fp_ops.cu", r'''
+int main(int, char** argv) {
+    const int op = atoi(argv[1]);
+    const std::vector<int32_t> a = host_read(argv[2]), b = host_read(argv[3]);
+    const long long n = a.size() / (op == FP_OP_WIDE ? 2 * LH_LIMBS
+                                                     : LH_LIMBS);
+    std::vector<int32_t> out(n * LH_LIMBS);
+    host_launch((n + FP_OPS_THREADS - 1) / FP_OPS_THREADS, FP_OPS_THREADS,
+                [&] { fp_ops_kernel(op, a.data(), b.data(), out.data(), n); });
+    host_write(argv[4], out);
+}
+'''),
 }
 
 
@@ -393,3 +422,22 @@ def path_walk(exe: Path, levels: list, rows, limit_depth: int,
     cuts = np.cumsum([np.asarray(lv).size for lv in levels])[:-1]
     walked = [a.reshape(-1, 8) for a in np.split(out, cuts)]
     return walked, _arr(exe.parent / "root.bin", 8)
+
+
+def fp12_pow(exe: Path, lanes: int, f, exponent: int):
+    """f^exponent [n, 2, 3, 2, 32] of the fp12_pow kernel at ``lanes``
+    lanes a block (1, 2 or 4), its exponent's bits from the bottom one as ``ops/bls12_381.py`` ``fp12_pow_const`` passes
+    them."""
+    nbits = exponent.bit_length()
+    bits = [(exponent >> i) & 1 for i in range(nbits)] or [0]
+    _run(exe, {"f": f, "bits": np.asarray(bits)}, ("out",), (lanes, nbits))
+    return _arr(exe.parent / "out.bin", np.asarray(f).shape)
+
+
+def fp_ops(exe: Path, op: int, a, b=None):
+    """The fp_ops kernel's op on a [n, 32] (and b), or on a [n, 64] for
+    the wide op 4: [n, 32]."""
+    a = np.asarray(a)
+    _run(exe, {"a": a, "b": np.zeros(1) if b is None else b}, ("out",),
+         (op,))
+    return _arr(exe.parent / "out.bin", (a.shape[0], 32))

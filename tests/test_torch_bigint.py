@@ -129,6 +129,40 @@ def test_montgomery_round_trip_and_wide_reduction():
         assert g % P == v * tbi.R_INT % P
 
 
+def test_packed_lane_entry_matches_jax():
+    """The batch's lane inputs packed as ``host_prepare`` packs them
+    (``gpu_backend.split_lane_ints``: signatures' x, pubkeys' x, their y)
+    enter the Montgomery domain in one call, and each part equals the JAX
+    ``mont_from_int_limbs`` of that part; views, not copies."""
+    from lighthouse_tpu_torch.crypto.bls.gpu_backend import split_lane_ints
+    lanes = 5
+    vals = [v % P for v in _values(16, 4 * lanes)]
+    packed_np = _jax_limbs(vals)
+    parts_np = split_lane_ints(packed_np, lanes)
+    assert [p.shape for p in parts_np] == [(lanes, 2, 32), (lanes, 32),
+                                           (lanes, 32)]
+    assert all(np.shares_memory(p, packed_np) for p in parts_np)
+    mont = tbi.mont_from_int_limbs(convert.limbs_from_numpy(packed_np))
+    for got, part in zip(split_lane_ints(mont, lanes), parts_np):
+        _same_canonical(got, jbi.mont_from_int_limbs(part))
+
+
+def test_fp_ops_cost_counts_the_plain_products():
+    """bls_cost.fp_ops: the entry one multiply an element, the wide
+    reduction two, as the plain versions count them; its bytes one read
+    of the inputs and one write of the output."""
+    from lighthouse_tpu_torch.ops import bls_cost as cost
+    x = convert.limbs_from_numpy(_jax_limbs([v % P for v in _values(17)]))
+    w = torch.cat([x, x], dim=-1)
+    for op, fn, arg in ((tbi.FP_TO_MONT, tbi.mont_from_int_limbs, x),
+                        (tbi.FP_WIDE, tbi.reduce_wide_mod_p, w)):
+        tbi.MONT_MUL_ROWS.reset()
+        out = fn(arg)
+        muls, n_bytes = cost.fp_ops(op, N)
+        assert tbi.MONT_MUL_ROWS.rows == muls
+        assert n_bytes == (arg.numel() + out.numel()) * 4
+
+
 def test_plain_mont_mul_counts_rows():
     a = convert.limbs_from_numpy(_jax_limbs(_values(7)))
     tbi.MONT_MUL_ROWS.reset()
@@ -141,6 +175,13 @@ def test_kernel_wrapper_takes_only_card_tensors():
     a = convert.limbs_from_numpy(_jax_limbs(_values(8)))
     with pytest.raises(ValueError):
         tbi.fp_ops_kernel(tbi.FP_MUL, a, a)
+    for op, args in ((tbi.FP_TO_MONT, (a,)), (tbi.FP_WIDE, (a,))):
+        with pytest.raises(ValueError):
+            tbi.fp_ops_kernel(op, *args)        # not on the card
+    with pytest.raises(ValueError):
+        tbi.fp_ops_kernel(tbi.FP_TO_MONT, a, a)  # the entry takes one
+    with pytest.raises(ValueError):
+        tbi.fp_ops_kernel(tbi.FP_MUL, a)         # mul takes two
     # on the CPU the public op is the plain version, with no kernel launch
     from lighthouse_tpu_torch import kernels
     before = kernels.FP_OPS.launches

@@ -195,6 +195,7 @@ def test_cuda_constants_header_matches_oracle():
         "LH_ISO_YN": [w for v in jh.ISO_Y_NUM for w in _mont2(v)],
         "LH_ISO_YD": [w for v in jh.ISO_Y_DEN for w in _mont2(v)],
         "LH_R2": _mont(2**768),
+        "LH_R2_MOD_P": _words(2**768 % P),
         "LH_X_ABS": [abs(x)],
         "LH_X13": [(abs(x) + 1) // 3],
         "LH_BP_K1_HI": [(x * x - x - 1) >> 64],

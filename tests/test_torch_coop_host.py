@@ -15,6 +15,12 @@ where ranges take several pieces and a fold past T^2 lanes) on ranges of
 and lanes at infinity, doubling and opposite; the walk with its root's
 caps folded in (csrc/path_update.cu) and the standalone cap fold
 (csrc/cap_fold.cu) against the CPU tree and the JAX ``_cap_root``.
+The power (csrc/bls/fp12_pow.cu at 1, 2 and 4 lanes a block, five
+lanes) at exponents 0, 1, |x| and one of 100 bits; the field
+ops (csrc/bls/fp_ops.cu, rows staged through shared memory, a block and
+a partial one): the Montgomery entry and the wide reduction limb for
+limb against the multiplies by R^2 and R^3 and their sum, at 0, p - 1,
+2p - 1.
 The lane programs' tables (csrc/bls/lane_prog.cuh) are checked against
 their generator and run with Python integers against the formulas. Canonical
 field values equal (tolerance zero); the G2 sum, whose tree adds in
@@ -290,6 +296,7 @@ def test_live_pairs_alone_give_the_masked_loop():
     ("rlc_scale.cu", "LH_RLC_G1_WIDTH", "RLC_G1_WIDTH"),
     ("rlc_scale.cu", "LH_RLC_G2_WIDTH", "RLC_G2_WIDTH"),
     ("g2_intake.cu", "LH_G2I_WIDTH", "G2I_WIDTH"),
+    ("fp12_pow.cu", "LH_POW_SM_LANES", "POW_SM_LANES"),
 ])
 def test_cost_model_matches_the_sources(source, macro, value):
     """ops/bls_cost.py's copies of the sources' design constants (which
@@ -930,3 +937,89 @@ def test_lane_group_counts():
     sub = cost.g2_subgroup_lanes([True] * n, [False] * n, [True] * n)
     old = cost.g2_subgroup([False] * n, [True] * n)
     assert sub["products"] == n * (6 + 63 * 16 + 5 * 30 + 22) < old
+
+
+@pytest.fixture(scope="module")
+def field_programs(tmp_path_factory):
+    if host_cuda.compiler() is None:
+        pytest.skip("needs g++ to build the kernels' sources on the host")
+    d = tmp_path_factory.mktemp("host_field")
+    return {"fp12_pow": host_cuda.build("fp12_pow", d),
+            "fp_ops": host_cuda.build("fp_ops", d)}
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("exponent", [0, 1, k._X_ABS,
+                                      (1 << 99) | 0x5A5A5A5A5A5])
+def test_fp12_pow_source_on_host(field_programs, lanes, exponent):
+    """f^e walked from e's bottom bit, on the cooperative layer with the
+    general square (CO_SQR12), on five lanes
+    (a partial block at two and four lanes a block): the plain version's
+    values (the JAX scan from the top bit), canonically; e = 0 gives f
+    itself."""
+    f = _rand_f12(40 + lanes, 5)
+    got = host_cuda.fp12_pow(field_programs["fp12_pow"], lanes, f, exponent)
+    want = k._fp12_pow_const_plain(convert.limbs_from_numpy(f), exponent)
+    assert torch.equal(_canon(got), bi.canonical(want))
+    if exponent == 0:
+        assert np.array_equal(got, f)
+
+
+def test_fp12_pow_count_matches_the_source():
+    """bls_cost.fp12_pow counts the kernel's own products: coop.cuh's
+    general square issues FP12_SQR (36) products, its Fp12 product
+    FP12_MUL (54)."""
+    import re
+
+    from lighthouse_tpu_torch.kernels import CSRC
+    from lighthouse_tpu_torch.ops import bls_cost as cost
+    text = (CSRC / "bls" / "coop.cuh").read_text()
+    body = text[text.index("LH_DEV int co_nprod"):]
+    for kind, want in (("CO_SQR12", cost.FP12_SQR),
+                       ("CO_MUL12", cost.FP12_MUL)):
+        m = re.search(rf"case {kind}: return (\d+);", body)
+        assert m is not None and int(m.group(1)) == want
+    e = k._X_ABS
+    assert cost.fp12_pow(3, e) == 3 * (63 * cost.FP12_SQR
+                                       + 5 * cost.FP12_MUL)
+    # a cooperative step a bit
+    assert cost.fp12_pow_depth(e) == 64
+
+
+def _fp_rows(seed, n):
+    """n field-layer rows: 0, p - 1, 2p - 1, then seeded values below 2p."""
+    rng = np.random.default_rng(seed)
+    vals = [0, k.P_INT - 1, 2 * k.P_INT - 1] + [
+        int.from_bytes(rng.bytes(48), "little") % (2 * k.P_INT)
+        for _ in range(n - 3)]
+    return bi.ints_to_limbs(vals)
+
+
+@pytest.mark.parametrize("n", [5, 130])
+@pytest.mark.parametrize("op", [0, 1, 2, 3, 4])
+def test_fp_ops_source_on_host(field_programs, n, op):
+    """Each op on n rows (a partial block; a block and a partial one)
+    against the plain version, canonically; the Montgomery entry (op 3)
+    limb for limb against the multiply by R^2 (op 0), the wide reduction
+    (op 4) against the multiplies by R^2 and R^3 and their sum (ops 0,
+    1); its high halves also at 2^384 - 1."""
+    exe = field_programs["fp_ops"]
+    a, b = _fp_rows(op, n), _fp_rows(op + 10, n)
+    r2 = np.broadcast_to(bi.R2_LIMBS, a.shape)
+    if op < 3:
+        got = host_cuda.fp_ops(exe, op, a, b)
+        want = bi._PLAIN[op](torch.from_numpy(a), torch.from_numpy(b))
+    elif op == 3:
+        got = host_cuda.fp_ops(exe, op, a)
+        assert np.array_equal(got, host_cuda.fp_ops(exe, 0, a, r2))
+        want = bi._mont_from_int_plain(torch.from_numpy(a))
+    else:
+        b[3] = bi.to_limbs((1 << 384) - 1)
+        wide = np.concatenate([a, b], axis=1)
+        got = host_cuda.fp_ops(exe, op, wide)
+        r3 = np.broadcast_to(bi.R3_LIMBS, a.shape)
+        assert np.array_equal(got, host_cuda.fp_ops(
+            exe, 1, host_cuda.fp_ops(exe, 0, a, r2),
+            host_cuda.fp_ops(exe, 0, b, r3)))
+        want = bi._reduce_wide_plain(torch.from_numpy(wide))
+    assert torch.equal(_canon(got), bi.canonical(want))

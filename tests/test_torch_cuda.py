@@ -284,6 +284,32 @@ def test_fp_ops_kernel(cuda_device, n):
 
 
 @pytest.mark.parametrize("n", [1, 3, 130])
+def test_fp_ops_entry_and_wide_kernels(cuda_device, n):
+    """The Montgomery entry and the wide reduction: one launch each, the
+    kernel's built-in R^2 and R^3, equal to the plain versions; the entry
+    also limb for limb to the multiply by R^2 (op 0)."""
+    bi, _ = _bls()
+    rng = np.random.default_rng(n + 40)
+    vals = [int.from_bytes(rng.bytes(48), "little") % bi.P_INT
+            for _ in range(2 * n)]
+    vals[0] = bi.P_INT - 1
+    x = torch.from_numpy(bi.ints_to_limbs(vals[:n]))
+    wide = torch.cat([x, torch.from_numpy(bi.ints_to_limbs(vals[n:]))],
+                     dim=-1)
+    k = kernels.FP_OPS.current()
+    for fn, arg in ((bi.mont_from_int_limbs, x),
+                    (bi.reduce_wide_mod_p, wide)):
+        before = k.launches
+        got = fn(arg.to(cuda_device))
+        assert k.launches == before + 1
+        assert _canon_equal(got, fn(arg))
+    xd = x.to(cuda_device)
+    r2 = bi.const(bi.R2_LIMBS, xd).expand_as(xd)
+    assert torch.equal(bi.fp_ops_kernel(bi.FP_TO_MONT, xd),
+                       bi.fp_ops_kernel(bi.FP_MUL, xd, r2))
+
+
+@pytest.mark.parametrize("n", [1, 3, 130])
 @pytest.mark.parametrize("g2", [False, True])
 def test_scalar_mul_and_affine_kernels(cuda_device, n, g2):
     _, k = _bls()
@@ -611,6 +637,7 @@ def test_bls_kernels_under_digit_modes(cuda_device, mode):
     try:
         bi.set_mxu_mode(mode)
         test_fp_ops_kernel(cuda_device, 130)
+        test_fp_ops_entry_and_wide_kernels(cuda_device, 130)
         for g2 in (False, True):
             test_scalar_mul_and_affine_kernels(cuda_device, 3, g2)
         test_aggregate_kernels(cuda_device, 3)
@@ -648,9 +675,16 @@ def test_fp12_pow_kernel(cuda_device, mode):
     try:
         bi.set_mxu_mode(mode)
         f = k.miller_loop_batch(px, py, qx, qy)
-        for e in (0, 1, 0b1011, 0xD201000000010000):
+        for e in (0, 1, 0b1011, 0xD201000000010000, (1 << 99) | 12345):
             want = k.fp12_pow_const(f, e)
             got = k.fp12_pow_const(f.to(cuda_device), e)
             assert _canon_equal(got, want)
+        assert torch.equal(k.fp12_pow_const(f.to(cuda_device), 0).cpu(), f)
+        # past two lanes an SM: two lanes a block, the last one partial,
+        # on the three values tiled
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tile = torch.arange(4 * sms + 1) % 3
+        got = k.fp12_pow_const(f[tile].to(cuda_device), k._X_ABS)
+        assert _canon_equal(got, k.fp12_pow_const(f, k._X_ABS)[tile])
     finally:
         bi.set_mxu_mode(0)
