@@ -100,8 +100,30 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    exponents 0, 1 and of 100 bits) and ``reduce_wide_mod_p`` (10,240
    rows, one launch) under each mode.
 
-The two expected roots are the JAX package's, pinned by
-tests/test_torch_state_root.py. Importing this module touches no CUDA.
+7. The state transition at 1,000,000 validators (``stf_workload``: the
+   mainnet Altair state and block of ``bench.py``'s state-transition
+   workload, the block's 64 attestations and sync aggregate really signed,
+   the signers' pubkeys interop keys): the pubkeys of its 67 signature
+   sets warmed into the ``gpu`` backend's cache (``os.cpu_count()``
+   processes); with every launch count at 0, the pre-state root on the
+   card, ``per_block_processing`` with its signatures verified as one
+   batch on the ``gpu`` backend (67 sets over 67 messages at 128 lanes),
+   the post-block root (``EXPECTED_BLOCK_ROOT_1M``), the epoch on a copy
+   at the epoch's last slot and its root (``EXPECTED_EPOCH_ROOT_1M``); then
+   every state-root and BLS kernel must have launched (``affine`` twice,
+   ``fp_ops`` once). The same block on the ``cpp`` backend accepted; two
+   negative blocks (attestation 0 with attestation 1's signature, the
+   proposal signed over another root) raise on both. Timed: the median of
+   3 warm calls with signatures on and off, the signatures-on call split
+   into set construction, ``parse_sets``, ``host_prepare``, device busy
+   time (one call under ``torch.profiler``) and the rest, the card's idle
+   share of that call, the post-block root, and the epoch with its root.
+   Each BLS kernel against its plain version on the block batch's own
+   lane inputs (128 lanes, 129 Miller pairs), among the kernels' modes.
+
+The expected roots are the JAX package's, pinned by
+tests/test_torch_state_root.py and tests/test_torch_stf_workload.py.
+Importing this module touches no CUDA.
 """
 from __future__ import annotations
 
@@ -125,6 +147,13 @@ EXPECTED_STATE_ROOT_1M = (
     "59e47648a621b500758fe08b6de5ab2739568ac9204bac064a7082abbf709b2a")
 EXPECTED_STATE_ROOT_1M_AFTER_REPS = (
     "b8fa02b5aad146b8cefc2e4210cb338f476f2e884b477a89e8b0ba5043c47cdd")
+#: hash_tree_root() of the 1M-validator Altair workload (stf_workload) after
+#: its block, and after the epoch run at the epoch's last slot on a copy of
+#: that post-block state (the JAX package's roots)
+EXPECTED_BLOCK_ROOT_1M = (
+    "7811448d1a1e63a5fb38269ea37349f15d755e861ec36c4b8675a884929be72a")
+EXPECTED_EPOCH_ROOT_1M = (
+    "8b8aecb3c16c6debb0fc65edc723ebe66ed035462806da425b8f0ccf675f2070")
 
 REPLACES = {
     "hash64": "lighthouse_tpu/ops/sha256.py:102",
@@ -667,11 +696,15 @@ def bls_prep(setup: dict, sets, lanes: int, small: int) -> dict:
     return prep
 
 
-def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
+def bls_stage_chain(run, prep: dict, lanes: int, small: int,
+                    flagship: bool = True) -> None:
     """The BLS stages on a batch's lane inputs (``prep`` at ``lanes`` /
     ``small`` lanes), each kernel reading what the kernel before it wrote:
     ``run(kernel, kernel_fn, plain_fn, args, muls, ...)`` checks and times
-    one (``BlsKernelCheck.run``). The batch must verify on the kernels."""
+    one (``BlsKernelCheck.run``). The batch must verify on the kernels.
+    ``flagship`` adds the layouts of the 10k batch's paths: the segment
+    sums over one 10,000-lane segment and 10,000 one-lane segments, and
+    the Miller loop at ``lanes`` + 1 pairs."""
     import torch
 
     from lighthouse_tpu_torch.crypto.bls import gpu_backend as gb
@@ -751,13 +784,14 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
 
     gpx, gpy, gpz = seg_run(prep["starts"], prep["ends"])
     m = 10000
-    one = np.zeros(lanes, np.int32)
-    one[[0, m]] = 1
-    seg_run(one, np.array([m - 1] + [0] * (small - 1), np.int32),
-            mode=f"one segment of {m} lanes")
-    single = np.ones(lanes, np.int32)
-    seg_run(single, np.arange(m, dtype=np.int32),
-            mode=f"{m} one-lane segments")
+    if flagship:
+        one = np.zeros(lanes, np.int32)
+        one[[0, m]] = 1
+        seg_run(one, np.array([m - 1] + [0] * (small - 1), np.int32),
+                mode=f"one segment of {m} lanes")
+        single = np.ones(lanes, np.int32)
+        seg_run(single, np.arange(m, dtype=np.int32),
+                mode=f"{m} one-lane segments")
     ax, ay, az = run("g2_sum", k.g2_sum, k._g2_sum_plain, (ssx, ssy, ssz),
                      cost.g2_sum(lanes), depth=cost.g2_sum_depth(lanes),
                      design=f"a tree over {min(-(-lanes // 128), 128)} "
@@ -802,8 +836,9 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int) -> None:
     pairs = tuple(t[tile].contiguous() for t in (px, py, qx, qy))
     live = np.zeros(wide, bool)
     live[:127] = live[-1] = True
-    for label, m in ((f"{wide} pairs, {int(live.sum())} live", live),
-                     (f"{wide} pairs, all live", None)):
+    for label, m in (((f"{wide} pairs, {int(live.sum())} live", live),
+                      (f"{wide} pairs, all live", None)) if flagship
+                     else ()):
         ran = cost.miller_loop_pairs(wide, wide if m is None
                                      else int(m.sum()))
         args = pairs if m is None else pairs + (put(m.astype(np.int32)),)
@@ -1356,6 +1391,237 @@ def mxu_phase(bounds: Bounds, setup: dict, base: BlsKernelCheck,
     return rows, modes, report
 
 
+def _median_ms(fn, reps: int = 3) -> tuple[float, list[float]]:
+    """(median, all) host milliseconds of ``reps`` calls of ``fn``."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out), out
+
+
+def stf_phase(bounds: Bounds, setup: dict,
+              card: str) -> tuple[dict, BlsKernelCheck]:
+    """The block on the card: the 1M-validator Altair workload of
+    ``stf_workload`` (a block covering the prior slot, really signed)
+    through ``per_block_processing`` with its signatures verified as one
+    batch on the ``gpu`` backend, then the post-block root and the epoch
+    with its root on the card, each held to the JAX package's root; the
+    same block on the ``cpp`` backend; two negative blocks on both; the
+    warm times with the signature call's split; the BLS kernels against
+    their plain versions on the block batch's own lane inputs."""
+    import os
+
+    import torch
+
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch import stf_workload as sw
+    from lighthouse_tpu_torch.bls_batch import warm_pubkeys
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import gpu_backend
+    from lighthouse_tpu_torch.profile_state_root import profiled
+    from lighthouse_tpu_torch.state_transition import (
+        BlockProcessingError, BlockSignatureVerifier, VerifySignatures,
+        per_block_processing, per_epoch_processing,
+    )
+
+    cpp, gpu = setup["cpp"], setup["gpu"]
+    check(bls.get_backend() is gpu, "the BLS module's backend is not gpu")
+    cores = os.cpu_count() or 8
+    t0 = time.perf_counter()
+    w = sw.build_workload(cpp, threads=cores)
+    build_s = time.perf_counter() - t0
+    pre, block = w.state, w.block
+    body = block.message.body
+
+    def block_sets(state):
+        v = BlockSignatureVerifier(state)
+        v.include_entire_block(block)
+        return v.sets
+
+    sets = block_sets(pre)
+    n_msgs = len({s.message for s in sets})
+    n_keys = sum(len(s.pubkeys) for s in sets)
+    check(len(body.attestations) == 64 and len(sets) == 67
+          and n_msgs == 67, f"the block has {len(body.attestations)} "
+                            f"attestations, {len(sets)} signature sets over "
+                            f"{n_msgs} messages, not 64, 67 and 67")
+    t0 = time.perf_counter()
+    warmed = warm_pubkeys(gpu, sets, processes=cores)
+    warm_s = time.perf_counter() - t0
+    print(f"stf setup: {len(pre.validators)} validators at slot "
+          f"{pre.slot}, {len(w.rows)} signer rows with interop pubkeys, "
+          f"the block signed (C++ host backend, {cores} threads) in "
+          f"{build_s:.1f} s; {len(sets)} signature sets over {n_msgs} "
+          f"messages, {n_keys} pubkeys; {warmed} pubkeys into the gpu "
+          f"backend's cache in {warm_s:.1f} s ({cores} processes) [{card}]",
+          flush=True)
+
+    # the path: the pre-state's root (its trees built on the card), the
+    # block with its signatures on, the post-block root, the epoch on a
+    # copy at the epoch's last slot and its root
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    pre_root = pre.hash_tree_root()
+    pre_root_ms = (time.perf_counter() - t0) * 1e3
+    post = pre.copy()
+    t0 = time.perf_counter()
+    per_block_processing(post, block, VerifySignatures.TRUE)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    post_root = post.hash_tree_root()
+    ep = post.copy()
+    ep.slot = sw.EPOCH_SLOT
+    per_epoch_processing(ep)
+    epoch_root = ep.hash_tree_root()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches
+                for k in kernels.STATE_ROOT_KERNELS + kernels.BLS_KERNELS}
+    check(post_root.hex() == EXPECTED_BLOCK_ROOT_1M,
+          f"post-block root {post_root.hex()} != {EXPECTED_BLOCK_ROOT_1M}")
+    check(epoch_root.hex() == EXPECTED_EPOCH_ROOT_1M,
+          f"post-epoch root {epoch_root.hex()} != {EXPECTED_EPOCH_ROOT_1M}")
+    print(f"stf block: pre-state root {pre_root.hex()} on the card "
+          f"{pre_root_ms:.1f} ms; per_block_processing with signatures on "
+          f"(gpu backend) accepted, first call {first_ms:.1f} ms; post-block "
+          f"root {post_root.hex()} ok; the epoch at slot {sw.EPOCH_SLOT}, "
+          f"root {epoch_root.hex()} ok [{card}]", flush=True)
+    print(f"stf block: launches on the block path {launches}", flush=True)
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the block path")
+    check(launches["affine"] == 2, f"affine launched {launches['affine']} "
+                                   f"times on the block path, not 2")
+    check(launches["fp_ops"] == 1, f"fp_ops launched {launches['fp_ops']} "
+                                   f"times on the block path, not once")
+
+    small, big = gpu_backend.lane_options()
+    parsed = gpu_backend.parse_sets(gpu, sets)
+    check(parsed is not None, "the block's batch did not parse")
+    lanes = small if len(sets) <= small else big
+    prep = gpu_backend.host_prepare(*parsed, lanes, small)
+    pairs = prep["msg_lanes"] + 1
+    print(f"stf block: the batch {len(sets)} sets, {prep['n_groups']} "
+          f"messages, {lanes} lanes, {prep['msg_lanes']} message lanes, "
+          f"{pairs} Miller pairs ({int(prep['mask'].sum())} live)",
+          flush=True)
+    check(lanes == 128 and prep["n_groups"] == 67,
+          f"the block's batch ran at {lanes} lanes with "
+          f"{prep['n_groups']} messages, not 128 and 67")
+
+    # the same block on the C++ host backend, and the negatives on both
+    negatives = sw.negative_blocks(pre, block, cpp)
+
+    def rejects(bad) -> bool:
+        try:
+            per_block_processing(pre.copy(), bad, VerifySignatures.TRUE)
+        except BlockProcessingError:
+            return True
+        return False
+
+    verdicts = {}
+    bls.set_backend("cpp")
+    try:
+        t0 = time.perf_counter()
+        per_block_processing(pre.copy(), block, VerifySignatures.TRUE)
+        cpp_ms = (time.perf_counter() - t0) * 1e3
+        verdicts["cpp"] = {label: rejects(bad)
+                           for label, bad in negatives.items()}
+    finally:
+        bls.set_backend("gpu")
+    verdicts["gpu"] = {label: rejects(bad) for label, bad in negatives.items()}
+    for backend, got in verdicts.items():
+        for label, raised in got.items():
+            check(raised, f"negative block '{label}' accepted on {backend}")
+    print(f"stf block: accepted on the cpp backend ({cpp_ms:.1f} ms); "
+          f"both negative blocks ({', '.join(negatives)}) raise on gpu and "
+          f"cpp [{card}]", flush=True)
+
+    # timed: warm calls, each on a fresh copy of the pre-state (the copy
+    # outside the time), the post-block root after each signatures-on call
+    def one_block(verify, times=None, roots=None):
+        st = pre.copy()
+        t0 = time.perf_counter()
+        per_block_processing(st, block, verify)
+        t1 = time.perf_counter()
+        if times is not None:
+            times.append((t1 - t0) * 1e3)
+        if roots is not None:
+            check(st.hash_tree_root() == post_root, "post-block root moved")
+            roots.append((time.perf_counter() - t1) * 1e3)
+
+    true_all, false_all, root_ms = [], [], []
+    for _ in range(3):
+        one_block(VerifySignatures.TRUE, true_all, root_ms)
+        one_block(VerifySignatures.FALSE, false_all)
+    true_ms = statistics.median(true_all)
+    false_ms = statistics.median(false_all)
+    sets_ms, _ = _median_ms(lambda: block_sets(pre))
+    parse_ms, _ = _median_ms(lambda: gpu_backend.parse_sets(gpu, sets))
+    prep_ms, _ = _median_ms(
+        lambda: gpu_backend.host_prepare(*parsed, lanes, small))
+    # the device's busy time: one call under the profiler, read only when
+    # the profile holds at least the call's kernel launches (late in a
+    # long process the profiler has lost events)
+    prof = profiled(lambda: one_block(VerifySignatures.TRUE))
+    call_launches = sum(launches[k.name] for k in kernels.BLS_KERNELS)
+    profiled_ok = prof["device_events"] >= call_launches
+    busy_ms = prof["device_busy_ms"] if profiled_ok else None
+    rest_ms = (true_ms - sets_ms - parse_ms - prep_ms - busy_ms
+               if profiled_ok else None)
+    epoch_ms, epoch_root_ms = [], []
+    for _ in range(3):
+        e = post.copy()
+        e.slot = sw.EPOCH_SLOT
+        t0 = time.perf_counter()
+        per_epoch_processing(e)
+        t1 = time.perf_counter()
+        check(e.hash_tree_root() == epoch_root, "post-epoch root moved")
+        epoch_ms.append((t1 - t0) * 1e3)
+        epoch_root_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"stf timed: per_block_processing median of 3 warm calls, "
+          f"signatures on {true_ms:.1f} ms {[round(x, 1) for x in true_all]}"
+          f", off {false_ms:.1f} ms {[round(x, 1) for x in false_all]} "
+          f"[{card}]", flush=True)
+    device = (f"device busy {busy_ms:.2f} ms (one profiled call, "
+              f"{prof['device_events']} device events), the rest of the "
+              f"block's host work {rest_ms:.1f} ms; the card idle "
+              f"{100 * (1 - prof['device_busy_share']):.1f} % of that call "
+              f"({prof['wall_ms']:.1f} ms wall under the profiler); device "
+              f"ms by name {prof['device_ms_by_name']}" if profiled_ok else
+              f"device busy not measured (the profile holds "
+              f"{prof['device_events']} device events, fewer than the "
+              f"call's {call_launches} kernel launches)")
+    print(f"stf timed: the signatures-on call split: set construction "
+          f"{sets_ms:.1f} ms, parse_sets {parse_ms:.1f} ms, host_prepare "
+          f"{prep_ms:.1f} ms, {device} [{card}]", flush=True)
+    print(f"stf timed: post-block root {statistics.median(root_ms):.1f} ms "
+          f"{[round(x, 1) for x in root_ms]}; the epoch "
+          f"{statistics.median(epoch_ms):.1f} ms "
+          f"{[round(x, 1) for x in epoch_ms]} and its root "
+          f"{statistics.median(epoch_root_ms):.1f} ms "
+          f"{[round(x, 1) for x in epoch_root_ms]} [{card}]", flush=True)
+
+    # the BLS kernels against their plain versions on the block batch's
+    # lane inputs (its shapes: 128 lanes, 129 Miller pairs)
+    c = BlsKernelCheck(bounds)
+    bls_stage_chain(c.run, bls_prep(setup, sets, lanes, small), lanes, small,
+                    flagship=False)
+    return {"build_s": build_s, "pubkey_warm_s": warm_s,
+            "signer_rows": len(w.rows), "sets": len(sets),
+            "messages": n_msgs, "pubkeys": n_keys, "lanes": lanes,
+            "miller_pairs": pairs, "live_pairs": int(prep["mask"].sum()),
+            "launches": launches, "pre_root": pre_root.hex(),
+            "pre_root_ms": pre_root_ms, "first_block_ms": first_ms,
+            "post_root": post_root.hex(), "epoch_root": epoch_root.hex(),
+            "cpp_block_ms": cpp_ms, "negatives": verdicts,
+            "block_true_ms": true_ms, "block_true_ms_all": true_all,
+            "block_false_ms": false_ms, "block_false_ms_all": false_all,
+            "sets_ms": sets_ms, "parse_ms": parse_ms, "prepare_ms": prep_ms,
+            "device_busy_ms": busy_ms, "rest_ms": rest_ms, "profile": prof,
+            "post_root_ms": root_ms, "epoch_ms": epoch_ms,
+            "epoch_root_ms": epoch_root_ms}, c
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -1421,10 +1687,30 @@ def main(argv=None) -> int:
     rows += mxu_rows
     modes.update(mxu_modes)
 
+    # phase 7: the block on the card (the state transition at 1M
+    # validators), its launches beside each kernel's row, its BLS kernel
+    # checks at the block batch's shapes among the kernels' modes
+    stf, stf_check = stf_phase(bounds, setup, card_line)
+    for row in rows:
+        if row["name"] in stf["launches"]:
+            row["launches_block_path"] = stf["launches"][row["name"]]
+    label = f"block batch, {stf['lanes']} lanes"
+    for row in stf_check.rows:
+        main_row = next(r for r in rows if r["name"] == row["name"])
+        main_row["max_abs_err"] = max(main_row["max_abs_err"],
+                                      row["max_abs_err"])
+        modes.setdefault(row["name"], []).append(
+            {"mode": label, **{k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}})
+    for name, recs in stf_check.modes.items():
+        modes.setdefault(name, []).extend(
+            {**m, "mode": f"{label}, {m['mode']}"} for m in recs)
+
     report = {"card": card_line, "sm_clock_max_mhz": sm_clock,
               "build_s": build_s, "build": summary, "kernels": rows,
               "kernel_modes": modes, "bls_field_muls": bls_check.muls,
-              "slice": sl, "bls": bls, "multigpu": multigpu, "mxu": mxu}
+              "slice": sl, "bls": bls, "multigpu": multigpu, "mxu": mxu,
+              "stf": stf, "stf_field_muls": stf_check.muls}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

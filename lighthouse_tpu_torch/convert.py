@@ -1,7 +1,8 @@
 """Carry state across from the JAX package.
 
 ``state_from_ssz`` builds the port's BeaconState from the SSZ bytes of a
-state the JAX package serialized; ``device_tree_from_levels`` builds a port
+state the JAX package serialized, ``signed_block_from_ssz`` the port's
+SignedBeaconBlock from a block's; ``device_tree_from_levels`` builds a port
 DeviceTree from the dense levels of a JAX ``DeviceTree`` taken as numpy
 arrays; ``limbs_from_numpy``/``limbs_to_numpy`` carry the JAX package's
 int32 limb arrays (field elements, points, Fp12 values) to the port's
@@ -21,6 +22,7 @@ from .device import resolve
 from .ops.merkle_tree import DeviceTree
 from .ops.sha256 import cap_root, words_to_tensor
 from .specs.chain_spec import ChainSpec, ForkName
+from .ssz import deserialize
 
 
 def state_from_ssz(data: bytes, spec: ChainSpec,
@@ -65,3 +67,10 @@ def signature_sets_from(sets) -> list[SignatureSet]:
     and ``message``) as the port's ``SignatureSet``."""
     return [SignatureSet(bytes(s.signature), [bytes(p) for p in s.pubkeys],
                          bytes(s.message)) for s in sets]
+
+
+def signed_block_from_ssz(data: bytes, spec: ChainSpec, fork: ForkName):
+    """The port's SignedBeaconBlock of ``fork`` from SSZ bytes (either
+    package's encoding: the two are the same)."""
+    typ = get_types(spec.preset).SignedBeaconBlock[fork].ssz_type
+    return deserialize(typ, bytes(data))

@@ -17,45 +17,19 @@ verify_signature_sets :37-119).
 from __future__ import annotations
 
 import ctypes as C
-import hashlib
-import os
-import pathlib
 import secrets
-import subprocess
 import time
 
+from ...utils.gxx import NATIVE, build
 from . import BlsBackend, SignatureSet
 
 _DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
 _RAND_BITS = 64
-
-
-_PKG = pathlib.Path(__file__).resolve().parents[2]
-_SOURCE = _PKG.parent / "native" / "bls12_381.cpp"
-_GXX_FLAGS = ("-O3", "-std=c++17", "-march=native", "-shared", "-fPIC",
-              "-pthread")
-
-
-def _build() -> pathlib.Path:
-    """Compile native/bls12_381.cpp with g++ into the port's _build/
-    (never into native/); the file name carries a digest of the source
-    and flags, so an edited source never loads a stale build."""
-    h = hashlib.sha256(_SOURCE.read_bytes())
-    h.update(" ".join(_GXX_FLAGS).encode())
-    so = _PKG / "_build" / f"libbls12381-{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        so.parent.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        out = subprocess.run(["g++", *_GXX_FLAGS, "-o", str(tmp),
-                              str(_SOURCE)], capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"g++ failed on {_SOURCE}:\n{out.stderr}")
-        os.replace(tmp, so)
-    return so
+_SOURCE = NATIVE / "bls12_381.cpp"
 
 
 def _load_lib():
-    lib = C.CDLL(str(_build()))
+    lib = C.CDLL(str(build(_SOURCE, "bls12381")))
     u32p, u64p = C.POINTER(C.c_uint32), C.POINTER(C.c_uint64)
     lib.bls_selftest.restype = C.c_int
     lib.bls_sk_to_pk.argtypes = [C.c_char_p, C.c_char_p]

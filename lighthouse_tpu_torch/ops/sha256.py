@@ -256,8 +256,35 @@ def _pad_kw() -> list:
 _PAD_KW = _pad_kw()
 
 
+#: at most this many blocks on the CPU run the formulas on Python integers,
+#: a row at a time: a tensor op costs microseconds whatever its length,
+#: and a block is ~6,000 of them (PyTorch: ~14 ms a call at any size up
+#: to ~64 rows; Python integers: ~0.35 ms a row)
+_INT_ROWS = 32
+
+
+@functools.lru_cache(maxsize=1 << 14)
+def _hash64_row_int(row: tuple) -> tuple:
+    """One block's digest words by the formulas of ``_hash64_rounds`` on
+    Python integers, remembered: the CPU runs (the tests) hash the same
+    blocks over and over (a two-epoch harness chain's small trees: ~85 %
+    of their rows repeat)."""
+    w = _schedule([v & _M32 for v in row])
+    state = _compress_plain(list(_IV), [wt + k for wt, k in zip(w, _K)])
+    return tuple(_compress_plain(state, _PAD_KW))
+
+
+def _hash64_rows_int(x: torch.Tensor) -> torch.Tensor:
+    """``_hash64_rounds`` of the int32 [R, 16] rows of a few blocks on the
+    CPU, a row at a time on Python integers."""
+    out = [_hash64_row_int(tuple(row)) for row in x.tolist()]
+    return _i32(torch.tensor(out, dtype=torch.int64).reshape(-1, 8))
+
+
 def _hash64_rounds(blocks: torch.Tensor) -> torch.Tensor:
     lead = blocks.shape[:-1]
+    if blocks.device.type == "cpu" and blocks.numel() <= 16 * _INT_ROWS:
+        return _hash64_rows_int(blocks.reshape(-1, 16)).reshape(*lead, 8)
     x = _u64(blocks.reshape(-1, 16))
     w = _schedule([x[:, i] for i in range(16)])
     state = [torch.full((x.shape[0],), v, dtype=torch.int64, device=x.device)

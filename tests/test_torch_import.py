@@ -32,7 +32,21 @@ need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
         "lighthouse_tpu_torch.parallel", "lighthouse_tpu_torch.parallel.mesh",
         "lighthouse_tpu_torch.parallel.launch",
         "lighthouse_tpu_torch.parallel.merkle",
-        "lighthouse_tpu_torch.parallel.bls"}
+        "lighthouse_tpu_torch.parallel.bls",
+        "lighthouse_tpu_torch.state_transition",
+        "lighthouse_tpu_torch.state_transition.block",
+        "lighthouse_tpu_torch.state_transition.block_replayer",
+        "lighthouse_tpu_torch.state_transition.epoch",
+        "lighthouse_tpu_torch.state_transition.genesis",
+        "lighthouse_tpu_torch.state_transition.helpers",
+        "lighthouse_tpu_torch.state_transition.shuffle",
+        "lighthouse_tpu_torch.state_transition.signature_sets",
+        "lighthouse_tpu_torch.state_transition.slot",
+        "lighthouse_tpu_torch.state_transition.upgrades",
+        "lighthouse_tpu_torch.utils.native_hash", "lighthouse_tpu_torch.utils.gxx",
+        "lighthouse_tpu_torch.ssz.merkle_proof",
+        "lighthouse_tpu_torch.testing.state_harness",
+        "lighthouse_tpu_torch.stf_workload"}
 print(len(names), sorted(need - set(names)), bad)
 """
 

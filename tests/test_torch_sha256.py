@@ -39,6 +39,20 @@ def test_hash64_matches_jax_and_hashlib():
             hashlib.sha256(raw[i].tobytes()).digest()
 
 
+@pytest.mark.parametrize("n", [1, tk._INT_ROWS, tk._INT_ROWS + 1])
+def test_hash64_integer_and_tensor_rounds_agree(n):
+    """On the CPU the plain rounds run on Python integers up to _INT_ROWS
+    blocks and on int64 tensors past it: both give hashlib's digests."""
+    raw = _blocks(np.random.default_rng(n), max(n, 2))[:n]
+    blocks = tk.words_to_tensor(
+        tk.chunks_to_words(raw.tobytes()).reshape(n, 16))
+    want = [hashlib.sha256(r.tobytes()).digest() for r in raw]
+    by_int = tk._hash64_rows_int(blocks)
+    got = tk._hash64_plain(blocks)
+    assert torch.equal(by_int, got)
+    assert [tk.words_to_chunks(w) for w in tk.tensor_to_words(got)] == want
+
+
 def test_int32_words_keep_top_bit_patterns():
     """u32 words with the top bit set are negative int32 on the device and
     come back as the same u32 words."""
