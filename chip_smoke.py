@@ -120,6 +120,20 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    share of that call, the post-block root, and the epoch with its root.
    Each BLS kernel against its plain version on the block batch's own
    lane inputs (128 lanes, 129 Miller pairs), among the kernels' modes.
+   The memory ledger at the phase's end.
+8. Observability, read from what phases 1-7 left (the catalog and the
+   ``obs`` layer are loaded at import, as a node loads them, and the
+   graftwatch sampler ticks once a phase): every kernel that launched (15
+   in mode 0, 20 mode-1/2 variants) has a roofline record on the card
+   (its device ms and its utilization of the peak in (0, 1.05]); the
+   memory ledger of phase 7 (platform ``cuda``, the card's kind, memory
+   and bytes in use, the live merkle trees attributed within them); a
+   second ``build_all`` with no build-cache miss; the catalog metrics of
+   the state root, the BLS batch (``bls_batch_verify_sigs`` at 10,000)
+   and the block; a flight dump the port's doctor renders with exit 0.
+
+Every bound beside a kernel's time (phases 2, 4, 6, 7) is the roofline
+record of the checked call: its wrapper's declared cost (``obs/roofline``).
 
 The expected roots are the JAX package's, pinned by
 tests/test_torch_state_root.py and tests/test_torch_stf_workload.py.
@@ -136,9 +150,17 @@ from pathlib import Path
 
 import numpy as np
 
+# the metric catalog and the observability layer, loaded first as a node
+# loads them: every phase below runs instrumented (span histograms, the
+# batch size, the state copies, the roofline records, the build counts)
+from lighthouse_tpu_torch.api import metrics_defs  # noqa: F401
 from lighthouse_tpu_torch.measure import (
     Bounds, field_err, g2_projective_err, max_abs_err, nvidia_smi, time_cuda,
 )
+from lighthouse_tpu_torch.obs import (
+    cuda_accounting, flight, graftwatch, roofline, timeseries, tracing,
+)
+from lighthouse_tpu_torch.obs import device as ledger
 from lighthouse_tpu_torch.seeded_state import N_VALIDATORS, REPS, STATE_SEED
 
 #: hash_tree_root() of the seeded 1M-validator Deneb mainnet-preset state,
@@ -194,27 +216,37 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
-    ops = sh.HASH64_INT_OPS
     results, modes = [], {}
 
     def rand_words(*shape):
         arr = rng.integers(0, 2**32, size=shape, dtype=np.uint64)
         return torch.from_numpy(arr.astype(np.uint32).view(np.int32)).to(dev)
 
-    def record(name, got, want, fn, plain, n_bytes, n_ops, mode=None,
-               repeats=20):
-        """Check ``got`` against ``want`` bit-exact and time both. The
-        first check of a kernel makes its row; a further ``mode`` (another
-        shape or template instance the main path launches) adds its error
-        to the row and its times to ``modes`` (the report's
-        ``kernel_modes``; the JSON line keeps the first check's times)."""
+    def record(name, fn, want, plain, mode=None, repeats=20, got=None,
+               work=None):
+        """Run ``fn`` (the kernel's call) once, check what it gives
+        (``got(out)`` where given) against ``want`` bit-exact and time
+        both. The bound is the roofline record of that call (the
+        wrapper's declared cost on these inputs; ``work``, a declared
+        cost's (bytes, ops), where the call has none). The first check of a
+        kernel makes its row; a further ``mode`` (another shape or
+        template instance the main path launches) adds its error to the
+        row and its times to ``modes`` (the report's ``kernel_modes``; the
+        JSON line keeps the first check's times)."""
+        with roofline.capture() as calls:
+            out = fn()
+        got = out if got is None else got(out)
         err = max_abs_err(got, want)
         label = name if mode is None else f"{name} [{mode}]"
         check(torch.equal(got, want), f"{label}: kernel != plain "
                                       f"(max_abs_err {err})")
         ms = time_cuda(fn, repeats)
         plain_ms = time_cuda(plain, 3, warmup=0)
-        bound_ms, bound_by = bounds(n_bytes, n_ops)
+        if work is None:
+            rec = [c for c in calls if c["kernel"] == name][-1]
+            bound_ms, bound_by = rec["bound_ms"], rec["bound_by"]
+        else:
+            bound_ms, bound_by = bounds(*work)
         print(f"kernel {label}: ok bit-exact, {ms:.4f} ms (plain "
               f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by})",
               flush=True)
@@ -241,9 +273,8 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
     # hash64 on 2^20 random 64-byte blocks (one level of the registry tree)
     n = 1 << 20
     blocks = rand_words(n, 16)
-    record("hash64", sh.hash64(blocks), sh._hash64_plain(blocks),
-           lambda: sh.hash64(blocks), lambda: sh._hash64_plain(blocks),
-           n * (64 + 32), n * ops)
+    record("hash64", lambda: sh.hash64(blocks), sh._hash64_plain(blocks),
+           lambda: sh._hash64_plain(blocks))
     del blocks
 
     # fold_pre, the registry build (<3>): 2^20 slots, 1,000,000 live
@@ -253,12 +284,10 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
     pk = rand_words(n_live, 16)
     out_k = torch.empty((n, 8), dtype=torch.int32, device=dev)
     out_p = torch.empty_like(out_k)
-    mt.fold_pre(chunks, pk, p, n_live, out_k)
     mt._fold_pre_plain(chunks, pk, None, n, n_live, p, out_p)
-    record("fold_pre", out_k, out_p,
-           lambda: mt.fold_pre(chunks, pk, p, n_live, out_k),
-           lambda: mt._fold_pre_plain(chunks, pk, None, n, n_live, p, out_p),
-           n_live * (8 * 32 + 64) + n * 32, n_live * 8 * ops)
+    record("fold_pre", lambda: mt.fold_pre(chunks, pk, p, n_live, out_k),
+           out_p,
+           lambda: mt._fold_pre_plain(chunks, pk, None, n, n_live, p, out_p))
     del chunks, pk
 
     # fold_pre, a registry update (<3>, scatter): 1,024 dirty validators
@@ -266,12 +295,12 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
     r = 1024
     rows = sorted_rows(r, n_live)
     chunks, pk = rand_words(r * 8, 8), rand_words(r, 16)
-    mt.fold_pre(chunks, pk, p, n_live, out_k, rows=rows)
     mt._fold_pre_plain(chunks, pk, rows, r, n_live, p, out_p)
-    record("fold_pre", out_k, out_p,
+    record("fold_pre",
            lambda: mt.fold_pre(chunks, pk, p, n_live, out_k, rows=rows),
+           out_p,
            lambda: mt._fold_pre_plain(chunks, pk, rows, r, n_live, p, out_p),
-           r * (8 * 32 + 64 + 4 + 32), r * 8 * ops, mode="scatter<3>")
+           mode="scatter<3>")
     del out_k, out_p
 
     # fold_pre, the balances column (<0>, no pubkeys): 1,000,000 u64 are
@@ -281,22 +310,21 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
     chunks = rand_words(n_live, 8)
     out_k = torch.empty((n0, 8), dtype=torch.int32, device=dev)
     out_p = torch.empty_like(out_k)
-    mt.fold_pre(chunks, None, 0, n_live, out_k)
     mt._fold_pre_plain(chunks, None, None, n0, n_live, 0, out_p)
-    record("fold_pre", out_k, out_p,
-           lambda: mt.fold_pre(chunks, None, 0, n_live, out_k),
+    record("fold_pre", lambda: mt.fold_pre(chunks, None, 0, n_live, out_k),
+           out_p,
            lambda: mt._fold_pre_plain(chunks, None, None, n0, n_live, 0,
                                       out_p),
-           n_live * 32 + n0 * 32, 0, mode="build<0>")
+           mode="build<0>")
     rows = sorted_rows(r, n_live)
     chunks = rand_words(r, 8)
-    mt.fold_pre(chunks, None, 0, n_live, out_k, rows=rows)
     mt._fold_pre_plain(chunks, None, rows, r, n_live, 0, out_p)
-    record("fold_pre", out_k, out_p,
+    record("fold_pre",
            lambda: mt.fold_pre(chunks, None, 0, n_live, out_k, rows=rows),
+           out_p,
            lambda: mt._fold_pre_plain(chunks, None, rows, r, n_live, 0,
                                       out_p),
-           r * (32 + 4 + 32), 0, mode="scatter<0>")
+           mode="scatter<0>")
     del chunks, out_k, out_p
 
     # path_update: the one-launch walk of an update up a depth-20 tree, at
@@ -323,17 +351,13 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
             mt._path_walk_plain(lv_p, rows)
             return sh._cap_fold_plain(lv_p[-1][0], zeros[depth:limit])
 
-        root_k = mt._path_walk(lv_k, rows, limit)
         root_p = walk_plain()
-        # the work this data needs: one hash per distinct parent per
-        # level, then the caps
-        parents = sum(len(np.unique(rows_np.astype(np.int64) >> (lvl + 1)))
-                      for lvl in range(depth)) + limit - depth
-        record("path_update", torch.cat(lv_k + [root_k[None]]),
-               torch.cat(lv_p + [root_p[None]]),
-               lambda: mt._path_walk(lv_k, rows, limit), walk_plain,
-               parents * (64 + 32) + 4 * len(rows_np) + 32, parents * ops,
-               mode=None if r == 1024 else f"R={r}, one walk")
+        # the bound counts the work this data needs: one hash per
+        # distinct parent per level, then the caps
+        record("path_update", lambda: mt._path_walk(lv_k, rows, limit),
+               torch.cat(lv_p + [root_p[None]]), walk_plain,
+               mode=None if r == 1024 else f"R={r}, one walk",
+               got=lambda root, lv_k=lv_k: torch.cat(lv_k + [root[None]]))
         del lv_k, lv_p
     del levels
 
@@ -356,13 +380,15 @@ def kernel_phase(bounds: Bounds) -> tuple[list[dict], dict]:
 
     for dense, lim in ((20, 40), (20, 20), (20, 21), (0, 44)):
         kk = lim - dense
-        record("cap_fold", cap_kernel(dense, lim),
+        record("cap_fold", lambda dense=dense, lim=lim: cap_kernel(dense, lim),
                sh._cap_fold_plain(root, zeros[dense:lim]),
-               lambda dense=dense, lim=lim: cap_kernel(dense, lim),
                lambda dense=dense, lim=lim: sh._cap_fold_plain(
                    root, zeros[dense:lim]),
-               (1 + kk) * 32 + 32, kk * ops,
-               mode=None if kk == 20 else f"k={kk}")
+               mode=None if kk == 20 else f"k={kk}",
+               # at no caps the C entry runs outside cap_root (no record):
+               # cap_root's declared cost
+               work=None if kk else sh.cap_root.cost(None, root, dense,
+                                                     lim))
         # the chain's floor: 2 k dependent compressions of 64 rounds, ~7
         # dependent integer operations a round at ~4 cycles each
         print(f"kernel cap_fold [k={kk}]: the chain's latency floor "
@@ -478,28 +504,8 @@ def timed(fn):
 def build_summary(logs: dict) -> dict:
     """Per source: the registers, stack frame and spills ptxas reported
     for each of its kernels (entry functions)."""
-    import re
-    out = {}
-    for src, log in logs.items():
-        rows, cur = [], None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                cur = {"entry": m.group(1)}
-                rows.append(cur)
-                continue
-            if cur is None:
-                continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m and "stack" not in cur:
-                cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
-                    int(m.group(1)), int(m.group(2)), int(m.group(3)))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and "registers" not in cur:
-                cur["registers"] = int(m.group(1))
-        out[src] = rows
-    return out
+    return {src: cuda_accounting.ptxas_summary(log)
+            for src, log in logs.items()}
 
 
 class BlsKernelCheck:
@@ -509,12 +515,13 @@ class BlsKernelCheck:
     Equality is of canonical field values (max_abs_err over canonical
     limbs, 0 required) and of flags. Times: the kernel's median over
     ``repeats`` CUDA-event runs, the plain version's one run. The bound is
-    the larger of the bytes over the memory rate and the field multiplies
-    of the kernel's own algorithm on these inputs (``muls``: a count, or a
-    function of the kernel's output) x the integer ops the function needs
-    for one (``bls_cost.FP_MUL_INT_OPS``, whatever the multiply lowering)
-    over the INT32 rate. The plain version's count (its mont_mul counter)
-    is printed beside it: it is branch-free, so it computes more.
+    the roofline record of the check's kernel call: the wrapper's declared
+    cost, the larger of the bytes over the memory rate and the field
+    multiplies of the kernel's own algorithm on these inputs x the integer
+    ops the function needs for one (``bls_cost.FP_MUL_INT_OPS``, whatever
+    the multiply lowering) over the INT32 rate. The plain version's count
+    (its mont_mul counter) is printed beside it: it is branch-free, so it
+    computes more.
 
     ``run`` keeps each check's inputs and plain output (``calls``).
     ``rerun`` holds the kernel of the current multiply lowering ``mxu``
@@ -532,40 +539,43 @@ class BlsKernelCheck:
         self.muls: dict[str, dict] = {}
         self.calls: list[dict] = []
 
-    def run(self, kernel, kernel_fn, plain_fn, args, muls, mode=None,
+    def run(self, kernel, kernel_fn, plain_fn, args, mode=None,
             repeats=3, depth=None, design=None, projective=False,
-            issue=None, old_muls=None, int_ops=0, kernel_ops=None):
-        import torch
-
+            issue=None, old_muls=None, kernel_ops=None):
         from lighthouse_tpu_torch.ops import bigint as bi
-        got = kernel_fn(*args)
-        torch.cuda.synchronize()
+        got, rec = self._launch(kernel, kernel_fn, args)
         bi.MONT_MUL_ROWS.reset()
         want, plain_ms = timed(lambda: plain_fn(*args))
         call = {"kernel": kernel, "kernel_fn": kernel_fn, "args": args,
                 "want": want, "plain_ms": plain_ms,
-                "plain_muls": bi.MONT_MUL_ROWS.rows, "muls": muls,
+                "plain_muls": bi.MONT_MUL_ROWS.rows,
                 "mode": mode, "repeats": repeats, "depth": depth,
                 "design": design, "projective": projective,
-                "issue": issue, "old_muls": old_muls, "int_ops": int_ops,
+                "issue": issue, "old_muls": old_muls,
                 "kernel_ops": kernel_ops}
         self.calls.append(call)
-        self._record(call, got)
+        self._record(call, got, rec)
         return got
 
     def rerun(self, call: dict) -> None:
-        import torch
-
         from lighthouse_tpu_torch.ops import bigint as bi
         check(bi.mxu_mode() == self.mxu, f"multiply lowering {bi.mxu_mode()}"
                                          f" in force, not {self.mxu}")
-        got = call["kernel_fn"](*call["args"])
-        torch.cuda.synchronize()
-        self._record(call, got)
+        self._record(call, *self._launch(call["kernel"], call["kernel_fn"],
+                                         call["args"]))
 
-    def _record(self, call: dict, got) -> None:
+    @staticmethod
+    def _launch(kernel, kernel_fn, args):
+        """The kernel's output on ``args`` and the roofline record of its
+        call (the last one of ``kernel``: an outer call returns after the
+        calls it makes)."""
         import torch
+        with roofline.capture() as calls:
+            got = kernel_fn(*args)
+        torch.cuda.synchronize()
+        return got, [c for c in calls if c["kernel"] == kernel][-1]
 
+    def _record(self, call: dict, got, roof: dict) -> None:
         from lighthouse_tpu_torch import kernels
         from lighthouse_tpu_torch.ops import bls_cost as cost
         kernel, args, mode = call["kernel"], call["args"], call["mode"]
@@ -579,16 +589,12 @@ class BlsKernelCheck:
             what = "canonical values"
         check(err == 0, f"{label}: kernel != plain (max_abs_err {err} on "
                         f"{what})")
-        muls, issue, old_muls = (
-            v(got) if callable(v) else v
-            for v in (call["muls"], call["issue"], call["old_muls"]))
+        issue, old_muls = (v(got) if callable(v) else v
+                           for v in (call["issue"], call["old_muls"]))
         ms = time_cuda(lambda: call["kernel_fn"](*args), call["repeats"])
-        got_t = got if isinstance(got, tuple) else (got,)
-        n_bytes = sum(t.numel() * t.element_size()
-                      for t in (*args, *got_t) if isinstance(t, torch.Tensor))
-        extra = call["int_ops"]
-        bound_ms, bound_by = self.bounds(
-            n_bytes, muls * cost.FP_MUL_INT_OPS + extra)
+        n_bytes, muls, extra = (roof["bytes"], roof["field_muls"],
+                                roof.get("word_ops", 0))
+        bound_ms, bound_by = roof["bound_ms"], roof["bound_by"]
         alg_ms = self.bounds(
             n_bytes, muls * cost.fp_mul_pipe_ops(self.mxu)["issue"] + extra)[0]
         lanes = int(args[0].shape[0])
@@ -700,8 +706,9 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
                     flagship: bool = True) -> None:
     """The BLS stages on a batch's lane inputs (``prep`` at ``lanes`` /
     ``small`` lanes), each kernel reading what the kernel before it wrote:
-    ``run(kernel, kernel_fn, plain_fn, args, muls, ...)`` checks and times
-    one (``BlsKernelCheck.run``). The batch must verify on the kernels.
+    ``run(kernel, kernel_fn, plain_fn, args, ...)`` checks and times
+    one (``BlsKernelCheck.run``; its bound the roofline record of the
+    kernel's call). The batch must verify on the kernels.
     ``flagship`` adds the layouts of the 10k batch's paths: the segment
     sums over one 10,000-lane segment and 10,000 one-lane segments, and
     the Miller loop at ``lanes`` + 1 pairs."""
@@ -720,19 +727,17 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
     # the lane inputs' Montgomery entry, one launch on their packed array
     # (4 x lanes elements), as the main path runs it; then mul, add, sub
     entry = run("fp_ops", lambda a: bi.fp_ops_kernel(bi.FP_TO_MONT, a),
-                bi._mont_from_int_plain, (put(prep["lane_ints"]),),
-                4 * lanes)
+                bi._mont_from_int_plain, (put(prep["lane_ints"]),))
     sig_x, pk_x, pk_y = gb.split_lane_ints(entry, lanes)
     for mode, op, plain in (("mul", bi.FP_MUL, bi._mont_mul_plain),
                             ("add", bi.FP_ADD, bi._add_mod_plain),
                             ("sub", bi.FP_SUB, bi._sub_mod_plain)):
         run("fp_ops", lambda a, b, op=op: bi.fp_ops_kernel(op, a, b), plain,
-            (sig_x, sig_x), 2 * lanes if op == bi.FP_MUL else 0, mode=mode)
+            (sig_x, sig_x), mode=mode)
     flags = put(prep["flags"].astype(np.int32))
 
     sig_y, _ = run("g2_intake", k.g2_decompress_batch,
-                   k._g2_decompress_plain, (sig_x, flags),
-                   cost.g2_decompress(lanes), repeats=2,
+                   k._g2_decompress_plain, (sig_x, flags), repeats=2,
                    issue=cost.g2_decompress_lanes(lanes))
     one2 = put(np.broadcast_to(k.FP2_ONE, (lanes, 2, bi.NLIMBS)))
     z_one, z_zero = np.ones(lanes, bool), np.zeros(lanes, bool)
@@ -741,17 +746,16 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
         return cost.g2_subgroup_lanes(z_one, z_zero, ok.cpu().numpy())
 
     ok = run("g2_intake", k.g2_in_subgroup_batch, k._g2_in_subgroup_plain,
-             (sig_x, sig_y, one2),
-             lambda ok: subgroup_issue(ok)["products"],
-             mode="subgroup", repeats=2, issue=subgroup_issue,
+             (sig_x, sig_y, one2), mode="subgroup", repeats=2,
+             issue=subgroup_issue,
              old_muls=lambda ok: cost.g2_subgroup(z_zero, ok.cpu().numpy()))
     check(bool(ok.all()), "a signature of the batch failed the subgroup "
                           "check")
 
     u0, u1 = put(prep["u0"]), put(prep["u1"])
     mx, my, mz = run("hash_to_g2", k.hash_to_g2_batch_from_u,
-                     k._hash_to_g2_plain, (u0, u1), cost.hash_to_g2(small),
-                     repeats=2, depth=cost.hash_to_g2_depth(small))
+                     k._hash_to_g2_plain, (u0, u1), repeats=2,
+                     depth=cost.hash_to_g2_depth(small))
 
     one1 = put(np.broadcast_to(k.FP_ONE, (lanes, bi.NLIMBS)))
     pk_bits_np = k.scalars_to_bits(prep["pk_rands"], 64)
@@ -760,12 +764,11 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
     g1_issue = cost.scalar_mul_lanes(pk_bits_np, 1)
     g2_issue = cost.scalar_mul_lanes(sig_bits_np, 2)
     spx, spy, spz = run("rlc_scale", k.g1_scalar_mul, k._g1_scalar_mul_plain,
-                        (pk_x, pk_y, one1, pk_bits), g1_issue["products"],
-                        issue=g1_issue,
+                        (pk_x, pk_y, one1, pk_bits), issue=g1_issue,
                         old_muls=cost.scalar_mul(pk_bits_np, 1))
     ssx, ssy, ssz = run("rlc_scale", k.g2_scalar_mul,
                         k._g2_scalar_mul_plain, (sig_x, sig_y, one2, sig_bits),
-                        g2_issue["products"], mode="G2", issue=g2_issue,
+                        mode="G2", issue=g2_issue,
                         old_muls=cost.scalar_mul(sig_bits_np, 2))
     # the segment sums on the batch's layout (its host arrays, as the
     # main path passes them), then on one segment of 10,000 lanes (every
@@ -775,7 +778,7 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
         adds = cost.g1_segment_sum_depth(starts, ends)
         return run("g1_segment_sum", k.g1_segment_sum,
                    k._g1_segment_sum_plain, (spx, spy, spz, starts, ends),
-                   cost.g1_segment_sum(starts, ends), mode=mode,
+                   mode=mode,
                    depth=adds * cost.W_JAC_ADD_DEPTH or None,
                    design=f"one cooperative launch, trees over pieces of "
                           f"{k.g1_segment_t(len(starts), len(ends))} lanes, "
@@ -793,7 +796,7 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
         seg_run(single, np.arange(m, dtype=np.int32),
                 mode=f"{m} one-lane segments")
     ax, ay, az = run("g2_sum", k.g2_sum, k._g2_sum_plain, (ssx, ssy, ssz),
-                     cost.g2_sum(lanes), depth=cost.g2_sum_depth(lanes),
+                     depth=cost.g2_sum_depth(lanes),
                      design=f"a tree over {min(-(-lanes // 128), 128)} "
                             f"blocks of 128 threads, then one",
                      projective=True)
@@ -805,16 +808,13 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
     q = tuple(torch.cat([m, a[None]]) for m, a in ((mx, ax), (my, ay),
                                                    (mz, az)))
     fermat = cost.FP_INV - cost.FP_INV_BINARY
-    q_muls, q_words = cost.affine_least(q[2], 2)
     qx, qy = run("affine", k.jacobian_to_affine_fp2,
-                 k._jacobian_to_affine_fp2_plain, q, q_muls, int_ops=q_words,
+                 k._jacobian_to_affine_fp2_plain, q,
                  kernel_ops=cost.affine_int_ops(q[2], 2),
                  old_muls=cost.affine(small + 1, 2) + (small + 1) * fermat)
-    g_muls, g_words = cost.affine_least(gpz, 1)
     apx, apy = run("affine", k.jacobian_to_affine_fp,
-                   k._jacobian_to_affine_fp_plain, (gpx, gpy, gpz), g_muls,
-                   mode="G1", int_ops=g_words,
-                   kernel_ops=cost.affine_int_ops(gpz, 1),
+                   k._jacobian_to_affine_fp_plain, (gpx, gpy, gpz),
+                   mode="G1", kernel_ops=cost.affine_int_ops(gpz, 1),
                    old_muls=cost.affine(small, 1) + small * fermat)
 
     pad = gb._pad_cache()
@@ -824,8 +824,7 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
     n_pairs = px.shape[0]
     fs = run("miller_loop", k.miller_loop_batch,
              lambda *a: k._mask_to_one(k._miller_loop_plain(*a[:4]), a[4]),
-             (px, py, qx, qy, mask), cost.miller_loop(prep["mask"]),
-             repeats=2, depth=cost.miller_loop_depth(n_pairs),
+             (px, py, qx, qy, mask), repeats=2, depth=cost.miller_loop_depth(n_pairs),
              design=cost.miller_loop_design(n_pairs))
     # the verification past 128 messages: its pairs tiled to 10,241 lanes,
     # with the live lanes of 127 messages (the message lanes and the
@@ -845,8 +844,7 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
         run("miller_loop", k.miller_loop_batch,
             lambda *a: (k._miller_loop_plain(*a[:4]) if len(a) == 4 else
                         k._mask_to_one(k._miller_loop_plain(*a[:4]), a[4])),
-            args, cost.miller_loop(np.ones(wide, bool) if m is None else m),
-            mode=label, repeats=2, depth=cost.miller_loop_depth(ran),
+            args, mode=label, repeats=2, depth=cost.miller_loop_depth(ran),
             design=cost.miller_loop_design(ran))
 
     def final_plain(f):
@@ -854,12 +852,11 @@ def bls_stage_chain(run, prep: dict, lanes: int, small: int,
         return v, k.fp12_eq(v, k.fp12_one_like((), v)).reshape(1)
 
     out, flag = run("final_exp", lambda f: k._final_exp_kernel(1, f),
-                    final_plain, (fs,), cost.final_exp(fs.shape[0], 1),
-                    repeats=2, depth=cost.final_exp_depth(fs.shape[0], 1))
+                    final_plain, (fs,), repeats=2, depth=cost.final_exp_depth(fs.shape[0], 1))
     check(int(flag.item()) == 1, "the batch's pairing product is not one "
                                  "on the kernels")
     run("final_exp", k.fp12_product, k._fp12_product_plain, (fs,),
-        cost.final_exp(fs.shape[0], 0), mode="product",
+        mode="product",
         depth=cost.final_exp_depth(fs.shape[0], 0))
     torch.cuda.synchronize()
 
@@ -1226,7 +1223,8 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
     words = sh.words_to_tensor(sh.pad_messages(msgs), dev)
     nblocks = int(words.shape[1])
     kernels.reset_counts()
-    got = sh.sha256_messages(words)
+    with roofline.capture() as calls:
+        got = sh.sha256_messages(words)
     torch.cuda.synchronize()
     launches = kernels.SHA256_MESSAGES.launches
     want, plain_ms = timed(lambda: sh._sha256_messages_plain(words))
@@ -1237,8 +1235,7 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
               hashlib.sha256(msgs[i].tobytes()).digest(),
               "sha256_messages != hashlib at 2^20 messages")
     ms = time_cuda(lambda: sh.sha256_messages(words), 10)
-    bound = bounds(n * (nblocks * 64 + 32),
-                   n * nblocks * sh.SHA256_COMPRESS_INT_OPS)
+    bound = (calls[-1]["bound_ms"], calls[-1]["bound_by"])
     print(f"kernel sha256_messages: ok bit-exact and equal to hashlib, "
           f"{n} messages of {length} bytes ({nblocks} blocks) {ms:.4f} ms "
           f"(plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by "
@@ -1270,7 +1267,8 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
             bi.set_mxu_mode(mxu)
             kern = kernels.FP12_POW.variant(mxu)
             kernels.reset_counts()
-            got = k.fp12_pow_const(f, e)
+            with roofline.capture() as calls:
+                got = k.fp12_pow_const(f, e)
             torch.cuda.synchronize()
             launches = kern.launches
             want, plain_ms = timed(lambda: k._fp12_pow_const_plain(f, e))
@@ -1283,10 +1281,10 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
                       f"{kern.name} at a {edge.bit_length()}-bit exponent "
                       f"!= plain (max_abs_err {err_e})")
             ms = time_cuda(lambda: k.fp12_pow_const(f, e), 3)
-            muls = cost.fp12_pow(lanes, e)
-            bound = bounds(2 * f.numel() * 4, muls * cost.FP_MUL_INT_OPS)
-            alg_ms = bounds(2 * f.numel() * 4,
-                            muls * cost.fp_mul_pipe_ops(mxu)["issue"])[0]
+            roof = calls[-1]
+            bound = (roof["bound_ms"], roof["bound_by"])
+            alg_ms = bounds(roof["bytes"], roof["field_muls"]
+                            * cost.fp_mul_pipe_ops(mxu)["issue"])[0]
             picked = cost.fp12_pow_lanes(lanes, sms)
             steps = cost.fp12_pow_depth(e)
             report[f"{kern.name}_algorithm_bound_ms"] = alg_ms
@@ -1306,7 +1304,8 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
                 plain_ms, bound)
 
             kernels.reset_counts()
-            got = bi.reduce_wide_mod_p(wide)
+            with roofline.capture() as calls:
+                got = bi.reduce_wide_mod_p(wide)
             torch.cuda.synchronize()
             fp_launches = kernels.FP_OPS.variant(mxu).launches
             want, plain_ms = timed(lambda: bi._reduce_wide_plain(wide))
@@ -1315,12 +1314,12 @@ def new_kernel_rows(bounds: Bounds, card: str) -> tuple[list[dict], dict]:
                   f"reduce_wide_mod_p under mode {mxu}: max_abs_err {err}, "
                   f"{fp_launches} fp_ops launches, not one")
             ms = time_cuda(lambda: bi.reduce_wide_mod_p(wide), 10)
-            # the function's least work: one read of the [n, 64] rows, one
-            # write of [n, 32], two products a row
-            muls, n_bytes = cost.fp_ops(bi.FP_WIDE, len(wide_vals))
-            bound = bounds(n_bytes, muls * cost.FP_MUL_INT_OPS)
-            alg_ms = bounds(n_bytes,
-                            muls * cost.fp_mul_pipe_ops(mxu)["issue"])[0]
+            # the function's least work (fp_ops' declared cost): one read
+            # of the [n, 64] rows, one write of [n, 32], two products a row
+            roof = calls[-1]
+            bound = (roof["bound_ms"], roof["bound_by"])
+            alg_ms = bounds(roof["bytes"], roof["field_muls"]
+                            * cost.fp_mul_pipe_ops(mxu)["issue"])[0]
             report[f"reduce_wide_mxu{mxu}"] = {
                 "rows": len(wide_vals), "fp_ops_launches": fp_launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1467,7 +1466,10 @@ def stf_phase(bounds: Bounds, setup: dict,
     pre_root_ms = (time.perf_counter() - t0) * 1e3
     post = pre.copy()
     t0 = time.perf_counter()
-    per_block_processing(post, block, VerifySignatures.TRUE)
+    # per_block_processing in the stf_block span, as the chain imports a
+    # block (its catalog histogram stf_block_seconds)
+    with tracing.span("stf_block", slot=int(block.message.slot)):
+        per_block_processing(post, block, VerifySignatures.TRUE)
     first_ms = (time.perf_counter() - t0) * 1e3
     post_root = post.hash_tree_root()
     ep = post.copy()
@@ -1541,7 +1543,8 @@ def stf_phase(bounds: Bounds, setup: dict,
     def one_block(verify, times=None, roots=None):
         st = pre.copy()
         t0 = time.perf_counter()
-        per_block_processing(st, block, verify)
+        with tracing.span("stf_block", slot=int(block.message.slot)):
+            per_block_processing(st, block, verify)
         t1 = time.perf_counter()
         if times is not None:
             times.append((t1 - t0) * 1e3)
@@ -1606,7 +1609,10 @@ def stf_phase(bounds: Bounds, setup: dict,
     c = BlsKernelCheck(bounds)
     bls_stage_chain(c.run, bls_prep(setup, sets, lanes, small), lanes, small,
                     flagship=False)
-    return {"build_s": build_s, "pubkey_warm_s": warm_s,
+    # the memory ledger at the end of the phase, its 1M states' trees live
+    torch.cuda.synchronize()
+    memory = ledger.ledger_snapshot()
+    return {"ledger": memory, "build_s": build_s, "pubkey_warm_s": warm_s,
             "signer_rows": len(w.rows), "sets": len(sets),
             "messages": n_msgs, "pubkeys": n_keys, "lanes": lanes,
             "miller_pairs": pairs, "live_pairs": int(prep["mask"].sum()),
@@ -1620,6 +1626,171 @@ def stf_phase(bounds: Bounds, setup: dict,
             "device_busy_ms": busy_ms, "rest_ms": rest_ms, "profile": prof,
             "post_root_ms": root_ms, "epoch_ms": epoch_ms,
             "epoch_root_ms": epoch_root_ms}, c
+
+
+def _sampled(slot: int, name: str) -> float | None:
+    """The graftwatch sampler's value of series ``name`` in the row of
+    ``slot`` (a phase: the smoke ticks the sampler once a phase), or
+    None."""
+    slots, vals = timeseries.get_sampler().series(name)
+    hit = np.flatnonzero(slots == slot)
+    return None if not hit.size or np.isnan(vals[hit[0]]) else float(
+        vals[hit[0]])
+
+
+def obs_phase(card: str, stf: dict) -> dict:
+    """Phase 8: what the observability layer kept of phases 1-7, read and
+    checked (nothing heavy runs again): every kernel that launched (the 15
+    in mode 0, the mode-1/2 variants phase 6 ran) has a roofline record on
+    the card with a device ms and a utilization of the peak in (0, 1.05],
+    and no record on the card reads above 1.05; the memory ledger at the
+    end of phase 7 (platform ``cuda``, the card's kind and memory, bytes in
+    use, the live merkle trees attributed within them); a second
+    ``build_all`` of every library (no miss); the catalog metrics of the
+    state root, the BLS batch and the block in the sampler's rows; a
+    flight dump rendered by the port's doctor (exit 0)."""
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from lighthouse_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    report: dict = {}
+
+    # roofline records: the best sampled call of each variant on the card
+    best, n_records = {}, 0
+    for recs in roofline.snapshot().values():
+        for r in recs:
+            if r["platform"] != "cuda" or r.get("bound_ms") is None:
+                continue
+            n_records += 1
+            util = r["utilization_of_peak"]
+            check(util is not None and util <= 1.05,
+                  f"roofline {r['variant']} [{r['shapes']}]: utilization "
+                  f"{util} of the peak, not at most 1.05 (the declared "
+                  f"cost counts more than the call did)")
+            if util > 0 and r["ms"] > 0 and util > best.get(
+                    r["variant"], {}).get("utilization_of_peak", 0):
+                best[r["variant"]] = r
+    launched = [k.name for k in kernels.KERNELS.values()] + [
+        k.variant(m).name for m in (1, 2) for k in kernels.KERNELS.values()
+        if k.mxu_variants]
+    for name in launched:
+        check(name in best, f"kernel {name}: no roofline record on the card "
+                            f"with a device ms and a utilization in (0, "
+                            f"1.05]")
+        r = best[name]
+        print(f"roofline {name} [{r['shapes']}]: {r['ms']:.4f} ms on the "
+              f"card (median of its samples {r['ms_median']:.4f}), "
+              f"{r['bytes']} B, {r['ops']} int ops, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, utilization "
+              f"{r['utilization_of_peak']:.4g} of the peak "
+              f"({r['timed_calls']} timed of {r['calls']} calls) [{card}]",
+              flush=True)
+    print(f"roofline: {len(best)} kernel variants, {n_records} records on "
+          f"the card; peak {next(iter(best.values()))['peak']}", flush=True)
+    report["roofline"] = best
+    report["roofline_records"] = roofline.snapshot()
+
+    # the memory ledger at the end of phase 7
+    mem = stf["ledger"]
+    check(mem["platform"] == "cuda"
+          and mem["device_kind"] == torch.cuda.get_device_name(0),
+          f"ledger platform {mem['platform']} / {mem['device_kind']}")
+    row = mem["hbm"][0]
+    trees = mem["attribution"].get("ops.merkle_tree", {}).get(
+        "levels", {}).get("live_bytes", 0)
+    check(row["bytes_limit"] > 0 and row["bytes_in_use"] > 0,
+          f"ledger row {row}: no bytes in use or no limit")
+    check(0 < trees <= row["bytes_in_use"],
+          f"the live merkle trees attribute {trees} B against "
+          f"{row['bytes_in_use']} B in use")
+    print(f"ledger (end of phase 7): {mem['platform']} {mem['device_kind']} "
+          f"x {mem['chip_count']}: {row['bytes_in_use']} B in use (peak "
+          f"{row['peak_bytes_in_use']}), {row['reserved']} B reserved, "
+          f"{row['used_by_all']} B used by all of {row['bytes_limit']}; the "
+          f"live merkle trees {trees} B; host RSS {mem['host']['rss_bytes']} "
+          f"B [{card}]", flush=True)
+
+    # the build accounting: phase 1's cold build and phase 6's variants,
+    # then every library again, all found in _build/
+    cold = cuda_accounting.snapshot()
+    t0 = time.perf_counter()
+    kernels.build_all(list(kernels.KERNELS.values()) + [
+        k.variant(m) for m in (1, 2) for k in kernels.KERNELS.values()
+        if k.mxu_variants])
+    warm_s = time.perf_counter() - t0
+    warm = cuda_accounting.snapshot()
+    misses = warm["cache_misses"] - cold["cache_misses"]
+    hits = warm["cache_hits"] - cold["cache_hits"]
+    check(misses == 0 and hits > 0, f"the second build_all: {misses} "
+                                    f"misses, {hits} hits")
+    print(f"build accounting: {cold['builds']} nvcc builds, "
+          f"{cold['build_seconds']:.1f} s summed over them (cold), "
+          f"{cold['cache_hits']} cache hits before; the second build_all "
+          f"{hits} hits, {misses} misses in {warm_s:.3f} s; "
+          f"{warm['libraries_loaded']} libraries bound; {warm['h2d_bytes']} B "
+          f"h2d, {warm['d2h_bytes']} B d2h accounted [{card}]", flush=True)
+    report["build"] = {"cold": {k: v for k, v in cold.items()
+                                if k != "libraries"},
+                       "warm_s": warm_s, "warm_hits": hits,
+                       "warm_misses": misses}
+
+    # the catalog metrics, each in the row of the phase that fed it
+    want = (("bls_batch_verify_sigs.p50", 4),
+            ("bls_batch_verify_sigs.count", 4),
+            ("beacon_batch_verify_seconds.count", 4),
+            ("beacon_batch_verify_seconds.p50", 4),
+            ("tree_hash_root_seconds.count", 3),
+            ("tree_hash_root_seconds.p50", 3),
+            ("state_copy_seconds.count", 7), ("state_copy_seconds.p50", 7),
+            ("stf_block_seconds.count", 7), ("stf_block_seconds.p50", 7),
+            ("kernel_build_total", 1), ("kernel_build_seconds_total", 1),
+            ("device_hbm_bytes_in_use", 7))
+    metrics = {f"{n}@{slot}": _sampled(slot, n) for n, slot in want}
+    missing = [k for k, v in metrics.items() if not v]
+    check(not missing, f"catalog metrics not fed: {missing}")
+    check(metrics["bls_batch_verify_sigs.p50@4"] == 10000,
+          f"bls_batch_verify_sigs p50 in phase 4: "
+          f"{metrics['bls_batch_verify_sigs.p50@4']}, not 10,000")
+    print("catalog metrics (phase: value): " + ", ".join(
+        f"{k.replace('@', ' @')} {v:.6g}" for k, v in metrics.items())
+          + f" [{card}]", flush=True)
+    slos = graftwatch.get().engine.status()
+    print("slo: " + "; ".join(f"{n} {v['last_detail']}"
+                              for n, v in slos.items()
+                              if n in ("hbm_headroom", "kernel_build_steady",
+                                       "compile_cache_hit_ratio")),
+          flush=True)
+    report["metrics"] = metrics
+
+    # a flight dump, rendered by the port's doctor
+    with tempfile.TemporaryDirectory() as tmp:
+        path = flight.FlightRecorder(graftwatch.get()).dump(
+            reason="chip_smoke", path=os.path.join(tmp, "dump.json"))
+        doc = json.loads(Path(path).read_text())
+        check(doc["cuda"]["builds"] > 0 and doc["device"]["platform"] == "cuda"
+              and doc["device"]["roofline"], "the flight dump lacks its cuda "
+                                              "or device section")
+        proc = subprocess.run(
+            [sys.executable, "-m", "lighthouse_tpu_torch.obs.doctor", path],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=300)
+        dump_bytes = Path(path).stat().st_size
+    check(proc.returncode == 0, f"the doctor exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    for line in lines[:4]:
+        print(f"doctor: {line}", flush=True)
+    print(f"doctor: exit 0, {len(lines)} lines for a {dump_bytes} B dump",
+          flush=True)
+    report["doctor_head"] = lines[:4]
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"obs phase: {report['seconds']:.1f} s", flush=True)
+    return report
 
 
 def main(argv=None) -> int:
@@ -1651,12 +1822,17 @@ def main(argv=None) -> int:
                   f"{e.get('spill_stores')}/{e.get('spill_loads')} B spill "
                   f"stores/loads", flush=True)
     bounds = Bounds(sm_clock)
+    # graftwatch ticks once a phase (slot = the phase's number), as a node
+    # ticks it once a slot: each phase's metrics land in a row of their own
+    graftwatch.on_slot(1)
 
     # phase 2: state-root kernels against their plain versions
     rows, modes = kernel_phase(bounds)
+    graftwatch.on_slot(2)
 
     # phase 3: the state-root slice
     sl = slice_phase(card_line)
+    graftwatch.on_slot(3)
     for row in rows:
         row["launches"] = sl["launches"][row["name"]]
 
@@ -1669,6 +1845,7 @@ def main(argv=None) -> int:
         row["launches"] = bls["launches"][row["name"]]
     rows += bls_check.rows
     modes.update(bls_check.modes)
+    graftwatch.on_slot(4)
 
     # phase 5: the sharded paths over every card (n = device_count)
     par_rows, par_modes, path_modes, multigpu = multigpu_phase(
@@ -1680,17 +1857,20 @@ def main(argv=None) -> int:
         modes.setdefault(name, []).extend(recs)
     rows += par_rows
     modes.update(par_modes)
+    graftwatch.on_slot(5)
 
     # phase 6: the multiply lowerings 1 and 2, and the caller-less kernels
     mxu_rows, mxu_modes, mxu = mxu_phase(bounds, setup, bls_check,
                                          bls["negative_cpp"], card_line)
     rows += mxu_rows
     modes.update(mxu_modes)
+    graftwatch.on_slot(6)
 
     # phase 7: the block on the card (the state transition at 1M
     # validators), its launches beside each kernel's row, its BLS kernel
     # checks at the block batch's shapes among the kernels' modes
     stf, stf_check = stf_phase(bounds, setup, card_line)
+    graftwatch.on_slot(7)
     for row in rows:
         if row["name"] in stf["launches"]:
             row["launches_block_path"] = stf["launches"][row["name"]]
@@ -1706,11 +1886,14 @@ def main(argv=None) -> int:
         modes.setdefault(name, []).extend(
             {**m, "mode": f"{label}, {m['mode']}"} for m in recs)
 
+    # phase 8: what the observability layer kept of phases 1-7
+    obs = obs_phase(card_line, stf)
+
     report = {"card": card_line, "sm_clock_max_mhz": sm_clock,
               "build_s": build_s, "build": summary, "kernels": rows,
               "kernel_modes": modes, "bls_field_muls": bls_check.muls,
               "slice": sl, "bls": bls, "multigpu": multigpu, "mxu": mxu,
-              "stf": stf, "stf_field_muls": stf_check.muls}
+              "stf": stf, "stf_field_muls": stf_check.muls, "obs": obs}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

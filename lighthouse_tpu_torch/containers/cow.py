@@ -21,6 +21,7 @@ bypasses both the refcounts and the dirty set — graftlint's
 """
 from __future__ import annotations
 
+import sys
 
 import numpy as np
 
@@ -32,9 +33,16 @@ from ..utils.hash import ZERO_HASHES
 #: two CoW chunks and dirty-leaf reads stay chunk-direct.
 CHUNK_ROWS = 4096
 
-#: process-wide CoW accounting.
+#: process-wide CoW accounting, mirrored into graftscope counters when
+#: the metrics module is loaded.
 STATS = {"chunks_materialized": 0, "chunks_shared": 0, "rebases": 0,
          "bytes_materialized": 0, "bytes_shared": 0}
+
+
+def _count_metric(name: str, amount: int) -> None:
+    m = sys.modules.get("lighthouse_tpu_torch.api.metrics_defs")
+    if m is not None:
+        m.count(name, amount)
 
 
 def _mix_in_length(root: bytes, length: int) -> bytes:
@@ -112,6 +120,7 @@ class CowColumn(np.lib.mixins.NDArrayOperatorsMixin):
                             if self._device_tree is not None else None)
         STATS["chunks_shared"] += len(self._chunks)
         STATS["bytes_shared"] += sum(c.nbytes for c in self._chunks)
+        _count_metric("state_cow_chunks_shared", len(self._chunks))
         return out
 
     def _writable_chunk(self, c: int) -> np.ndarray:
@@ -125,6 +134,7 @@ class CowColumn(np.lib.mixins.NDArrayOperatorsMixin):
             self._contig = False
             STATS["chunks_materialized"] += 1
             STATS["bytes_materialized"] += self._chunks[c].nbytes
+            _count_metric("state_cow_chunks_materialized", 1)
         return self._chunks[c]
 
     def _rebase(self) -> None:

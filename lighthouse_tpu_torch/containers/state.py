@@ -15,6 +15,8 @@ dirty tracking plays the role of milhouse's lazily-flushed tree caches.
 """
 from __future__ import annotations
 
+import sys
+import time
 from dataclasses import dataclass, field as dfield
 from typing import Any
 
@@ -272,6 +274,7 @@ class ValidatorRegistry:
     def hash_tree_root(self, registry_limit: int) -> bytes:
         if not self._dirty and self._root_cache is not None:
             return self._root_cache
+        t0 = time.perf_counter()
         from ..ops import sha256 as k
         n = len(self)
         if n == 0:
@@ -282,6 +285,10 @@ class ValidatorRegistry:
             root = mix_in_length(k.root_bytes(root_words), n)
         self._root_cache = root
         self._dirty = False
+        m = sys.modules.get("lighthouse_tpu_torch.api.metrics")
+        if m is not None:
+            m.observe("validator_registry_tree_hash_seconds",
+                      time.perf_counter() - t0)
         return root
 
     def serialize(self) -> bytes:
@@ -622,6 +629,7 @@ class BeaconState:
 
     # -- copy ----------------------------------------------------------------
     def copy(self) -> "BeaconState":
+        t0 = time.perf_counter()
         out = BeaconState.__new__(BeaconState)
         out.T, out.spec, out.fork_name = self.T, self.spec, self.fork_name
         for f in active_field_specs(self.T, self.fork_name):
@@ -643,6 +651,9 @@ class BeaconState:
         for f in state_field_specs(self.T):
             if not hasattr(out, f.name):
                 setattr(out, f.name, None)
+        m = sys.modules.get("lighthouse_tpu_torch.api.metrics_defs")
+        if m is not None:
+            m.observe("state_copy_seconds", time.perf_counter() - t0)
         return out
 
     # -- merkleization -------------------------------------------------------

@@ -279,9 +279,17 @@ def aggregate_verify(pks, msgs, sig) -> bool:
 def verify_signature_sets(sets: list[SignatureSet]) -> bool:
     # hot-path tracing (beacon_chain/src/metrics.rs style): the span
     # joins whatever trace is active (block import, attestation batch)
+    # and feeds the CATALOG histograms — obs stays weightless for
+    # library use (its metrics feed is sys.modules-gated)
     from ...obs import tracing
     with tracing.span("bls_batch_verify", sets=len(sets)):
-        return get_backend().verify_signature_sets(sets)
+        out = get_backend().verify_signature_sets(sets)
+    import sys
+    m = sys.modules.get("lighthouse_tpu_torch.api.metrics_defs")
+    if m is not None:
+        m.observe("beacon_batch_verify_signature_sets", len(sets))
+        m.observe("bls_batch_verify_sigs", len(sets))
+    return out
 
 
 def aggregate_signatures(sigs) -> bytes:

@@ -124,18 +124,26 @@ def _wall_ms(mesh, fn, repeats: int) -> tuple[list, float]:
     return times, statistics.median(times)
 
 
-def _program_check(mesh, prog, run, plain, canonical: bool, work: dict,
+def _program_check(mesh, prog, run, plain, canonical: bool,
                    mode: str | None = None, repeats: int = 3):
     """Hold a sharded program against its plain version — the
     single-device composition on the same inputs — and time both. Every
     rank runs ``run()`` (it holds a collective); rank 0 alone runs
-    ``plain()``, compares and returns the row (other ranks None).
-    ``work``: this rank's share of the work for the bound (``bytes``,
-    ``ops``, and ``link_bytes`` brought in from the other cards)."""
+    ``plain()``, compares and returns the row (other ranks None). The
+    bound's work is this rank's share, the program's roofline record of
+    that call (``bytes``, ``ops``, and ``link_bytes`` brought in from the
+    other cards: its declared cost)."""
     import torch
 
     from .measure import field_err
-    got = run()
+    from .obs import roofline
+    with roofline.capture() as calls:
+        got = run()
+    # the program's record: programs are named <module>.<program>, kernels
+    # have no dot
+    rec = [c for c in calls if "." in c["kernel"]][-1]
+    work = {"bytes": rec["bytes"], "ops": rec["ops"],
+            "link_bytes": rec.get("link_bytes", 0)}
     ms = _time_ms(mesh, run, repeats)
     row = None
     if mesh.rank == 0:
@@ -220,25 +228,9 @@ def _dryrun_rank(mesh, tasks, pairs):
     row = _program_check(
         mesh, pb.MILLER_PRODUCT,
         lambda: k.fp12_product(pb._local_miller_product(mesh, *local)),
-        lambda: k.fp12_product(k.miller_loop_batch(*full)), True,
-        _miller_work(mesh, local))
+        lambda: k.fp12_product(k.miller_loop_batch(*full)), True)
     return {"results": results, "launches": counts, "gathered": gathered,
             "programs": [row]}
-
-
-def _miller_work(mesh, local, mask=None) -> dict:
-    """This rank's share of a sharded Miller product: its pairs' loops
-    (lanes ``mask`` drops are skipped) and their product, the partials
-    gathered. ``local``: the rank's (px, py, qx, qy)."""
-    from .ops import bls_cost as cost
-    n_local = int(local[0].shape[0])
-    fp12 = 2 * 3 * 2 * 32 * 4
-    lanes = np.ones(n_local, bool) if mask is None else mask
-    muls = cost.miller_loop(lanes) + cost.final_exp(n_local, 0)
-    return {"bytes": sum(t.numel() * 4 for t in local)
-            + (0 if mask is None else 4 * n_local) + mesh.size * fp12,
-            "ops": muls * cost.FP_MUL_INT_OPS,
-            "link_bytes": (mesh.size - 1) * fp12}
 
 
 def dryrun_multigpu(n_devices: int) -> dict:
@@ -337,14 +329,6 @@ def _state_leaves():
     return v, b
 
 
-def _merkle_work(mesh, n_leaves: int) -> dict:
-    from .ops.sha256 import HASH64_INT_OPS
-    local = n_leaves // mesh.size
-    hashes = (local - 1) + (mesh.size - 1)
-    return {"bytes": local * 32 + 32, "ops": hashes * HASH64_INT_OPS,
-            "link_bytes": (mesh.size - 1) * 32}
-
-
 def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
     """Rank function of the full-width run. Every rank regenerates the
     columns and packs the leaves itself; rank 0 also computes the
@@ -356,7 +340,6 @@ def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
     from .crypto.bls12_381 import G1Point
     from .ops import bigint as bi
     from .ops import bls12_381 as k
-    from .ops import bls_cost as cost
     from .ops.sha256 import (
         hash_pairs, merkleize_dense, merkleize_words, root_bytes,
     )
@@ -448,8 +431,7 @@ def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
             lambda loc=loc: pmk.sharded_merkleize(mesh, loc),
             lambda full_t=full_t, depth=depth: merkleize_dense(full_t,
                                                                depth),
-            False, _merkle_work(mesh, len(full)),
-            mode=None if label == "validators" else label))
+            False, mode=None if label == "validators" else label))
         del full_t
 
     keep = {}
@@ -472,12 +454,6 @@ def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
             torch.equal(a, b) for a, b in zip(keep["aggregate"], single_agg))
     for degree, inputs, label in ((1, g1_in, "bls.scaled_pubkeys"),
                                   (2, g2_in, "bls.scaled_signatures")):
-        out_bytes = 3 * lanes * 128 * degree
-        work = {"bytes": sum(t.numel() * 4 for t in inputs) + out_bytes,
-                "ops": cost.scalar_mul_lanes(
-                    inputs[3].cpu().numpy(), degree)["products"]
-                * cost.FP_MUL_INT_OPS,
-                "link_bytes": out_bytes * (mesh.size - 1) // mesh.size}
         if degree == 1:
             plain = (lambda: k.g1_scalar_mul(pk_x, pk_y, one1, bits_pk)) \
                 if mesh.rank == 0 else None
@@ -488,14 +464,13 @@ def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
             mesh, pb.SCALAR_MUL,
             lambda degree=degree, inputs=inputs, label=label:
                 pb.sharded_scalar_mul(mesh, degree, *inputs, label),
-            plain, True, work, mode=None if degree == 1 else "G2"))
+            plain, True, mode=None if degree == 1 else "G2"))
 
     local = [mesh.local(t) for t in pairs]
     rows.append(_program_check(
         mesh, pb.MASKED_PRODUCT,
         lambda: k.fp12_product(pb._local_masked_product(mesh, *local)),
-        lambda: k.fp12_product(k.miller_loop_batch(*pairs)), True,
-        _miller_work(mesh, local[:4], local[4].cpu().numpy())))
+        lambda: k.fp12_product(k.miller_loop_batch(*pairs)), True))
     rep["programs"] = rows
 
     # ---- rank 0's kernels on this path against their plain versions
@@ -508,28 +483,29 @@ def _full_width_rank(mesh, sets, bad, pk_affine, lanes):
     return rep
 
 
-def _kernel_check(name: str, mode: str, kernel_fn, plain_fn, inputs,
-                  ops: int, canonical: bool = True):
+def _kernel_check(name: str, mode: str, kernel_fn, plain_fn,
+                  canonical: bool = True):
     """One kernel against its plain version on the same inputs (canonical
     field values, or raw words when not ``canonical``): its record (the
     error, the kernel's median CUDA-event ms of 2, the plain version's
-    one run, the bytes and integer ops of its bound) and its output."""
+    one run, the bytes and integer ops of its bound: the roofline record
+    of the kernel's call, its declared cost) and its output."""
     import torch
 
     from .measure import field_err, time_cuda
-    got = kernel_fn()
+    from .obs import roofline
+    with roofline.capture() as calls:
+        got = kernel_fn()
     torch.cuda.synchronize()
+    work = [c for c in calls if c["kernel"] == name][-1]
     t0 = time.perf_counter()
     want = plain_fn()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    outs = got if isinstance(got, tuple) else (got,)
     rec = {"name": name, "mode": mode,
            "max_abs_err": field_err(got, want, canonical),
            "ms": time_cuda(kernel_fn, 2), "plain_ms": plain_ms,
-           "bytes": sum(t.numel() * t.element_size()
-                        for t in (*inputs, *outs)),
-           "ops": ops}
+           "bytes": work["bytes"], "ops": work["ops"]}
     return rec, got
 
 
@@ -546,81 +522,62 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
     Miller loop on the rank's pairs, their product, the product of the
     partials and the final exponentiation. Raises nothing: the caller
     holds each record's ``max_abs_err`` to 0."""
-    import torch
-
     from .ops import bigint as bi
     from .ops import bls12_381 as k
     from .ops import bls_cost as cost
     from .ops import sha256 as sh
 
-    mul = cost.FP_MUL_INT_OPS
     lanes = len(prep["flags"])
     recs = []
 
-    def affine_ops(z, degree):
-        products, words = cost.affine_least(z, degree)
-        return products * mul + words
-
-    def run(name, mode, kernel_fn, plain_fn, inputs, ops, canonical=True):
-        rec, got = _kernel_check(name, mode, kernel_fn, plain_fn, inputs,
-                                 ops, canonical)
+    def run(name, mode, kernel_fn, plain_fn, canonical=True):
+        rec, got = _kernel_check(name, mode, kernel_fn, plain_fn, canonical)
         recs.append(rec)
         return got
 
     blocks = v_loc.reshape(-1, 16)
     run("hash64", f"sharded level 0, {blocks.shape[0]} blocks",
         lambda: sh.hash64(blocks), lambda: sh._hash64_plain(blocks),
-        (blocks,), blocks.shape[0] * sh.HASH64_INT_OPS, canonical=False)
+        canonical=False)
     del blocks
 
     u0, u1 = keep["u0"], keep["u1"]
     run("hash_to_g2", f"sharded, {lanes} messages",
         lambda: k.hash_to_g2_batch_from_u(u0, u1),
-        lambda: k._hash_to_g2_plain(u0, u1), (u0, u1),
-        cost.hash_to_g2(lanes) * mul)
+        lambda: k._hash_to_g2_plain(u0, u1))
     mx, my, mz = keep["msg"]
     run("affine", f"sharded, Fp2 {lanes} messages",
         lambda: k.jacobian_to_affine_fp2(mx, my, mz),
-        lambda: k._jacobian_to_affine_fp2_plain(mx, my, mz), (mx, my, mz),
-        affine_ops(mz, 2))
+        lambda: k._jacobian_to_affine_fp2_plain(mx, my, mz))
 
     pk_x, pk_y, one1, bits_pk = keep["g1_in"]
     ints = keep["lane_ints"]
     run("fp_ops", f"sharded, Montgomery entry of {lanes} signature and "
                   f"{pk_x.shape[0]} pubkey lanes",
         lambda: bi.fp_ops_kernel(bi.FP_TO_MONT, ints),
-        lambda: bi._mont_from_int_plain(ints), (ints,),
-        ints.shape[0] * mul)
+        lambda: bi._mont_from_int_plain(ints))
     run("rlc_scale", f"sharded, G1 {pk_x.shape[0]} lanes",
         lambda: k.g1_scalar_mul(pk_x, pk_y, one1, bits_pk),
-        lambda: k._g1_scalar_mul_plain(pk_x, pk_y, one1, bits_pk),
-        keep["g1_in"],
-        cost.scalar_mul_lanes(bits_pk.cpu().numpy(), 1)["products"] * mul)
+        lambda: k._g1_scalar_mul_plain(pk_x, pk_y, one1, bits_pk))
     sx, sy, one2, bits_sig = keep["g2_in"]
     run("rlc_scale", f"sharded, G2 {sx.shape[0]} lanes",
         lambda: k.g2_scalar_mul(sx, sy, one2, bits_sig),
-        lambda: k._g2_scalar_mul_plain(sx, sy, one2, bits_sig),
-        keep["g2_in"],
-        cost.scalar_mul_lanes(bits_sig.cpu().numpy(), 2)["products"] * mul)
+        lambda: k._g2_scalar_mul_plain(sx, sy, one2, bits_sig))
 
     spx, spy, spz = keep["scaled_pubkeys"]
     starts, ends = keep["starts"], keep["ends"]
     run("g1_segment_sum", f"sharded, {lanes} segments",
         lambda: k.g1_segment_sum(spx, spy, spz, prep["starts"],
                                  prep["ends"]),
-        lambda: k._g1_segment_sum_plain(spx, spy, spz, starts, ends),
-        (spx, spy, spz, starts, ends),
-        cost.g1_segment_sum(prep["starts"], prep["ends"]) * mul)
+        lambda: k._g1_segment_sum_plain(spx, spy, spz, starts, ends))
     gpx, gpy, gpz = keep["pubkey_sums"]
     run("affine", f"sharded, Fp {lanes} pubkey sums",
         lambda: k.jacobian_to_affine_fp(gpx, gpy, gpz),
-        lambda: k._jacobian_to_affine_fp_plain(gpx, gpy, gpz),
-        (gpx, gpy, gpz), affine_ops(gpz, 1))
+        lambda: k._jacobian_to_affine_fp_plain(gpx, gpy, gpz))
     ax, ay, az = keep["aggregate"]
     run("affine", "sharded, Fp2 aggregate",
         lambda: k.jacobian_to_affine_fp2(ax, ay, az),
-        lambda: k._jacobian_to_affine_fp2_plain(ax, ay, az), (ax, ay, az),
-        affine_ops(az[None], 2))
+        lambda: k._jacobian_to_affine_fp2_plain(ax, ay, az))
 
     px, py, qx, qy, mask = local
     host_mask = mask.cpu().numpy()
@@ -630,20 +587,16 @@ def _path_kernel_checks(prep, keep, local, partials, v_loc) -> list[dict]:
                             f"{cost.miller_loop_design(ran)}",
              lambda: k.miller_loop_batch(px, py, qx, qy, mask),
              lambda: k._mask_to_one(k._miller_loop_plain(px, py, qx, qy),
-                                    mask),
-             local, cost.miller_loop(host_mask) * mul)
+                                    mask))
     run("final_exp", f"sharded, product of {fs.shape[0]} pairs",
-        lambda: k.fp12_product(fs), lambda: k._fp12_product_plain(fs),
-        (fs,), cost.final_exp(fs.shape[0], 0) * mul)
+        lambda: k.fp12_product(fs), lambda: k._fp12_product_plain(fs))
     prod = run("final_exp", f"sharded, product of {partials.shape[0]} "
                             f"partials",
                lambda: k.fp12_product(partials),
-               lambda: k._fp12_product_plain(partials), (partials,),
-               cost.final_exp(partials.shape[0], 0) * mul)
+               lambda: k._fp12_product_plain(partials))
     run("final_exp", "sharded, final exponentiation",
         lambda: k.final_exponentiation(prod),
-        lambda: k._final_exponentiation_plain(prod), (prod,),
-        cost.final_exp(1, 1) * mul)
+        lambda: k._final_exponentiation_plain(prod))
     return recs
 
 

@@ -6,7 +6,9 @@ source may hold several kernels, each its own C entry. The library's file
 name carries a digest of its source and of the shared headers, so an
 edited source never loads a stale build. ``build_all()`` starts one
 ``nvcc`` per source at once and waits for all of them; ``BUILD_LOGS``
-keeps each source's ``-Xptxas -v`` report (registers, spills, stack).
+keeps each source's ``-Xptxas -v`` report (registers, spills, stack), and
+``obs.cuda_accounting`` counts the builds, their seconds and the
+``_build/`` cache's hits.
 
 Every C entry takes device pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; ``CudaKernel.launch`` raises on a
@@ -29,6 +31,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -147,38 +150,54 @@ class CudaKernel:
         k.launches += count
 
 
+def _run_nvcc(k: CudaKernel, tmp: Path) -> tuple[int, str, float]:
+    """One nvcc build: its return code, its output and its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(k._compile_cmd(tmp), stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
 def build_all(kernels=None) -> float:
     """Compile every kernel whose library is missing, one ``nvcc`` per
     source, all at once; bind each (default: every mode-0 kernel).
     Returns the wall seconds it took. Raises with the compiler's output if
-    any build fails."""
+    any build fails. Each library asked for feeds ``obs.cuda_accounting``:
+    one found in ``_build/`` is a cache hit, one nvcc built is a miss with
+    its seconds and its ptxas report."""
+    from .obs import cuda_accounting
     t0 = time.perf_counter()
     kernels = list(KERNELS.values()) if kernels is None else list(kernels)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, started = [], set()
+    todo, seen = [], set()
     for k in kernels:
         out = k.library_path()
-        if out.exists() or out in started:
+        if out in seen:
             continue
-        started.add(out)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(k._compile_cmd(tmp), stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        procs.append((k, proc, tmp, out))
-    failures = []
-    for k, proc, tmp, out in procs:
-        log, _ = proc.communicate()
-        BUILD_LOGS[k.build_key] = log
-        if proc.returncode != 0:
-            failures.append(f"--- {k.build_key} (nvcc rc "
-                            f"{proc.returncode})\n{log}")
+        seen.add(out)
+        if out.exists():
+            cuda_accounting.record_hit(k.build_key)
         else:
-            os.replace(tmp, out)
+            todo.append((k, out.with_suffix(f".{os.getpid()}.tmp"), out))
+    failures = []
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            runs = list(pool.map(lambda t: _run_nvcc(t[0], t[1]), todo))
+        for (k, tmp, out), (rc, log, seconds) in zip(todo, runs):
+            BUILD_LOGS[k.build_key] = log
+            if rc != 0:
+                failures.append(f"--- {k.build_key} (nvcc rc {rc})\n{log}")
+            else:
+                os.replace(tmp, out)
+                cuda_accounting.record_build(k.build_key, out.name, seconds,
+                                             log)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     for k in kernels:
         if k._fn is None:
-            k._bind(k.library_path())
+            lib = k.library_path()
+            k._bind(lib)
+            cuda_accounting.record_bound(lib.name)
     return time.perf_counter() - t0
 
 

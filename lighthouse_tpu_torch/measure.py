@@ -22,15 +22,21 @@ class Bounds:
     """Least time the card could take: the larger of bytes over the memory
     rate and integer ops over the INT32 rate at the card's max SM clock,
     plus the bytes a collective brings in from the other cards over
-    NVLink."""
+    NVLink. ``int_ops_per_s`` and ``bytes_per_s`` replace the H100's
+    rates for another device (the roofline's CPU row)."""
 
-    def __init__(self, sm_clock_mhz: float):
+    def __init__(self, sm_clock_mhz: float | None = None, *,
+                 int_ops_per_s: float | None = None,
+                 bytes_per_s: float = HBM_BYTES_PER_S):
         self.sm_clock_mhz = sm_clock_mhz
-        self.int_ops_per_s = SMS * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+        self.int_ops_per_s = (int_ops_per_s if int_ops_per_s is not None
+                              else SMS * INT32_LANES_PER_SM * sm_clock_mhz
+                              * 1e6)
+        self.bytes_per_s = bytes_per_s
 
     def __call__(self, n_bytes: float, n_ops: float,
                  link_bytes: float = 0) -> tuple[float, str]:
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_bytes = n_bytes / self.bytes_per_s * 1e3
         t_ops = n_ops / self.int_ops_per_s * 1e3
         t_link = link_bytes / NVLINK_BYTES_PER_S * 1e3
         if t_bytes >= t_ops:

@@ -7,7 +7,9 @@ fed most of them.  This module is the single timing substrate:
 
 - :func:`span` is a context manager that opens a :class:`Span` carrying a
   trace id through thread-local context.  Exiting the span pushes it into
-  a process-wide ring buffer; ``kind`` must be one of ``SPAN_KINDS``.
+  a process-wide ring buffer AND observes the matching catalog histogram
+  (``SPAN_KINDS`` maps every kind to a ``metrics_defs.CATALOG`` name), so
+  tracing and Prometheus can never drift apart.
 - Context crosses threads explicitly: :func:`capture` at the spawn/submit
   site, :class:`attach` in the worker.  ``utils.threads.ThreadGroup`` and
   the beacon processor's ``Work`` items do this automatically, so one
@@ -17,8 +19,10 @@ fed most of them.  This module is the single timing substrate:
   delay from slot start — the lateness signal the block-times cache and
   validator monitor read.
 
-Deliberately stdlib-only and import-light: the ring is plain Python, so
-library users of ssz stay weightless and there are no import cycles.  Spans time host-side orchestration; CUDA launches are
+Deliberately stdlib-only and import-light: the ring is plain Python, the
+metrics feed goes through ``sys.modules`` (never imports the api package
+itself), so library users of crypto/ssz stay weightless and there are no
+import cycles.  Spans time host-side orchestration; CUDA launches are
 asynchronous, so a span closes before the device work it enqueued unless
 the code inside it reads a result back.
 """
@@ -26,54 +30,56 @@ from __future__ import annotations
 
 import itertools
 import os
+import sys
 import threading
 import time
 
-#: registered span kinds; ``span`` refuses any other.  Spans land in the
-#: ring only: the port has no metrics module yet to feed.
-SPAN_KINDS: frozenset[str] = frozenset({
+#: span kind -> metrics_defs.CATALOG histogram fed on span exit.
+#: Every kind MUST map to a declared histogram (tier-1 asserts this), so
+#: adding a span kind forces the catalog entry and vice versa.
+SPAN_KINDS: dict[str, str] = {
     # block import pipeline (one trace per gossip block)
-    "block_pipeline",
-    "block_import",
-    "gossip_verify",
-    "batch_signature",
-    "state_transition",
-    "state_root",
-    "fork_choice",
-    "db_write",
-    "block_production",
+    "block_pipeline": "beacon_block_pipeline_seconds",
+    "block_import": "beacon_block_processing_seconds",
+    "gossip_verify": "beacon_block_processing_gossip_verification_seconds",
+    "batch_signature": "beacon_block_processing_signature_seconds",
+    "state_transition": "beacon_block_processing_state_transition_seconds",
+    "state_root": "beacon_block_processing_state_root_seconds",
+    "fork_choice": "beacon_block_processing_fork_choice_seconds",
+    "db_write": "beacon_block_processing_db_write_seconds",
+    "block_production": "beacon_block_production_seconds",
     # attestation plane
-    "attestation_verify",
-    "aggregate_verify",
+    "attestation_verify": "beacon_attestation_processing_seconds",
+    "aggregate_verify": "beacon_aggregate_processing_seconds",
     # crypto hot spots
-    "bls_batch_verify",
-    "tree_hash",
-    "kzg_verify",
+    "bls_batch_verify": "beacon_batch_verify_seconds",
+    "tree_hash": "tree_hash_root_seconds",
+    "kzg_verify": "kzg_blob_verification_seconds",
     # beacon processor + store + execution layer
-    "processor_work",
-    "store_migration",
-    "cold_state_replay",
-    "el_new_payload",
-    "el_forkchoice",
+    "processor_work": "beacon_processor_work_seconds",
+    "store_migration": "store_migration_seconds",
+    "cold_state_replay": "store_cold_state_replay_seconds",
+    "el_new_payload": "execution_layer_new_payload_seconds",
+    "el_forkchoice": "execution_layer_forkchoice_seconds",
     # bench harness stages (bench.py --trace)
-    "bench_stage",
+    "bench_stage": "bench_stage_seconds",
     # mainnet-envelope STF (slot.py epoch boundary, bench.py stf mode)
-    "stf_epoch",
-    "stf_block",
+    "stf_epoch": "stf_epoch_seconds",
+    "stf_block": "stf_block_seconds",
     # Beacon-API serving tier (api/serving/tier.py)
-    "api_request",
+    "api_request": "api_request_seconds",
     # graftflow replay pipeline stages (chain/replay/)
-    "replay_admission",
-    "replay_signature",
-    "replay_stf",
-    "replay_merkle",
-    "replay_commit",
+    "replay_admission": "replay_stage_admission_seconds",
+    "replay_signature": "replay_stage_signature_seconds",
+    "replay_stf": "replay_stage_stf_seconds",
+    "replay_merkle": "replay_stage_merkle_seconds",
+    "replay_commit": "replay_stage_commit_seconds",
     # graftpath cross-node causal annotation points (obs/causal.py)
-    "gossip_publish",
-    "gossip_deliver",
-    "rpc_request",
-    "rpc_serve",
-})
+    "gossip_publish": "gossipsub_publish_seconds",
+    "gossip_deliver": "gossipsub_deliver_seconds",
+    "rpc_request": "rpc_request_seconds",
+    "rpc_serve": "rpc_serve_seconds",
+}
 
 _RING_CAPACITY = 4096
 _PID = os.getpid()
@@ -296,6 +302,16 @@ class attach:
         return False
 
 
+def _observe_metric(name: str, value: float) -> None:
+    """Feed the catalog histogram WITHOUT importing the api package: a
+    pure-crypto library user must not drag in the HTTP/metrics stack just
+    because a span closed.  Once the node imported metrics_defs (the
+    chain always does), every span lands in Prometheus."""
+    md = sys.modules.get("lighthouse_tpu_torch.api.metrics_defs")
+    if md is not None:
+        md.observe(name, value)
+
+
 class span:
     """Context manager opening a child of the current span (or a new
     trace root).  ``kind`` must be a registered ``SPAN_KINDS`` key."""
@@ -346,6 +362,9 @@ class span:
         elif s in _ctx.stack:
             _ctx.stack.remove(s)
         _ring.push(s)
+        metric = SPAN_KINDS[self.kind]
+        if metric:
+            _observe_metric(metric, s.duration)
         return False
 
 

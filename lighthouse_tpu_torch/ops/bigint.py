@@ -48,6 +48,8 @@ import os
 import numpy as np
 import torch
 
+from ..obs.roofline import tracked
+
 LIMB_BITS = 12
 NLIMBS = 32
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -563,6 +565,16 @@ def _fp_op(op: int, a: torch.Tensor, b: torch.Tensor | None = None
     return fp_ops_kernel(op, a, b)
 
 
+def _fp_ops_cost(out, op, a, b=None):
+    """The function's least work on the output's elements
+    (``bls_cost.fp_ops``): its field multiplies, each input read once and
+    the output written once."""
+    from .bls_cost import FP_MUL_INT_OPS, fp_ops
+    muls, n_bytes = fp_ops(op, out.numel() // NLIMBS)
+    return n_bytes, muls * FP_MUL_INT_OPS, {"field_muls": muls}
+
+
+@tracked("fp_ops", _fp_ops_cost)
 def fp_ops_kernel(op: int, a: torch.Tensor,
                   b: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``fp_ops`` on CUDA int32 limbs: ops ``FP_MUL``, ``FP_ADD``,

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..crypto.bls12_381.fields import P as P_INT, X_PARAM
+from ..obs.roofline import tensor_bytes, tracked
 from . import bigint as bi
 
 # ---------------------------------------------------------------------------
@@ -1150,6 +1151,90 @@ def _stream(like):
 FP, FP2 = 1, 2
 
 
+# -- declared costs (obs/roofline): the function's work on the call's
+# inputs, as bls_cost counts it: field multiplies x FP_MUL_INT_OPS (the
+# affine conversion adds its one inverse's word operations), each tensor
+# argument read once and each output written once
+
+
+def _mul_work(out, args, muls: int, words: int = 0):
+    from .bls_cost import FP_MUL_INT_OPS
+    return (tensor_bytes(*args, out), muls * FP_MUL_INT_OPS + words,
+            {"field_muls": muls, "word_ops": words})
+
+
+def _host(v) -> np.ndarray:
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _z_is(z, value: np.ndarray) -> np.ndarray:
+    """Per lane: z equals ``value`` (Montgomery limbs) as a field
+    value."""
+    zc = _host(bi.canonical(z))
+    return (zc == value).reshape(zc.shape[0], -1).all(axis=1)
+
+
+def _g2_decompress_cost(out, x, want_larger):
+    from .bls_cost import g2_decompress
+    return _mul_work(out, (x, want_larger), g2_decompress(x.shape[0]))
+
+
+def _g2_subgroup_cost(ok, x, y, z):
+    from .bls_cost import g2_subgroup_lanes
+    muls = g2_subgroup_lanes(_z_is(z, FP2_ONE), _z_is(z, FP2_ZERO),
+                             _host(ok))["products"]
+    return _mul_work(ok, (x, y, z), muls)
+
+
+def _hash_to_g2_cost(out, u0, u1):
+    from .bls_cost import hash_to_g2
+    return _mul_work(out, (u0, u1), hash_to_g2(u0.shape[0]))
+
+
+def _scalar_mul_cost(out, field, x, y, z, bits):
+    from .bls_cost import scalar_mul_lanes
+    one = FP_ONE if field == FP else FP2_ONE
+    muls = scalar_mul_lanes(_host(bits), field,
+                            z_one=_z_is(z, one))["products"]
+    return _mul_work(out, (x, y, z, bits), muls)
+
+
+def _g1_segment_sum_cost(out, x, y, z, starts, ends):
+    from .bls_cost import g1_segment_sum
+    return _mul_work(out, (x, y, z, starts, ends),
+                     g1_segment_sum(_host(starts), _host(ends)))
+
+
+def _g2_sum_cost(out, x, y, z):
+    from .bls_cost import g2_sum
+    return _mul_work(out, (x, y, z), g2_sum(x.shape[0]))
+
+
+def _affine_cost(out, field, x, y, z):
+    from .bls_cost import affine_least
+    return _mul_work(out, (x, y, z), *affine_least(z, field))
+
+
+def _miller_loop_cost(out, px, py, qx, qy, mask=None):
+    from .bls_cost import miller_loop
+    live = np.ones(px.shape[0], bool) if mask is None else _host(mask)
+    return _mul_work(out, (px, py, qx, qy, mask), miller_loop(live))
+
+
+def _final_exp_cost(out, mode, fs):
+    """The product of the values, and in mode 1 the final
+    exponentiation and its flag."""
+    from .bls_cost import final_exp
+    return _mul_work(out if mode == 1 else out[0], (fs,),
+                     final_exp(fs.shape[0], mode))
+
+
+def _fp12_pow_cost(out, f, exponent):
+    from .bls_cost import fp12_pow
+    return _mul_work(out, (f,), fp12_pow(f.shape[0], exponent))
+
+
+@tracked("g2_intake", _g2_decompress_cost)
 def g2_decompress_batch(x, want_larger):
     """Batched y-recovery for compressed G2 points: x [n, 2, 32] Montgomery
     x-coordinates, want_larger [n] sign flags. Returns (y, ok): ok is
@@ -1168,6 +1253,7 @@ def g2_decompress_batch(x, want_larger):
     return y, ok.to(torch.bool)
 
 
+@tracked("g2_intake", _g2_subgroup_cost)
 def g2_in_subgroup_batch(x, y, z):
     """psi(Q) == [u]Q (u < 0) for Jacobian Q: the 64-bit endomorphism
     subgroup check."""
@@ -1184,6 +1270,7 @@ def g2_in_subgroup_batch(x, y, z):
     return ok.to(torch.bool)
 
 
+@tracked("hash_to_g2", _hash_to_g2_cost)
 def hash_to_g2_batch_from_u(u0, u1):
     """Device half of hash-to-G2 from encoded field elements u0, u1
     [n, 2, 32]: Jacobian (x, y, z) [n, 2, 32]."""
@@ -1201,6 +1288,7 @@ def hash_to_g2_batch_from_u(u0, u1):
     return tuple(out)
 
 
+@tracked("rlc_scale", _scalar_mul_cost)
 def _scalar_mul(field, x, y, z, bits):
     from .. import kernels
     n = x.shape[0]
@@ -1237,6 +1325,7 @@ def _seg_work_words(n: int, g: int) -> int:
     return 4 * 512 + 40 * g + 37 * n
 
 
+@tracked("g1_segment_sum", _g1_segment_sum_cost)
 def g1_segment_sum(x, y, z, starts, ends):
     """Per-range Jacobian G1 sums over host-sorted lanes: ``starts`` is 1
     at each segment's first lane; output g is the sum of the lanes from
@@ -1281,6 +1370,7 @@ def g1_segment_sum(x, y, z, starts, ends):
     return tuple(out)
 
 
+@tracked("g2_sum", _g2_sum_cost)
 def g2_sum(x, y, z):
     """The sum of n >= 1 Jacobian G2 points [n, 2, 32]: on the card a
     pairwise tree in a fixed order (the same limbs on every call with the
@@ -1308,6 +1398,7 @@ def g2_sum(x, y, z):
     return tuple(out)
 
 
+@tracked("affine", _affine_cost)
 def _affine(field, x, y, z):
     from .. import kernels
     n = x.shape[0]
@@ -1338,6 +1429,7 @@ def jacobian_to_affine_fp2(x, y, z):
     return _affine(FP2, x, y, z)
 
 
+@tracked("miller_loop", _miller_loop_cost)
 def miller_loop_batch(px, py, qx, qy, mask=None):
     """f_i = miller(P_i, Q_i) for affine pairs, px, py [n, 32], qx, qy
     [n, 2, 32] -> Fp12 [n, 2, 3, 2, 32]; lanes with ``mask`` False give
@@ -1391,6 +1483,7 @@ def _on_live_lanes(miller, live, px, py, qx, qy):
     return out
 
 
+@tracked("final_exp", _final_exp_cost)
 def _final_exp_kernel(mode: int, fs):
     from .. import kernels
     n = fs.shape[0]
@@ -1418,6 +1511,7 @@ def final_exponentiation(f):
     return _final_exp_kernel(1, f[None])[0]
 
 
+@tracked("fp12_pow", _fp12_pow_cost)
 def fp12_pow_const(f, exponent: int):
     """f^exponent for a constant exponent, elementwise over Fp12 values
     [n, 2, 3, 2, 32] (exponent 0 gives f, as the JAX scan does). The

@@ -31,9 +31,11 @@ import torch
 
 from .. import kernels
 from ..device import resolve
+from ..obs import device as device_ledger
+from ..obs.roofline import tracked
 from .sha256 import (
-    ZERO_HASH_WORDS, _check_words, _hash64_plain, cap_root, hash64,
-    root_bytes, words_to_tensor,
+    HASH64_INT_OPS, ZERO_HASH_WORDS, _check_words, _hash64_plain, cap_root,
+    hash64, root_bytes, words_to_tensor,
 )
 
 #: ``pre_levels`` the fold_pre kernel is built for (template instances):
@@ -83,6 +85,23 @@ def _fold_pre_plain(chunks, pk, rows, n_threads, n_live, pre_levels, out):
     out[dst] = leaves
 
 
+def _fold_pre_cost(ret, chunks, pk, pre_levels, n_live, out, rows=None):
+    """Each folded unit's chunks (and pubkey block) read, each slot of
+    ``out`` written (a build: every slot; an update: its rows, with the
+    row index read); a hash a chunk pair of the unit's subtree and one a
+    pubkey."""
+    unit, has_pk = 1 << pre_levels, pk is not None
+    if rows is None:
+        slots = int(out.shape[0])
+        units = min(slots, int(n_live))
+        n_bytes = units * (unit * 32 + 64 * has_pk) + slots * 32
+    else:
+        units = int(rows.shape[0])
+        n_bytes = units * (unit * 32 + 64 * has_pk + 4 + 32)
+    return n_bytes, units * (unit - 1 + has_pk) * HASH64_INT_OPS
+
+
+@tracked("fold_pre", _fold_pre_cost)
 def fold_pre(chunks: torch.Tensor, pk: torch.Tensor | None,
              pre_levels: int, n_live: int, out: torch.Tensor,
              rows: torch.Tensor | None = None) -> torch.Tensor:
@@ -147,6 +166,18 @@ def _path_walk_plain(levels, rows):
             levels[lvl].reshape(-1, 16)[parent])
 
 
+def _path_walk_cost(root, levels, rows, limit_depth):
+    """The work this update needs: one hash a distinct dirty parent a
+    level, then a hash a cap; each hashed pair read and its parent
+    written, the rows read, the root written."""
+    depth = len(levels) - 1
+    r = rows.cpu().numpy().astype(np.int64)
+    parents = sum(len(np.unique(r >> (lvl + 1))) for lvl in range(depth))
+    parents += limit_depth - depth
+    return parents * (64 + 32) + 4 * len(r) + 32, parents * HASH64_INT_OPS
+
+
+@tracked("path_update", _path_walk_cost)
 def _path_walk(levels: list[torch.Tensor], rows: torch.Tensor,
                limit_depth: int) -> torch.Tensor:
     """The dirty-path walk of an update, in place, and the root capped to
@@ -259,6 +290,7 @@ class DeviceTree:
         self.root_words = cap_root(levels[-1][0], self.dense_depth,
                                    self.limit_depth)
         self._shared = False
+        device_ledger.attribute("ops.merkle_tree", "levels", *levels)
 
     def update(self, rows, pre_leaf_words, pk_blocks=None) -> None:
         """rows: leaf indices; pre_leaf_words: u32[R * 2**pre_levels, 8].
@@ -280,6 +312,8 @@ class DeviceTree:
         if self._shared:
             self.levels = [lv.clone() for lv in self.levels]
             self._shared = False
+            device_ledger.attribute("ops.merkle_tree", "levels",
+                                    *self.levels)
         both = torch.from_numpy(
             np.concatenate([rows, np.unique(rows)]).astype(np.int32)
         ).to(self.device)

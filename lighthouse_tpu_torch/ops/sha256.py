@@ -33,6 +33,7 @@ import torch
 
 from .. import kernels
 from ..device import resolve
+from ..obs.roofline import tracked
 
 _K = (
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5,
@@ -356,6 +357,14 @@ def _check_words(t: torch.Tensor, last: int, name: str) -> None:
             raise ValueError(f"{name}: CUDA input must be 16-byte aligned")
 
 
+def _hash64_cost(out, blocks):
+    """Each 64-byte block read, each 32-byte digest written; two
+    compressions a block."""
+    n = blocks.numel() // 16
+    return n * (64 + 32), n * HASH64_INT_OPS
+
+
+@tracked("hash64", _hash64_cost)
 def hash64(blocks: torch.Tensor) -> torch.Tensor:
     """SHA-256 of 64-byte messages: int32 words [..., 16] -> [..., 8].
 
@@ -389,6 +398,14 @@ def cap_fold(root: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
     return torch.frombuffer(bytearray(got), dtype=torch.int32)
 
 
+def _sha256_messages_cost(out, msgs):
+    """Each padded block read, each digest written; a compression a
+    block."""
+    n, nblocks = int(msgs.shape[0]), int(msgs.shape[1])
+    return n * (nblocks * 64 + 32), n * nblocks * SHA256_COMPRESS_INT_OPS
+
+
+@tracked("sha256_messages", _sha256_messages_cost)
 def sha256_messages(msgs: torch.Tensor) -> torch.Tensor:
     """SHA-256 of a batch of equal-length padded messages: int32 words
     [N, B, 16] (``pad_messages``) -> [N, 8]."""
@@ -436,6 +453,14 @@ def merkleize_dense(leaves: torch.Tensor, depth: int) -> torch.Tensor:
     return nodes[0]
 
 
+def _cap_root_cost(out, root, dense_depth, limit_depth):
+    """The root and its caps read, the capped root written; a hash a
+    cap."""
+    caps = limit_depth - dense_depth
+    return (1 + caps) * 32 + 32, caps * HASH64_INT_OPS
+
+
+@tracked("cap_fold", _cap_root_cost)
 def cap_root(root: torch.Tensor, dense_depth: int,
              limit_depth: int) -> torch.Tensor:
     """``root`` (u32[8]) with the zero-subtree caps dense_depth ..

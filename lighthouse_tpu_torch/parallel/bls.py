@@ -23,6 +23,9 @@ import torch
 import torch.distributed as dist
 
 from ..crypto.bls import gpu_backend as gb
+from ..obs import device
+from ..obs.cuda_accounting import host_readback
+from ..obs.roofline import tensor_bytes, tracked
 from ..ops import bigint as bi
 from ..ops import bls12_381 as k
 from .mesh import Mesh, program
@@ -38,6 +41,25 @@ SCALAR_MUL = program("parallel.bls.scalar_mul", _SRC,
 _FALLBACK_PARSE_BACKEND = None     # shared point cache for cpp/fake backends
 
 
+_FP12_BYTES = 2 * 3 * 2 * 32 * 4
+
+
+def _miller_product_cost(partials, mesh: Mesh, px, py, qx, qy, mask=None):
+    """This rank's share of a sharded Miller product: its pairs read
+    (and the mask), the loops of its live pairs and their product, the
+    partials written; the other ranks' partials brought in."""
+    from ..ops import bls_cost as cost
+    n_local = int(px.shape[0])
+    live = (np.ones(n_local, bool) if mask is None
+            else mask.cpu().numpy())
+    muls = cost.miller_loop(live) + cost.final_exp(n_local, 0)
+    return (tensor_bytes(px, py, qx, qy, mask) + mesh.size * _FP12_BYTES,
+            muls * cost.FP_MUL_INT_OPS,
+            {"field_muls": muls,
+             "link_bytes": (mesh.size - 1) * _FP12_BYTES})
+
+
+@tracked("bls.miller_product", _miller_product_cost)
 def _local_miller_product(mesh: Mesh, px, py, qx, qy) -> torch.Tensor:
     """Miller loop over this rank's pairs, their Fp12 product, gathered:
     the partial products [size, 2, 3, 2, 32] in rank order."""
@@ -46,6 +68,7 @@ def _local_miller_product(mesh: Mesh, px, py, qx, qy) -> torch.Tensor:
     return mesh.all_gather(k.fp12_product(fs), "bls.miller_partials")
 
 
+@tracked("bls.masked_product", _miller_product_cost)
 def _local_masked_product(mesh: Mesh, px, py, qx, qy,
                           mask) -> torch.Tensor:
     """As ``_local_miller_product``, with lanes whose ``mask`` is False
@@ -55,30 +78,60 @@ def _local_masked_product(mesh: Mesh, px, py, qx, qy,
     return mesh.all_gather(k.fp12_product(fs), "bls.miller_partials")
 
 
+def _scalar_mul_program(degree: int):
+    """The sharded scalar multiply of G1 (``degree`` 1) or G2 (2), under
+    its program name."""
+    mul = k.g1_scalar_mul if degree == 1 else k.g2_scalar_mul
+
+    def work(out, mesh: Mesh, x, y, z, bits, label):
+        """This rank's share: its lanes' inputs read, every lane's
+        scaled point written, its lanes' products; the other ranks'
+        scaled lanes brought in."""
+        from ..ops import bls_cost as cost
+        one = k.FP_ONE if degree == 1 else k.FP2_ONE
+        muls = cost.scalar_mul_lanes(bits.cpu().numpy(), degree,
+                                     z_one=k._z_is(z, one))["products"]
+        out_bytes = tensor_bytes(out)
+        return (tensor_bytes(x, y, z, bits) + out_bytes,
+                muls * cost.FP_MUL_INT_OPS,
+                {"field_muls": muls,
+                 "link_bytes": out_bytes * (mesh.size - 1) // mesh.size})
+
+    def run(mesh: Mesh, x, y, z, bits, label: str):
+        SCALAR_MUL.ran()
+        local = torch.stack(mul(x, y, z, bits))            # [3, lanes/n, ..]
+        every = mesh.all_gather(local, label)              # [n, 3, lanes/n, ..]
+        every = every.transpose(0, 1).reshape((3, -1)
+                                              + tuple(local.shape[2:]))
+        return tuple(c.contiguous() for c in every)
+
+    return tracked(f"bls.g{degree}_scalar_mul", work)(run)
+
+
+_SCALAR_MUL_PROGRAMS = {1: _scalar_mul_program(1), 2: _scalar_mul_program(2)}
+
+
 def sharded_scalar_mul(mesh: Mesh, degree: int, x, y, z, bits,
                        label: str):
     """[b_i]P_i on this rank's lanes (G1 for ``degree`` 1, G2 for 2),
     then the scaled lanes of every rank gathered in rank order: the
     Jacobian (x, y, z) of all lanes on every rank."""
-    SCALAR_MUL.ran()
-    mul = k.g1_scalar_mul if degree == 1 else k.g2_scalar_mul
-    local = torch.stack(mul(x, y, z, bits))                # [3, lanes/n, ..]
-    every = mesh.all_gather(local, label)                  # [n, 3, lanes/n, ..]
-    every = every.transpose(0, 1).reshape((3, -1) + tuple(local.shape[2:]))
-    return tuple(c.contiguous() for c in every)
+    return _SCALAR_MUL_PROGRAMS[degree](mesh, x, y, z, bits, label)
 
 
 def _is_one_after_final_exp(partials: torch.Tensor) -> bool:
     out = k.final_exponentiation(k.fp12_product(partials))
-    return bool(k.fp12_eq(out, k.fp12_one_like((), out)))
+    return bool(host_readback(k.fp12_eq(out, k.fp12_one_like((), out))))
 
 
 def sharded_pairing_check(mesh: Mesh, px, py, qx, qy) -> bool:
     """prod_i e(P_i, Q_i) == 1 with the pair batch row-sharded over the
     mesh (this rank's blocks: px, py [n/size, 32], qx, qy [n/size, 2, 32],
     Montgomery limbs). The same verdict on every rank."""
-    return _is_one_after_final_exp(
-        _local_miller_product(mesh, px, py, qx, qy))
+    with device.hbm_watermark("parallel.bls"):
+        device.attribute("parallel.bls", "pairing_inputs", px, py, qx, qy)
+        return _is_one_after_final_exp(
+            _local_miller_product(mesh, px, py, qx, qy))
 
 
 def _parse_backend(backend):
@@ -157,10 +210,12 @@ def miller_pairs(mesh: Mesh, prep: dict, keep: dict | None = None):
                                            lanes)
     # ---- device: replicated validity checks + hash map -----------------
     sig_y, on_curve = k.g2_decompress_batch(sig_x, prep["flags"])
-    if not bool(on_curve.all()):
+    # the two validity gates read the flags back (accounted bytes)
+    if not bool(host_readback(on_curve).all()):
         return None
     one2 = _put(mesh, np.broadcast_to(k.FP2_ONE, (lanes, 2, bi.NLIMBS)))
-    if not bool(k.g2_in_subgroup_batch(sig_x, sig_y, one2).all()):
+    if not bool(host_readback(k.g2_in_subgroup_batch(sig_x, sig_y,
+                                                     one2)).all()):
         return None
     u0, u1 = _put(mesh, prep["u0"]), _put(mesh, prep["u1"])
     mx, my, mz = k.hash_to_g2_batch_from_u(u0, u1)
@@ -168,10 +223,13 @@ def miller_pairs(mesh: Mesh, prep: dict, keep: dict | None = None):
 
     # ---- device: SHARDED RLC scalar muls, gathered ---------------------
     g1_in, g2_in = rlc_inputs(mesh, prep, sig_x, sig_y, pk_x, pk_y)
-    spx, spy, spz = sharded_scalar_mul(mesh, 1, *g1_in,
-                                       "bls.scaled_pubkeys")
-    ssx, ssy, ssz = sharded_scalar_mul(mesh, 2, *g2_in,
-                                       "bls.scaled_signatures")
+    with device.hbm_watermark("parallel.bls"):
+        spx, spy, spz = sharded_scalar_mul(mesh, 1, *g1_in,
+                                           "bls.scaled_pubkeys")
+        ssx, ssy, ssz = sharded_scalar_mul(mesh, 2, *g2_in,
+                                           "bls.scaled_signatures")
+        device.attribute("parallel.bls", "rlc_scaled_points",
+                         spx, spy, spz, ssx, ssy, ssz)
     # the aggregate sums all lanes in the kernel's tree, whose order n
     # alone fixes, as the single-device path does: the two aggregates are
     # equal limb for limb
@@ -232,5 +290,8 @@ def sharded_verify_signature_sets(mesh: Mesh, sets, lanes: int,
     pairs = miller_pairs(mesh, prep)
     if pairs is None:
         return False
-    partials = _local_masked_product(mesh, *(mesh.local(t) for t in pairs))
-    return _is_one_after_final_exp(partials)
+    with device.hbm_watermark("parallel.bls"):
+        device.attribute("parallel.bls", "miller_pairs", *pairs[:4])
+        partials = _local_masked_product(mesh,
+                                         *(mesh.local(t) for t in pairs))
+        return _is_one_after_final_exp(partials)

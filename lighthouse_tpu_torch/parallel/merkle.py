@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.sha256 import hash_pairs, merkleize_dense
+from ..obs import device
+from ..obs.roofline import tracked
+from ..ops.sha256 import HASH64_INT_OPS, hash_pairs, merkleize_dense
 from .mesh import Mesh, program
 
 SUBTREE_THEN_TOP = program(
@@ -19,6 +21,18 @@ SUBTREE_THEN_TOP = program(
     "lighthouse_tpu/parallel/merkle.py:27")
 
 
+def _subtree_then_top_cost(root, mesh: Mesh, local_leaves: torch.Tensor,
+                           subtree_depth: int, top_depth: int):
+    """This rank's share: its leaves read, the root written; a hash a
+    node of its subtree and of the top tree; the other ranks' subtree
+    roots brought in."""
+    local = int(local_leaves.shape[0])
+    hashes = (local - 1) + (mesh.size - 1)
+    return (local * 32 + 32, hashes * HASH64_INT_OPS,
+            {"link_bytes": (mesh.size - 1) * 32})
+
+
+@tracked("merkle.subtree_then_top", _subtree_then_top_cost)
 def _subtree_then_top(mesh: Mesh, local_leaves: torch.Tensor,
                       subtree_depth: int, top_depth: int) -> torch.Tensor:
     """Local subtree root -> all_gather -> top tree; the root u32[8]."""
@@ -49,8 +63,10 @@ def sharded_merkleize(mesh: Mesh, local_leaves: torch.Tensor) -> torch.Tensor:
     root u32[8] on every rank."""
     local = int(local_leaves.shape[0])
     subtree_depth, top_depth = _depths(local * mesh.size, mesh.size)
-    return _subtree_then_top(mesh, local_leaves.reshape(local, 8),
-                             subtree_depth, top_depth)
+    with device.hbm_watermark("parallel.merkle"):
+        device.attribute("parallel.merkle", "leaves", local_leaves)
+        return _subtree_then_top(mesh, local_leaves.reshape(local, 8),
+                                 subtree_depth, top_depth)
 
 
 def sharded_state_root_step(mesh: Mesh, validator_leaves: torch.Tensor,

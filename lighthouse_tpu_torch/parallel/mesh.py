@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from .. import device as _device
+from ..obs.cuda_accounting import account_transfer
 
 
 @dataclass
@@ -129,6 +130,7 @@ def shard_batch(mesh: Mesh, arr) -> torch.Tensor:
         block = block.view(np.int32)
     if not block.flags.writeable:      # torch.from_numpy wants writable
         block = block.copy()
+    account_transfer(block.nbytes, "h2d")
     t = torch.from_numpy(block)
     # the block never aliases the caller's array
     return t.clone() if mesh.device.type == "cpu" else t.to(mesh.device)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import sys
 import threading
 from collections import OrderedDict
 
@@ -193,6 +194,13 @@ class _SharedShufflingCache:
                 self.hits += 1
             else:
                 self.misses += 1
+        # feed outside the lock, through sys.modules so the STF library
+        # never imports the api package (tracing._observe_metric idiom);
+        # graftwatch's shuffle_cache_hit_ratio SLO reads these
+        md = sys.modules.get("lighthouse_tpu_torch.api.metrics_defs")
+        if md is not None:
+            md.count("shuffle_cache_hits_total" if cc is not None
+                     else "shuffle_cache_misses_total")
         return cc
 
     def insert(self, key: tuple, cc: CommitteeCache) -> None:

@@ -46,7 +46,18 @@ need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
         "lighthouse_tpu_torch.utils.native_hash", "lighthouse_tpu_torch.utils.gxx",
         "lighthouse_tpu_torch.ssz.merkle_proof",
         "lighthouse_tpu_torch.testing.state_harness",
-        "lighthouse_tpu_torch.stf_workload"}
+        "lighthouse_tpu_torch.stf_workload",
+        "lighthouse_tpu_torch.api.metrics", "lighthouse_tpu_torch.api.metrics_defs",
+        "lighthouse_tpu_torch.utils.log_buffer",
+        "lighthouse_tpu_torch.utils.system_health",
+        "lighthouse_tpu_torch.obs", "lighthouse_tpu_torch.obs.tracing",
+        "lighthouse_tpu_torch.obs.occupancy", "lighthouse_tpu_torch.obs.timeseries",
+        "lighthouse_tpu_torch.obs.cuda_accounting",
+        "lighthouse_tpu_torch.obs.roofline", "lighthouse_tpu_torch.obs.device",
+        "lighthouse_tpu_torch.obs.slo", "lighthouse_tpu_torch.obs.critpath",
+        "lighthouse_tpu_torch.obs.causal", "lighthouse_tpu_torch.obs.flight",
+        "lighthouse_tpu_torch.obs.capture", "lighthouse_tpu_torch.obs.report",
+        "lighthouse_tpu_torch.obs.doctor", "lighthouse_tpu_torch.obs.graftwatch"}
 print(len(names), sorted(need - set(names)), bad)
 """
 
