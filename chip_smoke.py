@@ -121,7 +121,37 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    Each BLS kernel against its plain version on the block batch's own
    lane inputs (128 lanes, 129 Miller pairs), among the kernels' modes.
    The memory ledger at the phase's end.
-8. Observability, read from what phases 1-7 left (the catalog and the
+8. The beacon node's gossip path at 1,000,000 validators, with every
+   launch count at 0 at its start: phase 7's state with a real anchor
+   block (``stf_workload.build_chain_workload``: the anchor's header the
+   state's ``latest_block_header``, the anchor justified, the block built
+   and signed after it, its ``state_root`` from a pass with signatures
+   off); ``BeaconChain``s anchored on copies by ``BeaconChainBuilder``
+   (``weak_subjectivity_anchor``, a manual slot clock at the block's
+   slot, the mock execution layer, a ``HotColdDB`` on native kv stores
+   in a temp dir; ``store_genesis`` timed). 10,000 unaggregated
+   single-bit gossip attestations by the prior slot's committee members
+   (each signed by its member on the C++ host backend, head and target
+   the anchor) through ``batch_verify_unaggregated_attestations_for_gossip``
+   on ``gpu`` (all verified), a 64-batch, and a negative 64-batch whose
+   item 17 carries its neighbour's signature (that item alone
+   ``bad_signature``, through the split fallback); the ``cpp`` backend
+   on a chain of its own gives the same verdicts. The verified votes
+   into fork choice, and into the op pool of the ``cpp`` chain (one
+   packed aggregate a committee). A negative block (attestation 0 with
+   attestation 1's signature, the proposal signed again) raises
+   ``BlockError`` on both, the head and the store unchanged; the block
+   imported by ``process_gossip_block`` through a two-worker
+   ``BeaconProcessor`` on ``gpu`` (the head on it, fork choice and the
+   store holding it, its batch on the card) and on ``cpp`` (the same
+   head and post-state root). Timed: the batches with their split
+   (checks, ``parse_sets``, ``host_prepare``, ``verify_signature_sets``),
+   the votes into fork choice, ``recompute_head`` over the vote
+   trackers, the import (median of 3 on fresh chains) with its critical
+   path by stage (service time, queue wait), and the card's idle share
+   of one import under ``torch.profiler``. Every state-root and BLS
+   kernel must have launched on the path.
+9. Observability, read from what phases 1-8 left (the catalog and the
    ``obs`` layer are loaded at import, as a node loads them, and the
    graftwatch sampler ticks once a phase): every kernel that launched (15
    in mode 0, 20 mode-1/2 variants) has a roofline record on the card
@@ -129,8 +159,10 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    memory ledger of phase 7 (platform ``cuda``, the card's kind, memory
    and bytes in use, the live merkle trees attributed within them); a
    second ``build_all`` with no build-cache miss; the catalog metrics of
-   the state root, the BLS batch (``bls_batch_verify_sigs`` at 10,000)
-   and the block; a flight dump the port's doctor renders with exit 0.
+   the state root, the BLS batch (``bls_batch_verify_sigs`` at 10,000),
+   the block, and the chain's imports (``beacon_block_imported_total``)
+   and gossip batches (``beacon_attestation_processing_seconds``); a
+   flight dump the port's doctor renders with exit 0.
 
 Every bound beside a kernel's time (phases 2, 4, 6, 7) is the roofline
 record of the checked call: its wrapper's declared cost (``obs/roofline``).
@@ -1401,7 +1433,7 @@ def _median_ms(fn, reps: int = 3) -> tuple[float, list[float]]:
 
 
 def stf_phase(bounds: Bounds, setup: dict,
-              card: str) -> tuple[dict, BlsKernelCheck]:
+              card: str) -> tuple[dict, BlsKernelCheck, object]:
     """The block on the card: the 1M-validator Altair workload of
     ``stf_workload`` (a block covering the prior slot, really signed)
     through ``per_block_processing`` with its signatures verified as one
@@ -1409,7 +1441,9 @@ def stf_phase(bounds: Bounds, setup: dict,
     with its root on the card, each held to the JAX package's root; the
     same block on the ``cpp`` backend; two negative blocks on both; the
     warm times with the signature call's split; the BLS kernels against
-    their plain versions on the block batch's own lane inputs."""
+    their plain versions on the block batch's own lane inputs. Returns
+    the report, the kernel checks and the workload (phase 8 reuses its
+    state, signer rows and pubkeys)."""
     import os
 
     import torch
@@ -1625,7 +1659,472 @@ def stf_phase(bounds: Bounds, setup: dict,
             "sets_ms": sets_ms, "parse_ms": parse_ms, "prepare_ms": prep_ms,
             "device_busy_ms": busy_ms, "rest_ms": rest_ms, "profile": prof,
             "post_root_ms": root_ms, "epoch_ms": epoch_ms,
-            "epoch_root_ms": epoch_root_ms}, c
+            "epoch_root_ms": epoch_root_ms}, c, w
+
+
+#: the gossip batch of BASELINE.md config 3, and the beacon processor's
+#: attestation batch (``beacon_processor/processor.py`` ``MAX_BATCH``)
+GOSSIP_BATCH = 10_000
+PROCESSOR_BATCH = 64
+#: the item of the negative 64-batch that carries its neighbour's signature
+NEGATIVE_ITEM = 17
+
+
+def _verdicts(results) -> list[str]:
+    """A gossip batch's results as kinds: ``ok`` or the error's kind."""
+    from lighthouse_tpu_torch.chain.errors import AttestationError
+    return [r.kind if isinstance(r, AttestationError) else "ok"
+            for r in results]
+
+
+def chain_phase(setup: dict, w, card: str) -> dict:
+    """Phase 8: the beacon node's gossip path at 1M validators. Chains
+    anchored on phase 7's state (``stf_workload.build_chain_workload``: a
+    real anchor block, the block after it), their stores native kv stores
+    under a temp dir; the ``GOSSIP_BATCH`` unaggregated attestations, a
+    64-batch and a negative 64-batch through
+    ``batch_verify_unaggregated_attestations_for_gossip`` on ``gpu`` and
+    on ``cpp`` (equal verdicts), applied to fork choice and the op pool;
+    a negative block raising on both; the block imported through the
+    beacon processor on ``gpu`` (the head on it, the store holding it,
+    the stage split) on the chain the batches warmed and on three fresh
+    chains, and on ``cpp`` (the same head and post-state root), once more
+    under the profiler. The kernel launches of the path are the deltas
+    around the gpu chains' own calls: their anchoring, the three gossip
+    batches, the negative block and the imports through the processor."""
+    import os
+    import tempfile
+
+    import torch
+
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch import stf_workload as sw
+    from lighthouse_tpu_torch.beacon_processor import (
+        BeaconProcessor, Work, WorkType,
+    )
+    from lighthouse_tpu_torch.bls_batch import warm_pubkeys
+    from lighthouse_tpu_torch.chain import BeaconChainBuilder, BlockError
+    from lighthouse_tpu_torch.chain import attestation_verification as av
+    from lighthouse_tpu_torch.chain.errors import BAD_SIGNATURE
+    from lighthouse_tpu_torch.chain.execution import MockExecutionLayer
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import gpu_backend
+    from lighthouse_tpu_torch.obs import critpath
+    from lighthouse_tpu_torch.profile_state_root import profiled
+    from lighthouse_tpu_torch.specs.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.ssz import htr
+    from lighthouse_tpu_torch.store import HotColdDB, NativeKvStore
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    t_phase = time.perf_counter()
+    cpp, gpu = setup["cpp"], setup["gpu"]
+    check(bls.get_backend() is gpu, "the BLS module's backend is not gpu")
+    kernels.reset_counts()
+    cores = os.cpu_count() or 8
+    spec = mainnet_spec()
+    report: dict = {}
+    n_gossip = GOSSIP_BATCH
+    # each kernel's launches by the chain's own calls, by call
+    path_launches: dict[str, dict[str, int]] = {}
+
+    def counted(label: str, fn):
+        """``fn()``, its kernel launches added to ``path_launches``."""
+        before = {n: k.launches for n, k in kernels.KERNELS.items()}
+        try:
+            return fn()
+        finally:
+            got = path_launches.setdefault(label, dict.fromkeys(before, 0))
+            for n, k in kernels.KERNELS.items():
+                got[n] += k.launches - before[n]
+
+    # (a) the anchor and the block, on a copy of phase 7's state
+    t0 = time.perf_counter()
+    cw = sw.build_chain_workload(w, cpp)
+    report["workload_s"] = time.perf_counter() - t0
+    anchor_root = htr(cw.anchor.message)
+    block_root = htr(cw.block.message)
+    slot = int(cw.block.message.slot)
+    check(bytes(cw.block.message.parent_root) == anchor_root,
+          "the block's parent is not the anchor")
+    t0 = time.perf_counter()
+    atts = sw.gossip_attestations(cw.state, anchor_root,
+                                  n_gossip + 2 * PROCESSOR_BATCH, cpp,
+                                  threads=cores)
+    report["sign_s"] = time.perf_counter() - t0
+    main = atts[:n_gossip]
+    small = atts[n_gossip:n_gossip + PROCESSOR_BATCH]
+    negative = list(atts[n_gossip + PROCESSOR_BATCH:])
+    bad, nxt = negative[NEGATIVE_ITEM][0], negative[NEGATIVE_ITEM + 1][0]
+    negative[NEGATIVE_ITEM] = (type(bad)(
+        aggregation_bits=list(bad.aggregation_bits), data=bad.data,
+        signature=nxt.signature), negative[NEGATIVE_ITEM][1])
+    print(f"chain setup: the anchor block {anchor_root.hex()} at slot "
+          f"{slot - 1} (its header the state's, the anchor justified), the "
+          f"block {block_root.hex()} at slot {slot} signed and its state "
+          f"root filled in {report['workload_s']:.1f} s; {len(atts)} "
+          f"single-bit gossip attestations by the anchor slot's committee "
+          f"members signed (C++ host backend, {cores} threads) in "
+          f"{report['sign_s']:.1f} s [{card}]", flush=True)
+
+    def anchored(tmp: str, name: str, label: str | None = None):
+        """A chain anchored on a copy of the workload's state, its hot and
+        cold DBs native kv stores under ``tmp``, its head computed once (a
+        node's first head: its housekeeping at the anchor's finalized
+        checkpoint prunes, migrates to the freezer and persists fork
+        choice); (chain, build seconds, store_genesis seconds, first
+        recompute_head seconds). The launches of the build and the first
+        head go to ``path_launches[label]`` where a label is given."""
+        db = HotColdDB(NativeKvStore(os.path.join(tmp, name, "hot")),
+                       NativeKvStore(os.path.join(tmp, name, "cold")), spec)
+        genesis_s = []
+        inner = db.store_genesis
+
+        def store_genesis(*args, **kwargs):
+            t = time.perf_counter()
+            inner(*args, **kwargs)
+            genesis_s.append(time.perf_counter() - t)
+
+        db.store_genesis = store_genesis
+        state = cw.state.copy()
+        run = (lambda fn: counted(label, fn)) if label else (
+            lambda fn: fn())
+        t = time.perf_counter()
+        chain = run(lambda: BeaconChainBuilder(spec)
+                    .weak_subjectivity_anchor(state, cw.anchor)
+                    .slot_clock(ManualSlotClock(0, spec.seconds_per_slot,
+                                                current_slot=slot))
+                    .execution_layer(MockExecutionLayer())
+                    .store(db)
+                    .build())
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        check(run(chain.recompute_head) == anchor_root
+              and len(genesis_s) == 1, f"chain {name}: not anchored")
+        return chain, build_s, genesis_s[0], time.perf_counter() - t
+
+    def through_processor(chain, signed_block) -> float:
+        """Import ``signed_block`` by ``process_gossip_block`` as a
+        GOSSIP_BLOCK work item of a two-worker beacon processor; the
+        milliseconds from submit to idle. Raises what the import
+        raised."""
+        out, errors = [], []
+
+        def run():
+            try:
+                out.append(chain.process_gossip_block(signed_block))
+            except Exception as e:  # re-raised below, on this thread
+                errors.append(e)
+
+        proc = BeaconProcessor(num_workers=2)
+        proc.start()
+        try:
+            t = time.perf_counter()
+            proc.submit(Work(kind=WorkType.GOSSIP_BLOCK, run=run))
+            check(proc.wait_idle(timeout=600), "the import did not finish "
+                                               "inside 600 s")
+            ms = (time.perf_counter() - t) * 1e3
+        finally:
+            proc.stop()
+        if errors:
+            raise errors[0]
+        check(out == [block_root], f"the import returned {out}")
+        return ms
+
+    def imported(chain, name: str) -> None:
+        head = chain.head()
+        check(head.head_block_root == block_root,
+              f"{name}: the head {head.head_block_root.hex()} is not the "
+              f"block")
+        check(chain.fork_choice.contains_block(block_root),
+              f"{name}: fork choice lacks the block")
+        stored = chain.store.get_block(block_root)
+        check(stored is not None and htr(stored.message) == block_root,
+              f"{name}: the store does not return the block")
+        check(chain.store.hot_state_summary(cw.post_root) is not None,
+              f"{name}: the store has no hot summary of the post-state")
+        check(head.head_state.hash_tree_root() == cw.post_root,
+              f"{name}: the head state's root is not the block's")
+
+    def rejected(chain, name: str, label: str | None = None) -> None:
+        """The negative block raises BlockError through the import and
+        leaves the head and the store as they were; the launches of its
+        import go to ``path_launches[label]`` where a label is given."""
+        bad_block = sw.swapped_block(cw.state, cw.block, cpp)
+        bad_root = htr(bad_block.message)
+        try:
+            if label:
+                counted(label, lambda: chain.process_block(bad_block))
+            else:
+                chain.process_block(bad_block)
+            raised = False
+        except BlockError:
+            raised = True
+        check(raised, f"{name}: the negative block was accepted")
+        check(chain.head().head_block_root == anchor_root,
+              f"{name}: the negative block moved the head")
+        check(chain.store.get_block(bad_root) is None
+              and not chain.fork_choice.contains_block(bad_root),
+              f"{name}: the negative block is in the store or fork choice")
+
+    def gpu_import(chain, name: str) -> tuple[float, dict]:
+        """The block through the processor on a gpu chain, its launches
+        under ``import``, the import checked to have run every BLS kernel
+        and to have put the head on the block; (ms, the critical path of
+        its block_import trace)."""
+        check(bls.get_backend() is gpu, "the BLS module's backend is not gpu")
+        before = {s.span_id for s in tracing.snapshot()}
+        bls_before = {k.name: k.launches for k in kernels.BLS_KERNELS}
+        ms = counted("import", lambda: through_processor(chain, cw.block))
+        check(all(k.launches > bls_before[k.name]
+                  for k in kernels.BLS_KERNELS),
+              f"{name}: the import's batch signature did not run on the gpu "
+              f"backend's kernels")
+        imported(chain, name)
+        comp = critpath.worst_component(
+            [s for s in tracing.snapshot() if s.span_id not in before],
+            kinds=("block_import",))
+        check(comp is not None, f"{name}: no block_import trace recorded")
+        return ms, critpath.component_report(comp)
+
+    def split(stages: dict) -> str:
+        row = stages["stages"]
+        return ", ".join(
+            f"{k} {row[k]['service_ms']:.1f} ms (queue wait "
+            f"{row[k]['queue_wait_ms']:.1f})"
+            for k in ("processor_work", "block_pipeline", "gossip_verify",
+                      "block_import", "batch_signature", "state_transition",
+                      "state_root", "fork_choice", "db_write") if k in row)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        chain_g, build_s, genesis_s, first_head_s = anchored(tmp, "gpu",
+                                                             "anchor")
+        report.update(anchor_s=build_s, store_genesis_s=genesis_s,
+                      first_recompute_head_s=first_head_s)
+        print(f"chain anchored: BeaconChainBuilder.build {build_s:.2f} s, "
+              f"store_genesis {genesis_s:.2f} s of it (the state into the "
+              f"freezer, its summary into the hot DB; native kv stores); "
+              f"the first recompute_head {first_head_s:.2f} s (prune, "
+              f"migrate, persist at the anchor's finalized checkpoint) "
+              f"[{card}]", flush=True)
+
+        # (b) the gossip batches: the checks alone and the signature sets'
+        # split, timed apart (their launches are not the chain's), then
+        # each batch through the chain on gpu, then on cpp
+        t0 = time.perf_counter()
+        prepared = [av.verify_unaggregated_checks(chain_g, a, s)
+                    for a, s in main]
+        checks_ms = (time.perf_counter() - t0) * 1e3
+        sets = [p[2] for p in prepared]
+        check(warm_pubkeys(gpu, sets, processes=cores) == 0,
+              "the gossip signers' pubkeys were not in phase 7's cache")
+        parse_ms, _ = _median_ms(lambda: gpu_backend.parse_sets(gpu, sets))
+        parsed = gpu_backend.parse_sets(gpu, sets)
+        small_lanes, big_lanes = gpu_backend.lane_options()
+        lanes = small_lanes if len(sets) <= small_lanes else big_lanes
+        prep_ms, _ = _median_ms(
+            lambda: gpu_backend.host_prepare(*parsed, lanes, small_lanes))
+        t0 = time.perf_counter()
+        check(bls.verify_signature_sets(sets), "the gossip sets do not "
+                                               "verify on gpu")
+        verify_ms = (time.perf_counter() - t0) * 1e3
+
+        def batches(chain, count: bool) -> tuple[dict, dict]:
+            verdicts, ms = {}, {}
+            for label, batch in (("64", small), ("negative 64", negative),
+                                 (str(n_gossip), main)):
+                def call():
+                    return (chain.
+                            batch_verify_unaggregated_attestations_for_gossip(
+                                batch))
+                t = time.perf_counter()
+                verdicts[label] = _verdicts(
+                    counted(f"gossip {label}", call) if count else call())
+                ms[label] = (time.perf_counter() - t) * 1e3
+            return verdicts, ms
+
+        verdicts_g, batch_ms = batches(chain_g, count=True)
+        want_negative = ["ok"] * PROCESSOR_BATCH
+        want_negative[NEGATIVE_ITEM] = BAD_SIGNATURE
+        check(verdicts_g["64"] == ["ok"] * PROCESSOR_BATCH,
+              f"the 64-batch on gpu: {verdicts_g['64']}")
+        check(verdicts_g["negative 64"] == want_negative,
+              f"the negative 64-batch on gpu: {verdicts_g['negative 64']}")
+        check(verdicts_g[str(n_gossip)] == ["ok"] * n_gossip,
+              f"the {n_gossip}-batch on gpu: "
+              f"{sorted(set(verdicts_g[str(n_gossip)]))}")
+        big = path_launches[f"gossip {n_gossip}"]
+        check(all(big[k.name] > 0 for k in kernels.BLS_KERNELS),
+              f"the {n_gossip}-batch through the chain did not launch every "
+              f"BLS kernel: {big}")
+
+        chain_c = anchored(tmp, "cpp")[0]
+        bls.set_backend("cpp")
+        try:
+            verdicts_c, batch_ms_c = batches(chain_c, count=False)
+        finally:
+            bls.set_backend("gpu")
+        check(verdicts_c == verdicts_g, "the cpp backend's verdicts differ "
+                                        "from gpu's")
+        report.update(checks_ms=checks_ms, parse_ms=parse_ms,
+                      prepare_ms=prep_ms, verify_ms=verify_ms,
+                      lanes=lanes, batch_ms=batch_ms, batch_ms_cpp=batch_ms_c)
+        print(f"chain gossip: {n_gossip} attestations all verified on gpu "
+              f"({batch_ms[str(n_gossip)]:.1f} ms through the chain: the "
+              f"checks alone {checks_ms:.1f} ms, parse_sets {parse_ms:.1f} "
+              f"ms, host_prepare {prep_ms:.1f} ms at {lanes} lanes, "
+              f"verify_signature_sets {verify_ms:.1f} ms); the 64-batch "
+              f"{batch_ms['64']:.1f} ms; the negative 64-batch names item "
+              f"{NEGATIVE_ITEM} alone {BAD_SIGNATURE} "
+              f"({batch_ms['negative 64']:.1f} ms, the split fallback); cpp "
+              f"the same verdicts ({batch_ms_c[str(n_gossip)]:.1f} / "
+              f"{batch_ms_c['64']:.1f} / {batch_ms_c['negative 64']:.1f} ms) "
+              f"[{card}]", flush=True)
+
+        # the verified attestations into fork choice (both chains) and the
+        # op pool (the cpp chain: the pool aggregates the signatures of
+        # one committee's singles on the backend, and the gpu backend's
+        # aggregation is the pure-Python curve)
+        ok_g = [p for p, v in zip(prepared, verdicts_g[str(n_gossip)])
+                if v == "ok"]
+        t0 = time.perf_counter()
+        for indexed, _base, _s in ok_g:
+            chain_g.fork_choice.on_attestation(slot, indexed,
+                                               is_from_block=False)
+        fc_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for indexed, _base, _s in ok_g:
+            chain_c.fork_choice.on_attestation(slot, indexed,
+                                               is_from_block=False)
+        bls.set_backend("cpp")
+        try:
+            for a, _subnet in main:
+                chain_c.op_pool.insert_attestation(a)
+        finally:
+            bls.set_backend("gpu")
+        pool_ms = (time.perf_counter() - t0) * 1e3
+        committees = {int(a.data.index) for a, _ in main}
+        packed = chain_c.op_pool.get_attestations_for_block(
+            chain_c.state_for_block_production(anchor_root, slot))
+        check(len(packed) == len(committees)
+              and sum(sum(bool(b) for b in p.aggregation_bits)
+                      for p in packed) == n_gossip,
+              f"the op pool packs {len(packed)} attestations, not one per "
+              f"committee ({len(committees)}) covering {n_gossip} bits")
+        # eight singles of one committee into the gpu chain's pool: the
+        # first opens the committee's bucket, each later one aggregates
+        # its signature on the gpu backend (the pure-Python curve)
+        one_committee = [a for a, _ in main if int(a.data.index) == 0][:8]
+        t0 = time.perf_counter()
+        for a in one_committee:
+            chain_g.op_pool.insert_attestation(a)
+        pool_gpu_ms = (time.perf_counter() - t0) * 1e3 / 7
+        # the votes' walk: get_head, compute_deltas over every tracker
+        t0 = time.perf_counter()
+        head_g = chain_g.fork_choice.get_head(slot)
+        get_head_ms = (time.perf_counter() - t0) * 1e3
+        check(head_g == chain_g.recompute_head() == anchor_root,
+              "the votes moved the head off the anchor")
+        report.update(fork_choice_apply_ms=fc_ms, op_pool_cpp_ms=pool_ms,
+                      op_pool_gpu_aggregate_ms=pool_gpu_ms,
+                      get_head_votes_ms=get_head_ms,
+                      votes=len(chain_g.fork_choice.votes))
+        print(f"chain gossip: {len(ok_g)} verified votes into fork choice "
+              f"{fc_ms:.1f} ms; fork choice and the op pool of the cpp chain "
+              f"{pool_ms:.1f} ms ({len(packed)} aggregates packed, "
+              f"{n_gossip} bits); an op pool insert that aggregates, on the "
+              f"gpu backend (the pure-Python curve), {pool_gpu_ms:.1f} ms "
+              f"(x {n_gossip} singles = {pool_gpu_ms * n_gossip / 1e3:.0f} s "
+              f"a slot); get_head over {len(chain_g.fork_choice.votes)} "
+              f"vote trackers {get_head_ms:.1f} ms [{card}]", flush=True)
+
+        # (c) the block: the negative on both, then the import through
+        # the beacon processor on cpp, on the chain the gossip batches
+        # warmed, and on three fresh chains
+        rejected(chain_g, "gpu", "negative block")
+        bls.set_backend("cpp")
+        try:
+            rejected(chain_c, "cpp")
+            cpp_ms = through_processor(chain_c, cw.block)
+        finally:
+            bls.set_backend("gpu")
+        imported(chain_c, "cpp")
+        warm_ms, warm_stages = gpu_import(chain_g, "gpu")
+        check(chain_g.head().head_state.hash_tree_root()
+              == chain_c.head().head_state.hash_tree_root(),
+              "the gpu and cpp chains' post-states differ")
+        t0 = time.perf_counter()
+        chain_g.recompute_head()
+        recompute_ms = (time.perf_counter() - t0) * 1e3
+        del chain_g, chain_c
+        import_ms, fresh_stages, anchor_more = [], [], []
+        for name in ("gpu 2", "gpu 3", "gpu 4"):
+            chain, b_s, g_s, h_s = anchored(tmp, name.replace(" ", ""),
+                                            "anchor")
+            anchor_more.append((b_s, g_s, h_s))
+            ms, stages = gpu_import(chain, name)
+            import_ms.append(ms)
+            fresh_stages.append(stages)
+            del chain
+        median_ms = statistics.median(import_ms)
+        stages = fresh_stages[import_ms.index(median_ms)]
+        # the device's busy time: one import under the profiler, read only
+        # when the profile holds at least the import's kernel launches
+        chain = anchored(tmp, "profiled")[0]
+        before = sum(k.launches for k in kernels.KERNELS.values())
+        prof = profiled(lambda: chain.process_gossip_block(cw.block))
+        call_launches = sum(k.launches
+                            for k in kernels.KERNELS.values()) - before
+        imported(chain, "profiled")
+        del chain
+    torch.cuda.synchronize()
+    names = [k.name for k in kernels.STATE_ROOT_KERNELS + kernels.BLS_KERNELS]
+    launches = {n: sum(c[n] for c in path_launches.values()) for n in names}
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the chain path")
+    print(f"chain import: the block through the beacon processor accepted "
+          f"on gpu, the head on it, fork choice and the store holding it "
+          f"(its post-state's hot summary); the same head and post-state "
+          f"root on cpp ({cpp_ms:.1f} ms); the negative block (attestation "
+          f"0 with attestation 1's signature, the proposal signed again) "
+          f"raised BlockError on both, the head and the store unchanged "
+          f"[{card}]", flush=True)
+    print(f"chain import: {median_ms:.1f} ms median of {len(import_ms)} on "
+          f"fresh chains {[round(x, 1) for x in import_ms]} (submit to "
+          f"idle); the critical path of the median one "
+          f"{stages['total_ms']:.1f} ms: {split(stages)} [{card}]",
+          flush=True)
+    print(f"chain import: {warm_ms:.1f} ms on the chain the gossip batches "
+          f"warmed (its {len(ok_g)} votes in fork choice); its critical "
+          f"path {warm_stages['total_ms']:.1f} ms: {split(warm_stages)}; "
+          f"recompute_head after it {recompute_ms:.1f} ms [{card}]",
+          flush=True)
+    busy = (f"device busy {prof['device_busy_ms']:.2f} ms "
+            f"({prof['device_events']} device events), the card idle "
+            f"{100 * (1 - prof['device_busy_share']):.1f} % of the import"
+            if prof["device_events"] >= call_launches else
+            f"device busy not measured (the profile holds "
+            f"{prof['device_events']} device events, fewer than the "
+            f"import's {call_launches} kernel launches)")
+    print(f"chain import: under the profiler {prof['wall_ms']:.1f} ms wall, "
+          f"{busy}; fresh chains anchored in {[round(a[0], 2) for a in anchor_more]}"
+          f" s (store_genesis {[round(a[1], 2) for a in anchor_more]}), "
+          f"their first recompute_head {[round(a[2], 2) for a in anchor_more]}"
+          f" s [{card}]", flush=True)
+    by_call = {label: {n: c[n] for n in names if c[n]}
+               for label, c in path_launches.items()}
+    print(f"chain launches on the path (the gpu chains' own calls: 4 "
+          f"anchorings, 3 gossip batches, the negative block, 4 imports "
+          f"through the processor): {launches}; by call {by_call} [{card}]",
+          flush=True)
+    report.update(verdicts=verdicts_g, cpp_import_ms=cpp_ms,
+                  import_ms=import_ms, warm_import_ms=warm_ms,
+                  stages=stages, warm_stages=warm_stages,
+                  recompute_head_ms=recompute_ms, profile=prof,
+                  anchor_more=anchor_more, launches=launches,
+                  launches_by_call=by_call)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"chain phase: {report['seconds']:.1f} s [{card}]", flush=True)
+    return report
 
 
 def _sampled(slot: int, name: str) -> float | None:
@@ -1639,7 +2138,7 @@ def _sampled(slot: int, name: str) -> float | None:
 
 
 def obs_phase(card: str, stf: dict) -> dict:
-    """Phase 8: what the observability layer kept of phases 1-7, read and
+    """Phase 9: what the observability layer kept of phases 1-8, read and
     checked (nothing heavy runs again): every kernel that launched (the 15
     in mode 0, the mode-1/2 variants phase 6 ran) has a roofline record on
     the card with a device ms and a utilization of the peak in (0, 1.05],
@@ -1647,8 +2146,9 @@ def obs_phase(card: str, stf: dict) -> dict:
     end of phase 7 (platform ``cuda``, the card's kind and memory, bytes in
     use, the live merkle trees attributed within them); a second
     ``build_all`` of every library (no miss); the catalog metrics of the
-    state root, the BLS batch and the block in the sampler's rows; a
-    flight dump rendered by the port's doctor (exit 0)."""
+    state root, the BLS batch, the block and the chain's imports and
+    attestation batches in the sampler's rows; a flight dump rendered by
+    the port's doctor (exit 0)."""
     import os
     import subprocess
     import tempfile
@@ -1749,7 +2249,10 @@ def obs_phase(card: str, stf: dict) -> dict:
             ("state_copy_seconds.count", 7), ("state_copy_seconds.p50", 7),
             ("stf_block_seconds.count", 7), ("stf_block_seconds.p50", 7),
             ("kernel_build_total", 1), ("kernel_build_seconds_total", 1),
-            ("device_hbm_bytes_in_use", 7))
+            ("device_hbm_bytes_in_use", 7),
+            ("beacon_block_imported_total", 8),
+            ("beacon_attestation_processing_seconds.count", 8),
+            ("beacon_attestation_processing_seconds.p50", 8))
     metrics = {f"{n}@{slot}": _sampled(slot, n) for n, slot in want}
     missing = [k for k, v in metrics.items() if not v]
     check(not missing, f"catalog metrics not fed: {missing}")
@@ -1869,7 +2372,7 @@ def main(argv=None) -> int:
     # phase 7: the block on the card (the state transition at 1M
     # validators), its launches beside each kernel's row, its BLS kernel
     # checks at the block batch's shapes among the kernels' modes
-    stf, stf_check = stf_phase(bounds, setup, card_line)
+    stf, stf_check, workload = stf_phase(bounds, setup, card_line)
     graftwatch.on_slot(7)
     for row in rows:
         if row["name"] in stf["launches"]:
@@ -1886,14 +2389,25 @@ def main(argv=None) -> int:
         modes.setdefault(name, []).extend(
             {**m, "mode": f"{label}, {m['mode']}"} for m in recs)
 
-    # phase 8: what the observability layer kept of phases 1-7
+    # phase 8: the beacon node's gossip path (fork choice, the op pool, the
+    # hot/cold store, the beacon processor, BeaconChain) on phase 7's
+    # state, its launches beside each kernel's row
+    chain = chain_phase(setup, workload, card_line)
+    del workload
+    graftwatch.on_slot(8)
+    for row in rows:
+        if row["name"] in chain["launches"]:
+            row["launches_chain_path"] = chain["launches"][row["name"]]
+
+    # phase 9: what the observability layer kept of phases 1-8
     obs = obs_phase(card_line, stf)
 
     report = {"card": card_line, "sm_clock_max_mhz": sm_clock,
               "build_s": build_s, "build": summary, "kernels": rows,
               "kernel_modes": modes, "bls_field_muls": bls_check.muls,
               "slice": sl, "bls": bls, "multigpu": multigpu, "mxu": mxu,
-              "stf": stf, "stf_field_muls": stf_check.muls, "obs": obs}
+              "stf": stf, "stf_field_muls": stf_check.muls, "chain": chain,
+              "obs": obs}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

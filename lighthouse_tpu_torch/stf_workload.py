@@ -20,7 +20,30 @@ generators, in the same order; 1,000,000 validators at slot
 ``build_workload(..., signed=False)`` puts ``bench.py``'s placeholder
 signature everywhere instead. ``write_signers`` works on either
 package's state, so a test can rewrite the same rows of a state that
-``bench.py`` built. Host only (numpy and the BLS host backends).
+``bench.py`` built.
+
+``build_chain_workload`` is the beacon node's gossip workload on the same
+state: ``bench.py`` ``bench_import_critpath``'s anchor block, whose header
+becomes the state's ``latest_block_header``, the block built and signed
+after it, its ``state_root`` filled by a pass with signatures off. Two
+things differ, both so that fork choice, anchored on the state, takes
+what the chain feeds it:
+
+- the state's current justified checkpoint is the anchor's
+  (``justify_anchor``, on either package's state), the checkpoint fork
+  choice's store starts from; with ``bench.py``'s (epoch - 1,
+  ``0x55...``) the viability filter keeps the head on the anchor;
+- the state sits at the anchor block's slot, and the block is built on
+  it advanced one slot: fork choice places the anchor at the state's
+  slot, and refuses a vote at the anchor's slot for a block it places
+  later (so the block's own attestations name the anchor as head, from
+  the advanced state's ``block_roots``).
+
+``gossip_attestations`` gives the unaggregated single-bit attestations of
+BASELINE.md config 3's batch by the anchor slot's committee members (the
+prior slot's of ``build_workload``: their keys are interop keys). Host
+only (numpy and the BLS host backends), but for the roots the advance
+and the ``state_root`` pass take.
 """
 from __future__ import annotations
 
@@ -36,10 +59,13 @@ from .crypto.bls12_381.fields import R as CURVE_ORDER
 from .seeded_state import STATE_SEED, seeded_columns
 from .specs.chain_spec import ForkName, compute_signing_root, mainnet_spec
 from .specs.constants import (
-    DOMAIN_BEACON_ATTESTER, DOMAIN_BEACON_PROPOSER, DOMAIN_RANDAO,
+    ATTESTATION_SUBNET_COUNT, DOMAIN_BEACON_ATTESTER, DOMAIN_BEACON_PROPOSER, DOMAIN_RANDAO,
     DOMAIN_SYNC_COMMITTEE,
 )
 from .ssz import deserialize, hash_tree_root, htr, serialize, uint64
+from .state_transition import (
+    VerifySignatures, per_block_processing, process_slots,
+)
 from .state_transition.helpers import (
     committee_cache, get_beacon_proposer_index, get_domain,
 )
@@ -114,11 +140,16 @@ def _set_sync_committees(state) -> None:
         pubkeys=pubkeys, aggregate_pubkey=pubkeys[0])
 
 
+def slot_committees(state, slot: int) -> list[np.ndarray]:
+    """The committees of ``slot`` (in ``state``'s epoch), by index."""
+    cache = committee_cache(state, state.current_epoch())
+    return [np.asarray(cache.committee(slot, i), np.int64)
+            for i in range(cache.committees_per_slot)]
+
+
 def prior_slot_committees(state) -> list[np.ndarray]:
     """The committees of the slot before ``state.slot``, by index."""
-    cache = committee_cache(state, state.current_epoch())
-    return [np.asarray(cache.committee(state.slot - 1, i), np.int64)
-            for i in range(cache.committees_per_slot)]
+    return slot_committees(state, state.slot - 1)
 
 
 def signer_rows(state) -> np.ndarray:
@@ -259,3 +290,129 @@ def build_workload(backend, n: int = N_VALIDATORS, slot: int = SLOT,
     write_signers(state, rows, pubkeys)
     block = build_block(state, backend if signed else None)
     return Workload(state, block, rows, pubkeys)
+
+
+# -- the beacon node's gossip workload ----------------------------------------
+
+def anchor_block(state):
+    """``bench.py`` ``bench_import_critpath``'s anchor: an Altair block at
+    ``state.slot - 1`` (the placeholder randao reveal, the state's
+    ``eth1_data``, zero graffiti) whose header becomes ``state``'s
+    ``latest_block_header``. Returns the signed anchor (the placeholder
+    signature)."""
+    T = state.T
+    slot = state.slot
+    body = T.BeaconBlockBody[ForkName.ALTAIR](
+        randao_reveal=PLACEHOLDER_SIGNATURE, eth1_data=state.eth1_data,
+        graffiti=b"\x00" * 32)
+    anchor = T.BeaconBlock[ForkName.ALTAIR](
+        slot=slot - 1, proposer_index=0, parent_root=b"\x11" * 32,
+        state_root=b"\x22" * 32, body=body)
+    state.latest_block_header = T.BeaconBlockHeader(
+        slot=slot - 1, proposer_index=0, parent_root=b"\x11" * 32,
+        state_root=b"\x22" * 32, body_root=htr(body))
+    return T.SignedBeaconBlock[ForkName.ALTAIR](
+        message=anchor, signature=PLACEHOLDER_SIGNATURE)
+
+
+def justify_anchor(state, anchor_root: bytes) -> None:
+    """Set ``state``'s (either package's) current justified checkpoint to
+    ``(state's epoch, anchor_root)``: fork choice anchored on the state
+    starts from that checkpoint, and a block whose state names another is
+    not viable for head."""
+    state.current_justified_checkpoint = state.T.Checkpoint(
+        epoch=state.current_epoch(), root=anchor_root)
+
+
+def sign_proposal(state, signed_block, backend) -> None:
+    """Sign ``signed_block``'s message as its proposer (interop key) with
+    ``backend``, in place."""
+    block = signed_block.message
+    domain = get_domain(state, DOMAIN_BEACON_PROPOSER, state.current_epoch())
+    signed_block.signature = backend.sign(
+        keygen_interop(int(block.proposer_index)),
+        compute_signing_root(htr(block), domain))
+
+
+def swapped_block(state, signed_block, backend):
+    """A copy of ``signed_block`` with attestation 0 carrying attestation
+    1's signature, the proposal signed again over it: only the attestation
+    signature is wrong."""
+    bad = copy_block(state, signed_block)
+    atts = bad.message.body.attestations
+    atts[0].signature = atts[1].signature
+    sign_proposal(state, bad, backend)
+    return bad
+
+
+@dataclass
+class ChainWorkload:
+    state: BeaconState      # the anchor state, at the anchor's slot
+    anchor: object          # the SignedBeaconBlock the state's header is
+    block: object           # the SignedBeaconBlock one slot later
+    post_root: bytes        # the state's root after the block
+
+
+def build_chain_workload(w: Workload, backend,
+                         signed: bool = True) -> ChainWorkload:
+    """On a copy of ``w``'s state (its signer rows and their pubkeys
+    reused): the anchor block at ``w``'s slot - 1, the anchor justified,
+    the state put at the anchor's slot; the block built on a copy
+    advanced to ``w``'s slot (signed by ``backend``, or the placeholder
+    where ``signed`` is false) and its ``state_root`` filled by
+    ``per_block_processing`` with signatures off on that copy."""
+    state = w.state.copy()
+    anchor = anchor_block(state)
+    justify_anchor(state, htr(anchor.message))
+    state.slot = anchor.message.slot
+    post = state.copy()
+    process_slots(post, state.slot + 1)
+    block = build_block(post, backend if signed else None)
+    per_block_processing(post, block, VerifySignatures.FALSE)
+    post_root = post.hash_tree_root()
+    block.message.state_root = post_root
+    if signed:
+        sign_proposal(state, block, backend)
+    return ChainWorkload(state, anchor, block, post_root)
+
+
+def gossip_attestations(state, head_root: bytes, count: int, backend,
+                        threads: int = 8) -> list:
+    """``count`` unaggregated attestations, ``(attestation, subnet)``
+    pairs, at ``state.slot``: one bit each, the members of the slot's
+    committees taken position by position across the committees (so
+    every committee's data repeats), each signed with its member's
+    interop key by ``backend``, ``threads`` at a time. Their data names
+    ``head_root`` as head and target and the state's current justified
+    checkpoint as source."""
+    T = state.T
+    att_slot = int(state.slot)
+    epoch = state.current_epoch()
+    committees = slot_committees(state, att_slot)
+    members = [(int(c[pos]), index, pos, len(c))
+               for pos in range(max(len(c) for c in committees))
+               for index, c in enumerate(committees) if pos < len(c)]
+    if count > len(members):
+        raise ValueError(f"{count} attestations asked, slot {att_slot} has "
+                         f"{len(members)} committee members")
+    domain = get_domain(state, DOMAIN_BEACON_ATTESTER, epoch)
+    datas = [T.AttestationData(
+        slot=att_slot, index=index, beacon_block_root=head_root,
+        source=state.current_justified_checkpoint,
+        target=T.Checkpoint(epoch=epoch, root=head_root))
+        for index in range(len(committees))]
+    roots = [compute_signing_root(htr(d), domain) for d in datas]
+    # the subnet: the committee's count since the epoch's start
+    first = (att_slot % T.preset.slots_per_epoch) * len(committees)
+
+    def one(m):
+        row, index, pos, size = m
+        sig = backend.sign(keygen_interop(row), roots[index])
+        bits = [False] * size
+        bits[pos] = True
+        att = T.Attestation(aggregation_bits=bits, data=datas[index],
+                            signature=sig)
+        return att, (first + index) % ATTESTATION_SUBNET_COUNT
+
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        return list(pool.map(one, members[:count]))

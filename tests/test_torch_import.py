@@ -57,7 +57,43 @@ need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
         "lighthouse_tpu_torch.obs.slo", "lighthouse_tpu_torch.obs.critpath",
         "lighthouse_tpu_torch.obs.causal", "lighthouse_tpu_torch.obs.flight",
         "lighthouse_tpu_torch.obs.capture", "lighthouse_tpu_torch.obs.report",
-        "lighthouse_tpu_torch.obs.doctor", "lighthouse_tpu_torch.obs.graftwatch"}
+        "lighthouse_tpu_torch.obs.doctor", "lighthouse_tpu_torch.obs.graftwatch",
+        "lighthouse_tpu_torch.utils.slot_clock",
+        "lighthouse_tpu_torch.utils.crashpoints",
+        "lighthouse_tpu_torch.utils.threads",
+        "lighthouse_tpu_torch.fork_choice",
+        "lighthouse_tpu_torch.fork_choice.proto_array",
+        "lighthouse_tpu_torch.fork_choice.fork_choice",
+        "lighthouse_tpu_torch.operation_pool",
+        "lighthouse_tpu_torch.operation_pool.max_cover",
+        "lighthouse_tpu_torch.operation_pool.pool",
+        "lighthouse_tpu_torch.store", "lighthouse_tpu_torch.store.kv",
+        "lighthouse_tpu_torch.store.chunked_vector",
+        "lighthouse_tpu_torch.store.schema_change",
+        "lighthouse_tpu_torch.store.hot_cold",
+        "lighthouse_tpu_torch.store.fsck",
+        "lighthouse_tpu_torch.beacon_processor",
+        "lighthouse_tpu_torch.beacon_processor.processor",
+        "lighthouse_tpu_torch.beacon_processor.reprocess",
+        "lighthouse_tpu_torch.chain", "lighthouse_tpu_torch.chain.errors",
+        "lighthouse_tpu_torch.chain.events",
+        "lighthouse_tpu_torch.chain.execution",
+        "lighthouse_tpu_torch.chain.observed",
+        "lighthouse_tpu_torch.chain.block_times_cache",
+        "lighthouse_tpu_torch.chain.hot_caches",
+        "lighthouse_tpu_torch.chain.attestation_verification",
+        "lighthouse_tpu_torch.chain.block_verification",
+        "lighthouse_tpu_torch.chain.sync_committee",
+        "lighthouse_tpu_torch.chain.light_client",
+        "lighthouse_tpu_torch.chain.data_availability",
+        "lighthouse_tpu_torch.chain.data_columns",
+        "lighthouse_tpu_torch.chain.validator_monitor",
+        "lighthouse_tpu_torch.chain.persistence",
+        "lighthouse_tpu_torch.chain.beacon_chain",
+        "lighthouse_tpu_torch.chain.builder",
+        "lighthouse_tpu_torch.chain.harness",
+        "lighthouse_tpu_torch.chain.replay",
+        "lighthouse_tpu_torch.chain.replay.engine"}
 print(len(names), sorted(need - set(names)), bad)
 """
 
@@ -174,3 +210,80 @@ def test_port_module_reads_no_undefined_name(rel):
     see: a helper deleted while its callers stay fails here, also in code
     that only runs on the card."""
     assert _undefined_names(os.path.join(REPO, rel)) == []
+
+
+def _module_names(path: str) -> set[str] | None:
+    """The names a module binds at its top level (under ``if``/``try``
+    too), or None where a module-level ``__getattr__`` makes any name
+    resolvable."""
+    import ast
+
+    tree = ast.parse(open(path).read(), path)
+    names: set[str] = set()
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                names |= {n.id for n in ast.walk(t) if isinstance(n, ast.Name)}
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                stack.extend(getattr(node, field, []))
+        elif isinstance(node, ast.ExceptHandler):
+            stack.extend(node.body)
+    return None if "__getattr__" in names else names
+
+
+def _unresolved_imports(rel: str) -> list[str]:
+    """Every ``from X import y`` of the port, at module level or inside a
+    function body, whose X is the port's and names no module file, or
+    whose y is neither a submodule of X nor a name X binds."""
+    import ast
+
+    path = os.path.join(REPO, rel)
+    package = os.path.dirname(rel).split(os.sep) if rel != "chip_smoke.py" \
+        else []
+    if os.path.basename(rel) == "__init__.py":
+        package = os.path.dirname(rel).split(os.sep)
+    bad = []
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if not isinstance(node, ast.ImportFrom):
+            continue
+        if node.level:
+            base = package[:len(package) - (node.level - 1)]
+            parts = base + (node.module.split(".") if node.module else [])
+        elif (node.module or "").split(".")[0] == "lighthouse_tpu_torch":
+            parts = node.module.split(".")
+        else:
+            continue
+        where = os.path.join(REPO, *parts)
+        init = os.path.join(where, "__init__.py")
+        target = init if os.path.isfile(init) else where + ".py"
+        if not os.path.isfile(target):
+            bad.append(f"line {node.lineno}: no module {'.'.join(parts)}")
+            continue
+        bound = _module_names(target)
+        for alias in node.names:
+            if alias.name == "*" or bound is None or alias.name in bound:
+                continue
+            sub = os.path.join(where, alias.name)
+            if not (os.path.isfile(sub + ".py")
+                    or os.path.isfile(os.path.join(sub, "__init__.py"))):
+                bad.append(f"line {node.lineno}: {'.'.join(parts)} has no "
+                           f"{alias.name}")
+    return bad
+
+
+@pytest.mark.parametrize("rel", _PORT_FILES)
+def test_port_module_imports_resolve(rel):
+    """Every ``from ... import`` of the port's own modules names a module
+    in the port and a name that module binds, also the imports made
+    lazily inside a function body, which loading the module never runs."""
+    assert _unresolved_imports(rel) == []
