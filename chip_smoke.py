@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--out REPORT.json]
+    python3 chip_smoke.py [--out REPORT.json] [--seed N]
 
 Phases (each prints its lines; any failure raises and exits nonzero):
 
@@ -147,11 +147,44 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    head and post-state root). Timed: the batches with their split
    (checks, ``parse_sets``, ``host_prepare``, ``verify_signature_sets``),
    the votes into fork choice, ``recompute_head`` over the vote
-   trackers, the import (median of 3 on fresh chains) with its critical
-   path by stage (service time, queue wait), and the card's idle share
+   trackers, the import (on ``FRESH_CHAINS`` fresh chains, their
+   median; 1 since phase 9 came, 3 before) with its critical path by
+   stage (service time, queue wait), and the card's idle share
    of one import under ``torch.profiler``. Every state-root and BLS
    kernel must have launched on the path.
-9. Observability, read from what phases 1-8 left (the catalog and the
+9. The post-merge node at 1,000,000 validators, with every launch count
+   at 0 at its start: a mainnet Deneb state after the merge at
+   ``stf_workload.DENEB_SLOT`` and a block on it with its execution
+   payload (withdrawals swept from the registry, transactions) and six
+   blobs made from ``--seed``, their commitments and proofs from
+   ``Kzg(devnet_size=4096)`` on the C++ host library (the devnet setup
+   stands in for mainnet's ceremony file at its 4,096 points), the
+   sidecars from ``produce_sidecars``. Chains as phase 8's, each with the
+   real ``ExecutionLayer`` (``EngineApiClient``, a fresh 32-byte JWT
+   secret) on a ``MockEngineServer`` at 127.0.0.1, a
+   ``DataAvailabilityChecker`` on that setup and a ``Slasher`` on the hot
+   DB (its history cut to ``SLASHER_HISTORY`` epochs). The block through
+   the beacon processor (its batch on ``gpu``, the state transition with
+   its payload, ``engine_newPayloadV3`` over HTTP) held pending its
+   blobs; a sidecar with one blob byte changed refused; the six sidecars
+   importing it (the head on it, not optimistic, the post-state root the
+   block's, ``engine_forkchoiceUpdatedV3`` over HTTP; a request with a
+   wrong token answered 401 and not logged). ``produce_block`` for the
+   next slot's proposer registered with a ``MockBuilder`` over HTTP: a
+   winning bid gives the builder's payload, a low one the local. The
+   block's 64 aggregates fed to the slasher by the phase (the chain feeds
+   it from gossip only), 1,024 gossip singles verified on ``gpu`` through
+   the chain, an equivocating block and a double vote refused by the
+   gossip checks after they reach the slasher; ``process_queued`` finds
+   exactly those two, turned by ``record_to_operation`` into slashings the
+   op pool packs and a state applies with their signatures verified. On
+   a fresh chain the import under ``torch.profiler`` (the idle share); on
+   another the payload the engine marks invalid refused. Timed: the
+   import (one fresh chain) with the block's critical path by stage and
+   the ``el_new_payload``, ``kzg_verify`` and ``el_forkchoice`` spans,
+   the productions, the gossip batch, ``process_queued``. The import
+   alone must launch every state-root and BLS kernel.
+10. Observability, read from what phases 1-9 left (the catalog and the
    ``obs`` layer are loaded at import, as a node loads them, and the
    graftwatch sampler ticks once a phase): every kernel that launched (15
    in mode 0, 20 mode-1/2 variants) has a roofline record on the card
@@ -161,8 +194,10 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    second ``build_all`` with no build-cache miss; the catalog metrics of
    the state root, the BLS batch (``bls_batch_verify_sigs`` at 10,000),
    the block, and the chain's imports (``beacon_block_imported_total``)
-   and gossip batches (``beacon_attestation_processing_seconds``); a
-   flight dump the port's doctor renders with exit 0.
+   and gossip batches (``beacon_attestation_processing_seconds``), and
+   phase 9's KZG, engine-API and production histograms; a flight dump
+   the port's doctor renders with exit 0. The run's total time is printed
+   before the kernel line.
 
 Every bound beside a kernel's time (phases 2, 4, 6, 7) is the roofline
 record of the checked call: its wrapper's declared cost (``obs/roofline``).
@@ -1668,6 +1703,35 @@ GOSSIP_BATCH = 10_000
 PROCESSOR_BATCH = 64
 #: the item of the negative 64-batch that carries its neighbour's signature
 NEGATIVE_ITEM = 17
+#: fresh chains phase 8 times the import on (3 until phase 9 came: cut so
+#: that the smoke keeps inside its time limit)
+FRESH_CHAINS = 1
+
+
+class PathLaunches:
+    """Each kernel's launches by a path's own calls, by label: the deltas
+    of the launch counts around each call ``run`` makes."""
+
+    def __init__(self):
+        self.by_label: dict[str, dict[str, int]] = {}
+
+    def run(self, label: str, fn):
+        """``fn()``, its kernel launches added under ``label``."""
+        from lighthouse_tpu_torch import kernels
+        before = {n: k.launches for n, k in kernels.KERNELS.items()}
+        try:
+            return fn()
+        finally:
+            got = self.by_label.setdefault(label, dict.fromkeys(before, 0))
+            for n, k in kernels.KERNELS.items():
+                got[n] += k.launches - before[n]
+
+    def totals(self, names) -> dict[str, int]:
+        return {n: sum(c[n] for c in self.by_label.values()) for n in names}
+
+    def by_call(self, names) -> dict[str, dict[str, int]]:
+        return {label: {n: c[n] for n in names if c[n]}
+                for label, c in self.by_label.items()}
 
 
 def _verdicts(results) -> list[str]:
@@ -1687,8 +1751,9 @@ def chain_phase(setup: dict, w, card: str) -> dict:
     on ``cpp`` (equal verdicts), applied to fork choice and the op pool;
     a negative block raising on both; the block imported through the
     beacon processor on ``gpu`` (the head on it, the store holding it,
-    the stage split) on the chain the batches warmed and on three fresh
-    chains, and on ``cpp`` (the same head and post-state root), once more
+    the stage split) on the chain the batches warmed and on
+    ``FRESH_CHAINS`` fresh chains, and on ``cpp`` (the same head and
+    post-state root), once more
     under the profiler. The kernel launches of the path are the deltas
     around the gpu chains' own calls: their anchoring, the three gossip
     batches, the negative block and the imports through the processor."""
@@ -1725,17 +1790,8 @@ def chain_phase(setup: dict, w, card: str) -> dict:
     report: dict = {}
     n_gossip = GOSSIP_BATCH
     # each kernel's launches by the chain's own calls, by call
-    path_launches: dict[str, dict[str, int]] = {}
-
-    def counted(label: str, fn):
-        """``fn()``, its kernel launches added to ``path_launches``."""
-        before = {n: k.launches for n, k in kernels.KERNELS.items()}
-        try:
-            return fn()
-        finally:
-            got = path_launches.setdefault(label, dict.fromkeys(before, 0))
-            for n, k in kernels.KERNELS.items():
-                got[n] += k.launches - before[n]
+    launches_of = PathLaunches()
+    counted, path_launches = launches_of.run, launches_of.by_label
 
     # (a) the anchor and the block, on a copy of phase 7's state
     t0 = time.perf_counter()
@@ -1981,9 +2037,8 @@ def chain_phase(setup: dict, w, card: str) -> dict:
               f"[{card}]", flush=True)
 
         # the verified attestations into fork choice (both chains) and the
-        # op pool (the cpp chain: the pool aggregates the signatures of
-        # one committee's singles on the backend, and the gpu backend's
-        # aggregation is the pure-Python curve)
+        # op pool of the cpp chain (the pool aggregates the signatures of
+        # one committee's singles on the current backend)
         ok_g = [p for p, v in zip(prepared, verdicts_g[str(n_gossip)])
                 if v == "ok"]
         t0 = time.perf_counter()
@@ -1996,12 +2051,14 @@ def chain_phase(setup: dict, w, card: str) -> dict:
             chain_c.fork_choice.on_attestation(slot, indexed,
                                                is_from_block=False)
         bls.set_backend("cpp")
+        t1 = time.perf_counter()
         try:
             for a, _subnet in main:
                 chain_c.op_pool.insert_attestation(a)
         finally:
             bls.set_backend("gpu")
         pool_ms = (time.perf_counter() - t0) * 1e3
+        pool_cpp_insert_ms = (time.perf_counter() - t1) * 1e3 / n_gossip
         committees = {int(a.data.index) for a, _ in main}
         packed = chain_c.op_pool.get_attestations_for_block(
             chain_c.state_for_block_production(anchor_root, slot))
@@ -2012,7 +2069,7 @@ def chain_phase(setup: dict, w, card: str) -> dict:
               f"committee ({len(committees)}) covering {n_gossip} bits")
         # eight singles of one committee into the gpu chain's pool: the
         # first opens the committee's bucket, each later one aggregates
-        # its signature on the gpu backend (the pure-Python curve)
+        # its signature on the gpu backend (the C++ host library)
         one_committee = [a for a, _ in main if int(a.data.index) == 0][:8]
         t0 = time.perf_counter()
         for a in one_committee:
@@ -2025,6 +2082,7 @@ def chain_phase(setup: dict, w, card: str) -> dict:
         check(head_g == chain_g.recompute_head() == anchor_root,
               "the votes moved the head off the anchor")
         report.update(fork_choice_apply_ms=fc_ms, op_pool_cpp_ms=pool_ms,
+                      op_pool_cpp_insert_ms=pool_cpp_insert_ms,
                       op_pool_gpu_aggregate_ms=pool_gpu_ms,
                       get_head_votes_ms=get_head_ms,
                       votes=len(chain_g.fork_choice.votes))
@@ -2032,14 +2090,15 @@ def chain_phase(setup: dict, w, card: str) -> dict:
               f"{fc_ms:.1f} ms; fork choice and the op pool of the cpp chain "
               f"{pool_ms:.1f} ms ({len(packed)} aggregates packed, "
               f"{n_gossip} bits); an op pool insert that aggregates, on the "
-              f"gpu backend (the pure-Python curve), {pool_gpu_ms:.1f} ms "
-              f"(x {n_gossip} singles = {pool_gpu_ms * n_gossip / 1e3:.0f} s "
-              f"a slot); get_head over {len(chain_g.fork_choice.votes)} "
+              f"gpu backend (the C++ host library), {pool_gpu_ms:.2f} ms "
+              f"(x {n_gossip} singles = {pool_gpu_ms * n_gossip / 1e3:.1f} s "
+              f"a slot), on cpp {pool_cpp_insert_ms:.2f} ms (the mean of its "
+              f"{n_gossip}); get_head over {len(chain_g.fork_choice.votes)} "
               f"vote trackers {get_head_ms:.1f} ms [{card}]", flush=True)
 
         # (c) the block: the negative on both, then the import through
         # the beacon processor on cpp, on the chain the gossip batches
-        # warmed, and on three fresh chains
+        # warmed, and on FRESH_CHAINS fresh chains
         rejected(chain_g, "gpu", "negative block")
         bls.set_backend("cpp")
         try:
@@ -2057,7 +2116,7 @@ def chain_phase(setup: dict, w, card: str) -> dict:
         recompute_ms = (time.perf_counter() - t0) * 1e3
         del chain_g, chain_c
         import_ms, fresh_stages, anchor_more = [], [], []
-        for name in ("gpu 2", "gpu 3", "gpu 4"):
+        for name in [f"gpu {i + 2}" for i in range(FRESH_CHAINS)]:
             chain, b_s, g_s, h_s = anchored(tmp, name.replace(" ", ""),
                                             "anchor")
             anchor_more.append((b_s, g_s, h_s))
@@ -2078,7 +2137,7 @@ def chain_phase(setup: dict, w, card: str) -> dict:
         del chain
     torch.cuda.synchronize()
     names = [k.name for k in kernels.STATE_ROOT_KERNELS + kernels.BLS_KERNELS]
-    launches = {n: sum(c[n] for c in path_launches.values()) for n in names}
+    launches = launches_of.totals(names)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the chain path")
     print(f"chain import: the block through the beacon processor accepted "
@@ -2110,12 +2169,11 @@ def chain_phase(setup: dict, w, card: str) -> dict:
           f" s (store_genesis {[round(a[1], 2) for a in anchor_more]}), "
           f"their first recompute_head {[round(a[2], 2) for a in anchor_more]}"
           f" s [{card}]", flush=True)
-    by_call = {label: {n: c[n] for n in names if c[n]}
-               for label, c in path_launches.items()}
-    print(f"chain launches on the path (the gpu chains' own calls: 4 "
-          f"anchorings, 3 gossip batches, the negative block, 4 imports "
-          f"through the processor): {launches}; by call {by_call} [{card}]",
-          flush=True)
+    by_call = launches_of.by_call(names)
+    print(f"chain launches on the path (the gpu chains' own calls: "
+          f"{FRESH_CHAINS + 1} anchorings, 3 gossip batches, the negative "
+          f"block, {FRESH_CHAINS + 1} imports through the processor): "
+          f"{launches}; by call {by_call} [{card}]", flush=True)
     report.update(verdicts=verdicts_g, cpp_import_ms=cpp_ms,
                   import_ms=import_ms, warm_import_ms=warm_ms,
                   stages=stages, warm_stages=warm_stages,
@@ -2124,6 +2182,531 @@ def chain_phase(setup: dict, w, card: str) -> dict:
                   launches_by_call=by_call)
     report["seconds"] = time.perf_counter() - t_phase
     print(f"chain phase: {report['seconds']:.1f} s [{card}]", flush=True)
+    return report
+
+
+#: the slasher's history in epochs in phase 9, cut from the default
+#: 4,096: at 1M validators the default's sweeps cost 8.6-22.3 s an
+#: aggregate on the H100 machine's host (``python -m
+#: lighthouse_tpu_torch.profile_slasher``), ~1,000 s for the block's 64,
+#: and a history of 64 epochs 65 s in the phase; at 16 the sweeps walk
+#: two epoch chunks (64: five)
+SLASHER_HISTORY = 16
+
+
+def postmerge_phase(setup: dict, card: str, seed: int) -> dict:
+    """Phase 9: the post-merge node at 1M validators. The Deneb workload
+    (``stf_workload`` at ``DENEB_SLOT``: the state after the merge, the
+    block with its payload, withdrawals and six blobs made from ``seed``,
+    their KZG commitments and sidecars from ``Kzg(devnet_size=4096)``, an
+    equivocating block, gossip singles and a double vote); chains anchored
+    as in phase 8, each with the real ``ExecutionLayer`` over an
+    ``EngineApiClient`` with a fresh JWT secret to a ``MockEngineServer``
+    on 127.0.0.1, the ``DataAvailabilityChecker`` on that KZG setup and a
+    ``Slasher`` on the hot DB. On one chain: the block through the beacon
+    processor (held pending), a tampered sidecar refused, the six sidecars
+    importing it (head on it, not optimistic, both engine methods logged);
+    the builder flow for the next slot's proposer (a winning bid: the
+    builder's payload; a low one: local); the block's aggregates fed to
+    the slasher by the phase, a gossip batch, the equivocation and the
+    double vote through the chain's gossip checks, the slasher's records
+    turned into operations the op pool packs and a state applies with
+    their signatures verified. On a fresh chain the import under the
+    profiler (the idle share); on another the payload the engine marks
+    invalid refused. The kernel launches are the deltas around the
+    chains' own calls."""
+    import http.client
+    import os
+    import secrets
+    import tempfile
+
+    import torch
+
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch import stf_workload as sw
+    from lighthouse_tpu_torch.beacon_processor import (
+        BeaconProcessor, Work, WorkType,
+    )
+    from lighthouse_tpu_torch.bls_batch import warm_pubkeys
+    from lighthouse_tpu_torch.chain import BeaconChainBuilder, BlockError
+    from lighthouse_tpu_torch.chain import attestation_verification as av
+    from lighthouse_tpu_torch.chain.data_availability import (
+        DataAvailabilityChecker,
+    )
+    from lighthouse_tpu_torch.chain.errors import (
+        AVAILABILITY_PENDING, EXECUTION_INVALID, PRIOR_SEEN, REPEAT_PROPOSAL,
+        AttestationError,
+    )
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import SignatureSet, keygen_interop
+    from lighthouse_tpu_torch.crypto.kzg import Kzg
+    from lighthouse_tpu_torch.execution_layer import (
+        EngineApiClient, ExecutionLayer, JwtAuth, MockEngineServer,
+    )
+    from lighthouse_tpu_torch.execution_layer.builder import (
+        BuilderHttpClient, MockBuilder,
+    )
+    from lighthouse_tpu_torch.obs import critpath
+    from lighthouse_tpu_torch.profile_state_root import profiled
+    from lighthouse_tpu_torch.slasher import (
+        Slasher, SlasherConfig, record_to_operation,
+    )
+    from lighthouse_tpu_torch.specs.chain_spec import (
+        ForkName, compute_signing_root, mainnet_spec,
+    )
+    from lighthouse_tpu_torch.specs.constants import DOMAIN_RANDAO
+    from lighthouse_tpu_torch.ssz import hash_tree_root, htr, uint64
+    from lighthouse_tpu_torch.state_transition import VerifySignatures
+    from lighthouse_tpu_torch.state_transition.block import (
+        process_attester_slashing, process_proposer_slashing,
+    )
+    from lighthouse_tpu_torch.state_transition.helpers import (
+        get_beacon_proposer_index, get_domain, get_indexed_attestation,
+    )
+    from lighthouse_tpu_torch.store import HotColdDB, NativeKvStore
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    t_phase = time.perf_counter()
+    cpp, gpu = setup["cpp"], setup["gpu"]
+    check(bls.get_backend() is gpu, "the BLS module's backend is not gpu")
+    kernels.reset_counts()
+    cores = os.cpu_count() or 8
+    spec = mainnet_spec()
+    report: dict = {"slasher_history": SLASHER_HISTORY, "fresh_chains": 1}
+    launches_of = PathLaunches()
+
+    # (a) the workload
+    t0 = time.perf_counter()
+    w = sw.build_workload(cpp, slot=sw.DENEB_SLOT, fork=ForkName.DENEB,
+                          threads=cores)
+    report["workload_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kzg = Kzg(devnet_size=4096)
+    report["kzg_setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pw = sw.build_postmerge_workload(w, cpp, kzg, seed=seed, threads=cores)
+    report["postmerge_workload_s"] = time.perf_counter() - t0
+    report["kzg_commit_and_prove_s"] = pw.kzg_s
+    cw = pw.chain
+    block = cw.block
+    block_root, anchor_root = htr(block.message), htr(cw.anchor.message)
+    slot = int(block.message.slot)
+    epoch = slot // spec.preset.slots_per_epoch
+    payload = block.message.body.execution_payload
+    t0 = time.perf_counter()
+    warmed = warm_pubkeys(gpu, [SignatureSet(
+        b"", [bytes(pk) for pk in w.pubkeys], b"")], processes=cores)
+    report["pubkey_warm_s"] = time.perf_counter() - t0
+    print(f"postmerge setup: {len(w.state.validators)} validators, Deneb "
+          f"at slot {slot} (epoch {epoch}); the block {block_root.hex()} "
+          f"with {len(block.message.body.attestations)} attestations, "
+          f"{len(payload.withdrawals)} withdrawals, "
+          f"{len(payload.transactions)} transactions and "
+          f"{len(pw.blobs)} blobs (seed {seed}), its {len(w.rows)} signer "
+          f"rows' interop keys and the block signed in "
+          f"{report['workload_s']:.1f} s; Kzg(devnet_size=4096) in "
+          f"{report['kzg_setup_s']:.1f} s, the commitments and proofs in "
+          f"{pw.kzg_s:.1f} s ({cores} threads), the anchor, block and "
+          f"sidecars in {report['postmerge_workload_s']:.1f} s; {warmed} "
+          f"pubkeys into the gpu backend's cache in "
+          f"{report['pubkey_warm_s']:.1f} s [{card}]", flush=True)
+
+    secret = secrets.token_bytes(32)
+    engine = MockEngineServer(secret)
+    engine.start()
+
+    def anchored(tmp: str, name: str, label: str | None = None):
+        """A chain anchored on a copy of the workload's state (phase 8's
+        builder, stores and first head) with the real execution layer on
+        the mock engine, the checker on the KZG setup and the slasher;
+        the launches of its build under ``label`` where one is given."""
+        def build():
+            db = HotColdDB(NativeKvStore(os.path.join(tmp, name, "hot")),
+                           NativeKvStore(os.path.join(tmp, name, "cold")),
+                           spec)
+            el = ExecutionLayer(EngineApiClient("127.0.0.1", engine.port,
+                                                JwtAuth(secret)))
+            chain = (BeaconChainBuilder(spec)
+                     .weak_subjectivity_anchor(cw.state.copy(), cw.anchor)
+                     .slot_clock(ManualSlotClock(0, spec.seconds_per_slot,
+                                                 current_slot=slot))
+                     .execution_layer(el).store(db).build())
+            chain.data_availability_checker = DataAvailabilityChecker(
+                chain.T, kzg=kzg)
+            chain.slasher = Slasher(
+                SlasherConfig(history_length=SLASHER_HISTORY),
+                store=chain.store.hot)
+            check(chain.recompute_head() == anchor_root,
+                  f"chain {name}: not anchored")
+            return chain
+        return launches_of.run(label, build) if label else build()
+
+    def through_processor(chain, signed_block):
+        """``process_gossip_block`` as a GOSSIP_BLOCK work item of a
+        two-worker beacon processor: (ms submit to idle, what it raised or
+        returned)."""
+        out = []
+
+        def run():
+            try:
+                out.append(chain.process_gossip_block(signed_block))
+            except Exception as e:  # handed back to the caller
+                out.append(e)
+
+        proc = BeaconProcessor(num_workers=2)
+        proc.start()
+        try:
+            t = time.perf_counter()
+            proc.submit(Work(kind=WorkType.GOSSIP_BLOCK, run=run))
+            check(proc.wait_idle(timeout=600), "the import did not finish "
+                                               "inside 600 s")
+            return (time.perf_counter() - t) * 1e3, out[0]
+        finally:
+            proc.stop()
+
+    def pending(chain, name: str) -> None:
+        dac = chain.data_availability_checker
+        check(block_root in dac._pending
+              and chain.head().head_block_root == anchor_root
+              and not chain.fork_choice.contains_block(block_root),
+              f"{name}: the block is not held pending its blobs")
+
+    def tampered(sidecar):
+        blob = bytearray(sidecar.blob)
+        blob[-1] ^= 1                 # one byte, the element stays canonical
+        return type(sidecar)(
+            index=sidecar.index, blob=bytes(blob),
+            kzg_commitment=sidecar.kzg_commitment,
+            kzg_proof=sidecar.kzg_proof,
+            signed_block_header=sidecar.signed_block_header,
+            kzg_commitment_inclusion_proof=list(
+                sidecar.kzg_commitment_inclusion_proof))
+
+    def imported(chain, name: str) -> None:
+        head = chain.head()
+        check(head.head_block_root == block_root,
+              f"{name}: the head {head.head_block_root.hex()} is not the "
+              f"block")
+        check(not chain.is_optimistic_head(), f"{name}: the head is "
+                                              f"optimistic")
+        stored = chain.store.get_block(block_root)
+        check(stored is not None and htr(stored.message) == block_root,
+              f"{name}: the store does not return the block")
+        check(head.head_state.hash_tree_root() == cw.post_root
+              == bytes(block.message.state_root),
+              f"{name}: the post-state root is not the block's state_root "
+              f"(the workload's signatures-off pass)")
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # a request without a valid token: 401, and not logged
+            conn = http.client.HTTPConnection("127.0.0.1", engine.port,
+                                              timeout=10)
+            conn.request("POST", "/", body=json.dumps({
+                "jsonrpc": "2.0", "id": 1,
+                "method": "engine_exchangeCapabilities", "params": [[]]}),
+                headers={"Content-Type": "application/json",
+                         "Authorization": "Bearer " + JwtAuth(
+                             secrets.token_bytes(32)).generate_token()})
+            unauthorized = conn.getresponse().status
+            conn.close()
+            check(unauthorized == 401 and not engine.requests,
+                  f"the engine answered a request with a wrong token "
+                  f"{unauthorized} (logged: {engine.requests})")
+
+            # (b) the import: the block pending, a tampered sidecar
+            # refused, the six sidecars completing it
+            t0 = time.perf_counter()
+            chain = anchored(tmp, "a", "anchor")
+            report["anchor_s"] = time.perf_counter() - t0
+            first = len(engine.requests)
+            spans_before = {s.span_id for s in tracing.snapshot()}
+            bls_before = {k.name: k.launches for k in kernels.BLS_KERNELS}
+            block_ms, got = launches_of.run(
+                "import", lambda: through_processor(chain, block))
+            check(isinstance(got, BlockError)
+                  and got.kind == AVAILABILITY_PENDING,
+                  f"the block's gossip import gave {got!r}, not "
+                  f"{AVAILABILITY_PENDING}")
+            pending(chain, "gpu")
+            check("engine_newPayloadV3" in engine.requests[first:],
+                  f"no engine_newPayloadV3 over HTTP: "
+                  f"{engine.requests[first:]}")
+            bad = tampered(pw.sidecars[0])
+            check(launches_of.run("import", lambda: chain.process_blob_sidecar(
+                bad)) is None and not chain.data_availability_checker
+                  .contains_sidecar(block_root, 0),
+                  "the tampered sidecar was taken")
+            pending(chain, "gpu, after the tampered sidecar")
+            sidecar_ms, got = [], None
+            for sc in pw.sidecars:
+                t = time.perf_counter()
+                got = launches_of.run(
+                    "import", lambda sc=sc: chain.process_blob_sidecar(sc))
+                sidecar_ms.append((time.perf_counter() - t) * 1e3)
+            check(got == block_root, f"the last sidecar returned {got!r}")
+            imported(chain, "gpu")
+            methods = engine.requests[first:]
+            check("engine_forkchoiceUpdatedV3" in methods,
+                  f"no engine_forkchoiceUpdatedV3 over HTTP: {methods}")
+            check(all(k.launches > bls_before[k.name]
+                      for k in kernels.BLS_KERNELS),
+                  "the import's batch did not run on the gpu backend's "
+                  "kernels")
+            spans = [s for s in tracing.snapshot()
+                     if s.span_id not in spans_before]
+            comp = critpath.worst_component(spans)
+            check(comp is not None, "no block_pipeline trace recorded")
+            stages = critpath.component_report(comp)
+            span_ms = {}
+            for s in spans:
+                span_ms[s.kind] = span_ms.get(s.kind, 0.0) + s.duration * 1e3
+            import_ms = block_ms + sum(sidecar_ms)
+            report.update(block_ms=block_ms, sidecar_ms=sidecar_ms,
+                          import_ms=import_ms, stages=stages,
+                          span_ms=span_ms, engine_methods=methods)
+            split = ", ".join(
+                f"{k} {stages['stages'][k]['service_ms']:.1f}"
+                for k in ("processor_work", "block_pipeline",
+                          "gossip_verify", "block_import", "batch_signature",
+                          "state_transition", "stf_block", "state_root",
+                          "el_new_payload") if k in stages["stages"])
+            spent = ", ".join(f"{k} {span_ms[k]:.1f}" for k in (
+                "el_new_payload", "kzg_verify", "fork_choice", "db_write",
+                "el_forkchoice") if k in span_ms)
+            print(f"postmerge import: the block through the beacon processor "
+                  f"held pending its blobs ({block_ms:.1f} ms submit to "
+                  f"idle, engine_newPayloadV3 over HTTP with JWT); a sidecar "
+                  f"with one blob byte changed refused (the block still "
+                  f"pending); the six sidecars (header signature on gpu, "
+                  f"KZG proofs on the C++ library) "
+                  f"{[round(x, 1) for x in sidecar_ms]} ms, the last "
+                  f"importing it: the head on it, not optimistic, its "
+                  f"post-state root the block's; the engine logged "
+                  f"{methods}; a request with a wrong token 401, not "
+                  f"logged [{card}]", flush=True)
+            print(f"postmerge import: {import_ms:.1f} ms on 1 fresh chain "
+                  f"(the block submit to idle and the six sidecars); the "
+                  f"block's critical path {stages['total_ms']:.1f} ms: "
+                  f"{split}; spans summed over the import (ms): {spent} "
+                  f"[{card}]", flush=True)
+
+            # (c) the builder flow for the next slot's proposer
+            nxt = slot + 1
+            head_state = chain.head().head_state
+            proposer = get_beacon_proposer_index(head_state, nxt)
+            check(proposer in set(w.rows.tolist()),
+                  f"the next slot's proposer {proposer} has no interop key")
+            nxt_epoch = nxt // spec.preset.slots_per_epoch
+            reveal = cpp.sign(keygen_interop(proposer), compute_signing_root(
+                hash_tree_root(uint64, nxt_epoch),
+                get_domain(head_state, DOMAIN_RANDAO, nxt_epoch)))
+            chain.slot_clock.set_slot(nxt)
+            mock = MockBuilder(chain,
+                               bid_wei=chain.LOCAL_PAYLOAD_VALUE_WEI * 10)
+            fee = b"\xbb" * 20
+            try:
+                chain.builder = BuilderHttpClient(mock.start_http())
+                pk = bytes(head_state.validators.pubkeys[proposer])
+                chain.register_validators([{"message": {
+                    "fee_recipient": "0x" + fee.hex(),
+                    "gas_limit": 30_000_000, "timestamp": 0,
+                    "pubkey": "0x" + pk.hex()},
+                    "signature": "0x" + "00" * 96}])
+                produced, production_ms = {}, {}
+                for source, bid in (("builder", mock.bid_wei), ("local", 1)):
+                    mock.bid_wei = bid
+                    t = time.perf_counter()
+                    blk, post = launches_of.run(
+                        "production", lambda: chain.produce_block(reveal, nxt))
+                    production_ms[source] = (time.perf_counter() - t) * 1e3
+                    produced[source] = blk
+                    check(chain.block_production_log[-1]["source"] == source,
+                          f"a bid of {bid} wei gave the "
+                          f"{chain.block_production_log[-1]['source']} "
+                          f"payload, not {source}")
+                    check(post.hash_tree_root() == bytes(blk.state_root),
+                          "the produced block's state root is not its "
+                          "post-state's")
+                bp = produced["builder"].body.execution_payload
+                check(bytes(bp.block_hash) in mock.payloads
+                      and bytes(bp.fee_recipient) == fee
+                      and mock.unblind_requests
+                      and bytes(produced["local"].body.execution_payload
+                                .block_hash) not in mock.payloads,
+                      "the builder's payload is not in the produced block")
+            finally:
+                mock.stop()
+                chain.builder = None
+            report["production_ms"] = production_ms
+            print(f"postmerge builder: produce_block for slot {nxt}'s "
+                  f"proposer {proposer} (registered with a MockBuilder over "
+                  f"HTTP): a bid of 10x the local value gave the builder's "
+                  f"payload (unblinded by submit_blinded_block, read by "
+                  f"payload_from_json) in {production_ms['builder']:.1f} ms, "
+                  f"a bid of 1 wei the local one in "
+                  f"{production_ms['local']:.1f} ms (each with its state "
+                  f"root on the card) [{card}]", flush=True)
+
+            # (d) the slasher: the block's aggregates by the phase, the
+            # gossip batch, the equivocation and the double vote by the
+            # chain's gossip checks
+            t0 = time.perf_counter()
+            singles = sw.gossip_attestations(
+                head_state, block_root, sw.GOSSIP_SINGLES, cpp,
+                threads=cores, target_root=anchor_root)
+            twin = sw.double_vote(head_state, singles[0][0], anchor_root, cpp)
+            report["sign_s"] = time.perf_counter() - t0
+            block_indexed = [get_indexed_attestation(head_state, a)
+                             for a in block.message.body.attestations]
+            for indexed in block_indexed:
+                chain.slasher.accept_attestation(indexed)
+            t0 = time.perf_counter()
+            verdicts = _verdicts(launches_of.run(
+                f"gossip {len(singles)}", lambda: chain.
+                batch_verify_unaggregated_attestations_for_gossip(singles)))
+            gossip_ms = (time.perf_counter() - t0) * 1e3
+            check(verdicts == ["ok"] * len(singles),
+                  f"the gossip batch: {sorted(set(verdicts))}")
+            refused = {}
+            try:
+                launches_of.run("equivocation", lambda: chain
+                                .process_gossip_block(pw.equivocation))
+            except BlockError as e:
+                refused["equivocation"] = e.kind
+            try:
+                launches_of.run("double vote", lambda: av
+                                .verify_unaggregated_for_gossip(
+                                    chain, twin, singles[0][1]))
+            except AttestationError as e:
+                refused["double vote"] = e.kind
+            check(refused == {"equivocation": REPEAT_PROPOSAL,
+                              "double vote": PRIOR_SEEN},
+                  f"the planted offences through the gossip checks: "
+                  f"{refused}")
+            t0 = time.perf_counter()
+            found = chain.slasher.process_queued(epoch)
+            slasher_ms = (time.perf_counter() - t0) * 1e3
+            proposer_recs = [r for r in found if r.kind == "double" and not
+                             hasattr(r.attestation_2, "attesting_indices")]
+            attester_recs = [r for r in found if r.kind == "double" and
+                             hasattr(r.attestation_2, "attesting_indices")]
+            check(len(found) == 2 and len(proposer_recs) == 1
+                  and len(attester_recs) == 1,
+                  f"the slasher found {[(r.kind, r.validator_index) for r in found]}, "
+                  f"not one double proposal and one double vote")
+            prec, arec = proposer_recs[0], attester_recs[0]
+            check({htr(prec.attestation_1.message),
+                   htr(prec.attestation_2.message)}
+                  == {block_root, htr(pw.equivocation.message)},
+                  "the double-proposal record lacks the two blocks")
+            check(htr(arec.attestation_2.data) == htr(twin.data)
+                  and htr(arec.attestation_1.data) == htr(
+                      singles[0][0].data),
+                  "the double-vote record lacks the two votes")
+            ops = [record_to_operation(r, chain.T) for r in (prec, arec)]
+            chain.op_pool.insert_proposer_slashing(ops[0])
+            chain.op_pool.insert_attester_slashing(ops[1])
+            packed = chain.op_pool.get_slashings_and_exits(head_state)
+            check([htr(x) for x in packed[0]] == [htr(ops[0])]
+                  and [htr(x) for x in packed[1]] == [htr(ops[1])],
+                  "the op pool does not pack the two slashings")
+            st = head_state.copy()
+            launches_of.run("slashings", lambda: (
+                process_proposer_slashing(st, ops[0], VerifySignatures.TRUE),
+                process_attester_slashing(st, ops[1], VerifySignatures.TRUE)))
+            check(st.validators.view(int(prec.validator_index)).slashed
+                  and st.validators.view(int(arec.validator_index)).slashed,
+                  "applying the slashings slashed no one")
+            written = (len(chain.slasher.min_target._written)
+                       + len(chain.slasher.max_target._written))
+            report.update(gossip_ms=gossip_ms, slasher_ms=slasher_ms,
+                          slasher_memory_bytes=chain.slasher.memory_bytes(),
+                          slasher_chunks_written=written,
+                          slasher_records=[(r.kind, r.validator_index)
+                                           for r in found])
+            print(f"postmerge slasher (history {SLASHER_HISTORY} epochs, the "
+                  f"default 4,096 cut: PERF.md section 4): the block's "
+                  f"{len(block_indexed)} aggregates "
+                  f"({sum(len(a.attesting_indices) for a in block_indexed)} "
+                  f"validators) fed by the phase itself (the chain feeds the "
+                  f"slasher from gossip only); {len(singles)} gossip singles "
+                  f"verified on gpu through the chain ({gossip_ms:.1f} ms); "
+                  f"the equivocating block refused {REPEAT_PROPOSAL} and the "
+                  f"double vote {PRIOR_SEEN}, each after its signature was "
+                  f"checked and it was handed to the slasher; "
+                  f"process_queued {slasher_ms:.1f} ms: a double proposal by "
+                  f"{prec.validator_index} and a double vote by "
+                  f"{arec.validator_index}, each with both signed messages, "
+                  f"turned into a ProposerSlashing and an AttesterSlashing "
+                  f"the op pool packs and a state applies with their "
+                  f"signatures verified on gpu; cache "
+                  f"{report['slasher_memory_bytes']} B, {written} chunks "
+                  f"written [{card}]", flush=True)
+            del chain, head_state, st
+
+            # (e) a fresh chain's import under the profiler, and the
+            # payload the engine marks invalid on another
+            chain = anchored(tmp, "b")
+
+            def full_import():
+                try:
+                    chain.process_gossip_block(block)
+                except BlockError as e:
+                    check(e.kind == AVAILABILITY_PENDING, f"profiled: {e}")
+                for sc in pw.sidecars:
+                    last = chain.process_blob_sidecar(sc)
+                check(last == block_root, "profiled: not imported")
+
+            before = sum(k.launches for k in kernels.KERNELS.values())
+            prof = profiled(full_import)
+            call_launches = sum(k.launches
+                                for k in kernels.KERNELS.values()) - before
+            imported(chain, "profiled")
+            del chain
+            chain = anchored(tmp, "c", "invalid payload")
+            engine.invalid_hashes.add("0x" + bytes(payload.block_hash).hex())
+            try:
+                _ms, got = launches_of.run(
+                    "invalid payload", lambda: through_processor(chain, block))
+            finally:
+                engine.invalid_hashes.clear()
+            check(isinstance(got, BlockError)
+                  and got.kind == EXECUTION_INVALID
+                  and chain.head().head_block_root == anchor_root
+                  and not chain.fork_choice.contains_block(block_root)
+                  and chain.store.get_block(block_root) is None,
+                  f"the payload the engine marks invalid gave {got!r}")
+            del chain
+    finally:
+        engine.stop()
+    torch.cuda.synchronize()
+    busy = (f"device busy {prof['device_busy_ms']:.2f} ms "
+            f"({prof['device_events']} device events), the card idle "
+            f"{100 * (1 - prof['device_busy_share']):.1f} % of the import"
+            if prof["device_events"] >= call_launches else
+            f"device busy not measured (the profile holds "
+            f"{prof['device_events']} device events, fewer than the "
+            f"import's {call_launches} kernel launches)")
+    print(f"postmerge import: on a fresh chain under the profiler "
+          f"{prof['wall_ms']:.1f} ms wall, {busy}; on another the payload "
+          f"the engine marks invalid refused {EXECUTION_INVALID} after "
+          f"engine_newPayloadV3, the head on the anchor, the block in "
+          f"neither fork choice nor the store [{card}]", flush=True)
+    names = [k.name for k in kernels.STATE_ROOT_KERNELS + kernels.BLS_KERNELS]
+    launches = launches_of.totals(names)
+    by_call = launches_of.by_call(names)
+    for name in names:
+        check(by_call["import"].get(name, 0) > 0,
+              f"kernel {name} was not launched by the import")
+    print(f"postmerge launches on the path (the gpu chains' own calls: 3 "
+          f"anchorings, the import with its sidecars, 2 productions, the "
+          f"gossip batch, the equivocation, the double vote, the "
+          f"slashings, the refused import): {launches}; by call {by_call} "
+          f"[{card}]", flush=True)
+    report.update(profile=prof, launches=launches, launches_by_call=by_call)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"postmerge phase: {report['seconds']:.1f} s [{card}]", flush=True)
     return report
 
 
@@ -2138,7 +2721,7 @@ def _sampled(slot: int, name: str) -> float | None:
 
 
 def obs_phase(card: str, stf: dict) -> dict:
-    """Phase 9: what the observability layer kept of phases 1-8, read and
+    """Phase 10: what the observability layer kept of phases 1-9, read and
     checked (nothing heavy runs again): every kernel that launched (the 15
     in mode 0, the mode-1/2 variants phase 6 ran) has a roofline record on
     the card with a device ms and a utilization of the peak in (0, 1.05],
@@ -2252,7 +2835,11 @@ def obs_phase(card: str, stf: dict) -> dict:
             ("device_hbm_bytes_in_use", 7),
             ("beacon_block_imported_total", 8),
             ("beacon_attestation_processing_seconds.count", 8),
-            ("beacon_attestation_processing_seconds.p50", 8))
+            ("beacon_attestation_processing_seconds.p50", 8),
+            ("kzg_blob_verification_seconds.count", 9),
+            ("execution_layer_new_payload_seconds.count", 9),
+            ("execution_layer_forkchoice_seconds.count", 9),
+            ("beacon_block_production_seconds.count", 9))
     metrics = {f"{n}@{slot}": _sampled(slot, n) for n, slot in want}
     missing = [k for k, v in metrics.items() if not v]
     check(not missing, f"catalog metrics not fed: {missing}")
@@ -2299,7 +2886,14 @@ def obs_phase(card: str, stf: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="the seed phase 9's blobs and transactions are "
+                         "made from (default: stf_workload.BLOB_SEED)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+    if args.seed is None:
+        from lighthouse_tpu_torch.stf_workload import BLOB_SEED
+        args.seed = BLOB_SEED
 
     import torch
     if not torch.cuda.is_available():
@@ -2399,15 +2993,26 @@ def main(argv=None) -> int:
         if row["name"] in chain["launches"]:
             row["launches_chain_path"] = chain["launches"][row["name"]]
 
-    # phase 9: what the observability layer kept of phases 1-8
+    # phase 9: the post-merge node (the engine API over JWT, the builder,
+    # blob sidecars on KZG, the slasher) on a Deneb block at 1M validators,
+    # its launches beside each kernel's row
+    postmerge = postmerge_phase(setup, card_line, args.seed)
+    graftwatch.on_slot(9)
+    for row in rows:
+        if row["name"] in postmerge["launches"]:
+            row["launches_postmerge_path"] = postmerge["launches"][row["name"]]
+
+    # phase 10: what the observability layer kept of phases 1-9
     obs = obs_phase(card_line, stf)
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s from the start to "
+          f"the end of phase 10", flush=True)
 
     report = {"card": card_line, "sm_clock_max_mhz": sm_clock,
               "build_s": build_s, "build": summary, "kernels": rows,
               "kernel_modes": modes, "bls_field_muls": bls_check.muls,
               "slice": sl, "bls": bls, "multigpu": multigpu, "mxu": mxu,
               "stf": stf, "stf_field_muls": stf_check.muls, "chain": chain,
-              "obs": obs}
+              "postmerge": postmerge, "obs": obs}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

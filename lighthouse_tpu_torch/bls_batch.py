@@ -5,8 +5,9 @@ signed by ``sk = 1000 + i`` over ``msg = (i % 127).to_bytes(32,
 "little")``, one pubkey a set. The C++ host backend signs (its ctypes calls
 release the interpreter lock, so a thread pool signs in parallel), and
 ``warm_pubkeys`` fills a backend's pubkey cache the way a node's registry
-cache is warm: the pure-Python decompression with its subgroup check runs
-in a pool of spawned worker processes.
+cache is warm: the pure-Python decompression runs in a pool of spawned
+worker processes, each point's subgroup check on the C++ host library
+(the pure-Python check costs ~35x the decompression).
 """
 from __future__ import annotations
 
@@ -37,8 +38,21 @@ def build_sets(signer, n: int = N_SETS, n_messages: int = N_MESSAGES,
 
 
 def _decompress_chunk(pks: list[bytes]):
+    """``g1_decompress(pk)`` of each pubkey (None where it refuses one),
+    its subgroup check by the C++ library's ``bls_validate_pubkey``; the
+    point at infinity, which that refuses, as the pure-Python curve
+    gives it."""
+    from .crypto.bls.cpp_backend import get_lib
     from .crypto.bls12_381 import g1_decompress
-    return [g1_decompress(pk) for pk in pks]
+    lib = get_lib()
+    out = []
+    for pk in pks:
+        pt = g1_decompress(pk, subgroup_check=False)
+        if pt is not None and not pt.is_infinity() and \
+                lib.bls_validate_pubkey(bytes(pk)) != 1:
+            pt = None
+        out.append(pt)
+    return out
 
 
 def warm_pubkeys(backend, sets, processes: int = 8) -> int:

@@ -1058,28 +1058,50 @@ class BeaconChain:
 
     def _payload_for_block(self, state: BeaconState, fork: ForkName,
                            proposer_index: int):
-        """The local payload. A builder's bid (execution_layer/src/lib.rs:807)
-        is read by execution_layer's payload_from_json, which the port does
-        not have yet: a builder attached for a registered proposer raises
-        rather than having its payload dropped unseen."""
+        """Local payload vs builder bid (execution_layer/src/lib.rs:807):
+        take the builder's when its boosted value beats the local one."""
         fee = self.fee_recipient_for(proposer_index)
+        local = self._produce_payload(state, fork, fee)
+        source = "local"
+        payload = local
         pubkey = state.validators.pubkey(proposer_index)
-        if (self.builder is not None
-                and "0x" + pubkey.hex() in self.validator_registrations):
-            raise NotImplementedError(
-                "the builder flow needs execution_layer, which "
-                "lighthouse_tpu_torch does not have yet")
-        payload = self._produce_payload(state, fork, fee)
+        registered = "0x" + pubkey.hex() in self.validator_registrations
+        if self.builder is not None and registered:
+            # ANY builder fault degrades to the local payload — a proposer
+            # must never miss its slot because of the builder
+            try:
+                parent_hash = \
+                    state.latest_execution_payload_header.block_hash
+                bid = self.builder.get_header(state.slot, parent_hash,
+                                              pubkey)
+                if bid is not None and \
+                        bid["value"] * self.builder_boost_factor // 100 > \
+                        self.LOCAL_PAYLOAD_VALUE_WEI:
+                    block_hash = bytes.fromhex(
+                        bid["header"]["blockHash"][2:])
+                    pj = self.builder.submit_blinded_block(block_hash)
+                    if pj is not None:
+                        from ..execution_layer.execution_layer import (
+                            payload_from_json,
+                        )
+                        payload = payload_from_json(self.T, fork, pj)
+                        source = "builder"
+            except Exception:
+                import logging
+                logging.getLogger("lighthouse_tpu_torch.chain").warning(
+                    "builder flow failed; using local payload",
+                    exc_info=True)
+                payload, source = local, "local"
         self.block_production_log.append(
-            {"slot": state.slot, "source": "local",
+            {"slot": state.slot, "source": source,
              "fee_recipient": payload.fee_recipient})
         return payload
 
     def _produce_payload(self, state: BeaconState, fork: ForkName,
                          fee_recipient: bytes = b"\x00" * 20,
                          extra_entropy: bytes = b""):
-        """Local mock-EL payload (the real EL round-trip, an engine-API
-        client, is not part of this package yet)."""
+        """Local mock-EL payload (the real EL round-trip lives in
+        lighthouse_tpu_torch.execution_layer)."""
         import hashlib
         cls = self.T.ExecutionPayload[fork]
         parent_hash = state.latest_execution_payload_header.block_hash

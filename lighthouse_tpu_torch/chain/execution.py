@@ -1,8 +1,8 @@
 """Execution layer interface + in-process mock.
 
 The real engine-API HTTP client (JWT, newPayload/forkchoiceUpdated/getPayload)
-is not part of this package yet; this module defines the interface the
-chain consumes and the MockExecutionLayer used by the harness — equivalent of
+lives in lighthouse_tpu_torch.execution_layer; this module defines the
+interface the chain consumes and the MockExecutionLayer used by the harness — equivalent of
 the reference's beacon_node/execution_layer/src/test_utils/
 {mock_execution_layer.rs:12, execution_block_generator.rs}.
 """

@@ -31,7 +31,9 @@ than `big` verify in fixed-shape chunks. The padding inputs are process
 constants, built once. RLC scalars come from `secrets`: unpredictable
 scalars are what makes the batch check sound.
 
-Sign/keygen stay on the Python reference backend (cold path).
+Aggregation (the op pool's) runs on the C++ host library, byte-equal to
+the Python reference backend; sign/keygen stay on the Python reference
+backend (cold path).
 """
 from __future__ import annotations
 
@@ -234,8 +236,49 @@ def host_prepare(pks, sig_xs, sig_flags, msgs, lanes: int, small: int):
     }
 
 
+_G1_INFINITY = b"\xc0" + b"\x00" * 47
+_G2_INFINITY = b"\xc0" + b"\x00" * 95
+
+
+def _host_aggregate(points, width: int, what: str) -> bytes:
+    """The sum of compressed G1 (width 48) or G2 (96) points on the C++
+    host library, raising ValueError(what) where the pure-Python backend
+    does: a wrong length, bytes that do not decode to a point of the
+    curve, a point off the subgroup. The library's aggregate does not
+    check the subgroup; its pairing check does, against the other
+    group's infinity (every factor 1), for all the points in one call."""
+    import ctypes as C
+    from .cpp_backend import get_lib
+    lib = get_lib()
+    blobs = [bytes(p) for p in points]
+    if any(len(b) != width for b in blobs):
+        raise ValueError(what)
+    n, joined = len(blobs), b"".join(blobs)
+    if width == 48:
+        checked = lib.kzg_pairing_check(n, joined, _G2_INFINITY * n)
+        out = C.create_string_buffer(48)
+        rc = lib.bls_aggregate_pks(n, joined, out)
+    else:
+        checked = lib.kzg_pairing_check(n, _G1_INFINITY * n, joined)
+        out = C.create_string_buffer(96)
+        rc = lib.bls_aggregate_sigs(n, joined, out)
+    if checked != 1 or rc != 0:
+        raise ValueError(what)
+    return bytes(out.raw)
+
+
 class GpuBackend(PythonBackend):
+    """Verification on the card; aggregation (the op pool's per-insert
+    work) on the C++ host library, byte-equal to the pure-Python
+    backend's; signing and key generation on the pure-Python backend."""
+
     name = "gpu"
+
+    def aggregate_signatures(self, sigs) -> bytes:
+        return _host_aggregate(sigs, 96, "invalid signature in aggregate")
+
+    def aggregate_public_keys(self, pks) -> bytes:
+        return _host_aggregate(pks, 48, "invalid pubkey")
 
     def verify_signature_sets(self, sets: list[SignatureSet]) -> bool:
         if not sets:

@@ -197,43 +197,35 @@ def test_payload_invalidation_reverts_head():
     assert new_head == good_head, "invalid payload must revert the head"
 
 
-class _RecordingBuilder:
-    """A builder client that records what it is asked; the port's chain
-    must not reach its bid methods."""
-
-    def __init__(self):
-        self.calls = []
-
-    def register_validators(self, registrations):
-        self.calls.append(("register_validators", len(registrations)))
-
-    def get_header(self, *args):
-        self.calls.append(("get_header",))
-
-    def submit_blinded_block(self, *args):
-        self.calls.append(("submit_blinded_block",))
-
-
 @pytest.mark.parametrize("registered", [False, True])
-def test_builder_flow_refused_until_execution_layer(registered):
-    """A builder attached for a registered proposer raises (its payload
-    would be read by execution_layer, which the port lacks) instead of
-    being dropped for the local payload; an unregistered proposer gets
-    the local payload, as in the JAX package, and the builder is never
-    asked for a bid."""
+def test_builder_flow_takes_a_registered_proposers_bid(registered):
+    """The JAX package's builder flow: a builder attached for a registered
+    proposer is asked for a bid, and a bid that beats the local value
+    gives the block the builder's payload, read back by
+    execution_layer's payload_from_json; an unregistered proposer gets the
+    local payload, and the builder is never asked for a bid."""
+    from lighthouse_tpu_torch.execution_layer.builder import (
+        BuilderHttpClient, MockBuilder,
+    )
     h = make_harness(32, altair_fork_epoch=0, bellatrix_fork_epoch=0)
     chain = h.chain
-    chain.builder = _RecordingBuilder()
-    if registered:
-        chain.register_validators([{"message": {
-            "fee_recipient": "0x" + "bb" * 20, "gas_limit": 30_000_000,
-            "timestamp": 0, "pubkey": "0x" + chain.head().head_state
-            .validators.pubkey(i).hex()}} for i in range(32)])
-        with pytest.raises(NotImplementedError, match="execution_layer"):
-            h.extend_chain(1)
-        assert chain.head().head_state.slot == 0
-    else:
+    mock = MockBuilder(chain, bid_wei=chain.LOCAL_PAYLOAD_VALUE_WEI * 10)
+    try:
+        chain.builder = BuilderHttpClient(mock.start_http())
+        if registered:
+            chain.register_validators([{"message": {
+                "fee_recipient": "0x" + "bb" * 20, "gas_limit": 30_000_000,
+                "timestamp": 0, "pubkey": "0x" + chain.head().head_state
+                .validators.pubkey(i).hex()}} for i in range(32)])
         h.extend_chain(2)
-        assert chain.block_production_log[-1]["source"] == "local"
-    assert not [c for c in chain.builder.calls
-                if c[0] != "register_validators"]
+        assert chain.head().head_state.slot == 2
+        payload = chain.head().head_block.message.body.execution_payload
+        if registered:
+            assert chain.block_production_log[-1]["source"] == "builder"
+            assert payload.fee_recipient == b"\xbb" * 20
+            assert mock.header_requests and mock.unblind_requests
+        else:
+            assert chain.block_production_log[-1]["source"] == "local"
+            assert not mock.header_requests
+    finally:
+        mock.stop()
