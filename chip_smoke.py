@@ -184,7 +184,34 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    the ``el_new_payload``, ``kzg_verify`` and ``el_forkchoice`` spans,
    the productions, the gossip batch, ``process_queued``. The import
    alone must launch every state-root and BLS kernel.
-10. Observability, read from what phases 1-9 left (the catalog and the
+10. The beacon node's network at 1,000,000 validators: phase 7's
+   workload (kept from phase 7) with a second block one slot after phase
+   8's, its signers' interop pubkeys written and warmed; three chains
+   anchored as in phase 8, each with a ``NetworkService`` on 127.0.0.1
+   (``NETWORK_SECURITY``, never left to the transport; a two-worker
+   beacon processor; ``batch_gossip_verification``), launch counts 0 from
+   their anchoring on. (a) B dials A at the anchor (the status shows no
+   gap); A imports the block and gossips it; B checks it at gossip and
+   imports it through its processor: B's head and post-state root A's and
+   the workload's. (b) A imports the second block; C, fresh at the
+   anchor, dials A, sees it ahead and range-syncs both blocks
+   (``beacon_blocks_by_range`` over yamux and snappy, the replay engine,
+   one signature batch for the epoch on the card): C's head, post-state
+   root and stored blocks' SSZ A's, the second block by root byte-equal.
+   (c) A gossips ``GOSSIP_SINGLES`` single-bit attestations of the block's
+   slot on their subnets and one with its neighbour's signature; B and C
+   verify them in processor batches on ``gpu``, apply every valid vote
+   and refuse the bad one alone (the split fallback), verdicts equal to
+   the ``cpp`` backend's on A; A's score takes the reject, no ban. (d) A
+   gossips ``swapped_block``: B refuses it at gossip, C refuses its
+   import, heads and stores unchanged. Timed: the dials (the handshake),
+   (a) from publish to B's head with its critical path by stage, (b) from
+   dial to C's head split into status, download, decode and the replay
+   engine's stages, (c) from the first publish to the last verdict with
+   the batch sizes drained, the bytes sent on the sockets by step, and a
+   range sync of a fresh chain under ``torch.profiler`` (the card's idle
+   share). Every state-root and BLS kernel must launch on the path.
+11. Observability, read from what phases 1-10 left (the catalog and the
    ``obs`` layer are loaded at import, as a node loads them, and the
    graftwatch sampler ticks once a phase): every kernel that launched (15
    in mode 0, 20 mode-1/2 variants) has a roofline record on the card
@@ -195,7 +222,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    the state root, the BLS batch (``bls_batch_verify_sigs`` at 10,000),
    the block, and the chain's imports (``beacon_block_imported_total``)
    and gossip batches (``beacon_attestation_processing_seconds``), and
-   phase 9's KZG, engine-API and production histograms; a flight dump
+   phase 9's KZG, engine-API and production histograms, and phase 10's
+   gossip, peer and range-sync counters from the port's catalog; a flight dump
    the port's doctor renders with exit 0. The run's total time is printed
    before the kernel line.
 
@@ -2710,6 +2738,606 @@ def postmerge_phase(setup: dict, card: str, seed: int) -> dict:
     return report
 
 
+#: the libp2p security protocol of phase 10's nodes, passed to every
+#: ``NetworkConfig``: never None, which would let the transport pick
+#: plaintext wherever ``cryptography`` is missing. Noise XX: the H100
+#: machine imports ``cryptography`` (48.0.0); without it the transport
+#: raises instead of falling back
+NETWORK_SECURITY = "noise"
+#: every wait of phase 10 on another node's work, in seconds
+NETWORK_DEADLINE = 300.0
+
+
+class _WireBytes:
+    """The bytes the process writes to its sockets (``socket.sendall``:
+    every frame of the transport, the handshakes included) while
+    installed, in total and by the label last set."""
+
+    def __init__(self):
+        import threading
+        self.by_label: dict[str, int] = {}
+        self.label = "setup"
+        self._lock = threading.Lock()
+        self._inner = None
+
+    def __enter__(self):
+        import socket
+        self._inner = inner = socket.socket.sendall
+        counter = self
+
+        def sendall(sock, data, *args):
+            with counter._lock:
+                counter.by_label[counter.label] = (
+                    counter.by_label.get(counter.label, 0) + len(data))
+            return inner(sock, data, *args)
+
+        socket.socket.sendall = sendall
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import socket
+        socket.socket.sendall = self._inner
+
+
+def _until(cond, what: str, timeout: float = NETWORK_DEADLINE) -> float:
+    """Wait for ``cond()`` with a deadline; the seconds it took. Raises
+    where the deadline passes."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout,
+              f"{what}: not within {timeout:.0f} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _mem_line() -> str:
+    """The host's available memory and this process's resident set."""
+    meminfo = dict(line.split(":", 1) for line in
+                   Path("/proc/meminfo").read_text().splitlines())
+    status = dict(line.split(":", 1) for line in
+                  Path("/proc/self/status").read_text().splitlines()
+                  if ":" in line)
+    return (f"host MemAvailable {meminfo['MemAvailable'].strip()}, "
+            f"VmRSS {status['VmRSS'].strip()}")
+
+
+def network_phase(setup: dict, w, card: str) -> dict:
+    """Phase 10: the beacon node's network at 1M validators. On phase 7's
+    workload ``w`` (its state at ``stf_workload.SLOT``): the signers of a
+    second block (the committees of ``w``'s slot, the next slot's
+    proposer) get interop pubkeys, written into the state and warmed into
+    the gpu backend's cache; phase 8's chain workload on it (the anchor,
+    the block) and the second block, built and signed the same way one
+    slot later. Chains anchored as in phase 8, each with a
+    ``NetworkService`` on 127.0.0.1 (``NETWORK_SECURITY``, a two-worker
+    beacon processor, ``batch_gossip_verification``). (a) B dials A, both
+    at the anchor; A imports the block and gossips it, B imports it
+    through its processor. (b) A imports the second block; C, fresh at
+    the anchor, dials A and range-syncs both (``beacon_blocks_by_range``,
+    the replay engine: one signature batch for the epoch), then fetches
+    the second by root. (c) A gossips ``GOSSIP_SINGLES`` single-bit
+    attestations and one with its neighbour's signature; B and C verify
+    them in processor batches on the card, accept every valid one and
+    refuse the bad one alone (the split fallback), with verdicts equal to
+    the ``cpp`` backend's on A. (d) A gossips ``swapped_block``: B
+    refuses it at gossip (a second proposal of the slot), C, which has
+    not seen it, refuses its import; heads and stores unchanged. A second
+    fresh chain range-syncs under ``torch.profiler`` (the card's idle
+    share). Kernel launch counts are 0 once the chains are set up; every
+    state-root and BLS kernel must launch on the path."""
+    import os
+    import tempfile
+
+    import torch
+
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch import stf_workload as sw
+    from lighthouse_tpu_torch.beacon_processor import BeaconProcessor
+    from lighthouse_tpu_torch.bls_batch import warm_pubkeys
+    from lighthouse_tpu_torch.chain import BeaconChainBuilder
+    from lighthouse_tpu_torch.chain.errors import (
+        BAD_SIGNATURE, AttestationError, BlockError,
+    )
+    from lighthouse_tpu_torch.chain.execution import MockExecutionLayer
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import SignatureSet
+    from lighthouse_tpu_torch.network import (
+        NetworkConfig, NetworkService, Topic,
+    )
+    from lighthouse_tpu_torch.network.sync import encode_block
+    from lighthouse_tpu_torch.obs import critpath
+    from lighthouse_tpu_torch.profile_state_root import profiled
+    from lighthouse_tpu_torch.specs.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.ssz import htr, serialize
+    from lighthouse_tpu_torch.state_transition import (
+        VerifySignatures, per_block_processing, process_slots,
+    )
+    from lighthouse_tpu_torch.state_transition.helpers import (
+        get_beacon_proposer_index,
+    )
+    from lighthouse_tpu_torch.store import HotColdDB, NativeKvStore
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    t_phase = time.perf_counter()
+    cpp, gpu = setup["cpp"], setup["gpu"]
+    security = NETWORK_SECURITY
+    check(bls.get_backend() is gpu, "the BLS module's backend is not gpu")
+    check(security in ("noise", "plaintext"),
+          f"phase 10's security protocol {security!r} is not explicit")
+    cores = os.cpu_count() or 8
+    spec = mainnet_spec()
+    report: dict = {"security": security}
+    print(f"network setup: {_mem_line()} at the phase's start [{card}]",
+          flush=True)
+
+    # the second block's signers: the committees of w's slot and the next
+    # slot's proposer (the gossip singles are among those members)
+    s1 = int(w.state.slot)
+    check(s1 == sw.SLOT, f"phase 7's state is at slot {s1}, not {sw.SLOT}")
+    t0 = time.perf_counter()
+    members = np.concatenate(sw.slot_committees(w.state, s1))
+    wanted = np.unique(np.append(members, get_beacon_proposer_index(
+        w.state, s1 + 1)))
+    rows = np.setdiff1d(wanted, w.rows)
+    pubkeys = sw.signer_pubkeys(rows, cpp, threads=cores)
+    sw.write_signers(w.state, rows, pubkeys)
+    report["signers_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warmed = warm_pubkeys(gpu, [SignatureSet(
+        b"", [bytes(pk) for pk in pubkeys], b"")], processes=cores)
+    report["pubkey_warm_s"] = time.perf_counter() - t0
+
+    # the chain workload (phase 8's) and the second block one slot later
+    t0 = time.perf_counter()
+    cw = sw.build_chain_workload(w, cpp)
+    anchor_root, root1 = htr(cw.anchor.message), htr(cw.block.message)
+    check(int(cw.block.message.slot) == s1, "the block is not at w's slot")
+    post = cw.state.copy()
+    process_slots(post, s1)
+    per_block_processing(post, cw.block, VerifySignatures.FALSE)
+    check(post.hash_tree_root() == cw.post_root,
+          "the block's post-state root is not the chain workload's")
+    s2 = s1 + 1
+    process_slots(post, s2)
+    block2 = sw.build_block(post, cpp)
+    per_block_processing(post, block2, VerifySignatures.FALSE)
+    post_root2 = post.hash_tree_root()
+    block2.message.state_root = post_root2
+    sw.sign_proposal(post, block2, cpp)
+    root2 = htr(block2.message)
+    del post
+    report["workload_s"] = time.perf_counter() - t0
+    print(f"network setup: {len(rows)} more signer rows (the committees of "
+          f"slot {s1}, slot {s2}'s proposer) with interop keys in "
+          f"{report['signers_s']:.1f} s, {warmed} pubkeys warmed in "
+          f"{report['pubkey_warm_s']:.1f} s; the anchor {anchor_root.hex()} "
+          f"at slot {s1 - 1}, the block {root1.hex()} at {s1} and the "
+          f"second block {root2.hex()} at {s2} (its "
+          f"{len(block2.message.body.attestations)} attestations of slot "
+          f"{s1}, full sync aggregate, signed on the "
+          f"C++ host backend) in {report['workload_s']:.1f} s [{card}]",
+          flush=True)
+
+    def anchored(tmp: str, name: str):
+        """A chain anchored on a copy of the workload's anchor state (phase
+        8's builder, stores and first head), its clock at the second
+        block's slot."""
+        db = HotColdDB(NativeKvStore(os.path.join(tmp, name, "hot")),
+                       NativeKvStore(os.path.join(tmp, name, "cold")), spec)
+        chain = (BeaconChainBuilder(spec)
+                 .weak_subjectivity_anchor(cw.state.copy(), cw.anchor)
+                 .slot_clock(ManualSlotClock(0, spec.seconds_per_slot,
+                                             current_slot=s2))
+                 .execution_layer(MockExecutionLayer())
+                 .store(db)
+                 .build())
+        check(chain.recompute_head() == anchor_root,
+              f"chain {name}: not anchored")
+        return chain
+
+    def service(chain):
+        """The node's network: a two-worker processor, attestation
+        signatures deferred to its batches, the security protocol
+        named."""
+        svc = NetworkService(chain, NetworkConfig(
+            security=security, batch_gossip_verification=True),
+            processor=BeaconProcessor(num_workers=2))
+        check(svc.transport.security == security,
+              f"the transport chose {svc.transport.security}")
+        return svc
+
+    def recorder(chain, got: dict, sizes: list):
+        """Each attestation batch the node's processor drains, its size
+        and each item's verdict by attestation root."""
+        inner = chain.batch_verify_unaggregated_attestations_for_gossip
+
+        def recorded(pairs):
+            results = inner(pairs)
+            sizes.append(len(pairs))
+            for (att, _subnet), r in zip(pairs, results):
+                got[htr(att)] = (r.kind if isinstance(r, AttestationError)
+                                 else "ok")
+            return results
+
+        chain.batch_verify_unaggregated_attestations_for_gossip = recorded
+
+    def applied_votes(chain, into: list):
+        """The validators whose votes the node applied to fork choice."""
+        inner = chain.apply_attestation_to_fork_choice
+
+        def apply(verified):
+            inner(verified)
+            into.extend(int(i) for i in verified.indexed.attesting_indices)
+
+        chain.apply_attestation_to_fork_choice = apply
+
+    def imports_of(chain, into: list):
+        """Each block import the node runs: (root, error kind or None)."""
+        inner = chain.process_block
+
+        def process_block(signed, *args, **kwargs):
+            try:
+                out = inner(signed, *args, **kwargs)
+            except BlockError as e:
+                into.append((htr(signed.message), e.kind))
+                raise
+            into.append((htr(signed.message), None))
+            return out
+
+        chain.process_block = process_block
+
+    def dial(src, dst, name: str) -> tuple[object, float]:
+        t = time.perf_counter()
+        peer = src.dial("127.0.0.1", dst.port)
+        ms = (time.perf_counter() - t) * 1e3
+        check(peer is not None, f"{name}: the dial failed")
+        return peer, ms
+
+    def status_of(svc, peer_id: str):
+        info = svc.peers.peers.get(peer_id)
+        return None if info is None else info.status
+
+    def stored_equal(chain, ref, roots) -> bool:
+        for r in roots:
+            a, b = chain.store.get_block(r), ref.store.get_block(r)
+            if a is None or b is None or serialize(
+                    type(a).ssz_type, a) != serialize(type(b).ssz_type, b):
+                return False
+        return True
+
+    names = [k.name for k in kernels.STATE_ROOT_KERNELS + kernels.BLS_KERNELS]
+    services, steps = [], {}
+    wire = _WireBytes()
+    with tempfile.TemporaryDirectory() as tmp, wire:
+        try:
+            # the path starts here: three nodes anchored and listening
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            chain_a, chain_b, chain_c = (anchored(tmp, n) for n in "abc")
+            report["anchor_s"] = time.perf_counter() - t0
+            na, nb, nc = (service(c) for c in (chain_a, chain_b, chain_c))
+            services += [na, nb, nc]
+            for svc in services:
+                svc.start()
+            a_id = na.transport.node_id
+            steps["anchor"] = {n: k.launches
+                               for n, k in kernels.KERNELS.items()}
+
+            def step_launches(label: str) -> dict:
+                now = {n: k.launches for n, k in kernels.KERNELS.items()}
+                before = {n: sum(c[n] for c in steps.values())
+                          for n in now}
+                steps[label] = {n: now[n] - before[n] for n in now}
+                return steps[label]
+
+            # (a) B dials A at the anchor; A imports the block and gossips
+            # it; B imports it through its processor
+            wire.label = "a"
+            peer_ab, dial_ab_ms = dial(nb, na, "B to A")
+            _until(lambda: status_of(nb, a_id) is not None,
+                   "B's status exchange with A")
+            st = status_of(nb, a_id)
+            check(st.head_root == anchor_root
+                  and st.head_slot == chain_b.head().head_state.slot,
+                  f"B sees A at {st.head_root.hex()} slot {st.head_slot}, "
+                  f"not at its own anchor")
+            _until(lambda: {Topic.BLOCK} <= na.gossip.peer_topics.get(
+                nb.transport.node_id, set()), "A learning B's topics")
+            imports_b = []
+            imports_of(chain_b, imports_b)
+            t0 = time.perf_counter()
+            check(chain_a.process_block(cw.block) == root1,
+                  "A did not import the block")
+            a_import_ms = (time.perf_counter() - t0) * 1e3
+            spans_before = {s.span_id for s in tracing.snapshot()}
+            t0 = time.perf_counter()
+            na.publish_block(cw.block)
+            _until(lambda: chain_b.head().head_block_root == root1,
+                   "B's head on the gossiped block")
+            gossip_ms = (time.perf_counter() - t0) * 1e3
+            # the head moves inside the import; its record lands on return
+            _until(lambda: imports_b, "B's import returning")
+            check(imports_b == [(root1, None)],
+                  f"B's imports: {imports_b}")
+            check(chain_b.head().head_state.hash_tree_root()
+                  == chain_a.head().head_state.hash_tree_root()
+                  == cw.post_root, "B's post-state root is not A's and "
+                                   "the workload's")
+            comp = critpath.worst_component(
+                [s for s in tracing.snapshot()
+                 if s.span_id not in spans_before])
+            check(comp is not None, "no block_pipeline trace on B")
+            stages = critpath.component_report(comp)
+            report.update(dial_ms={"b": dial_ab_ms}, a_import_ms=a_import_ms,
+                          gossip_ms=gossip_ms, gossip_stages=stages)
+            split = ", ".join(
+                f"{k} {stages['stages'][k]['service_ms']:.1f}"
+                for k in ("gossip_publish", "block_pipeline", "gossip_verify",
+                          "processor_work", "block_import",
+                          "batch_signature", "state_transition",
+                          "state_root", "fork_choice", "db_write")
+                if k in stages["stages"])
+            la = step_launches("a")
+            print(f"network handshake: B dialed A in {dial_ab_ms:.1f} ms "
+                  f"(TCP, multistream, {security}, yamux; A's peer id "
+                  f"{a_id[:16]}... authenticated); the status exchange "
+                  f"shows no gap [{card}]", flush=True)
+            print(f"network gossip (a): A imported the block in "
+                  f"{a_import_ms:.1f} ms and published it; B's head on it "
+                  f"{gossip_ms:.1f} ms after the publish (gossip check, its "
+                  f"processor, the block's batch on gpu), its post-state "
+                  f"root A's and the workload's; the critical path "
+                  f"{stages['total_ms']:.1f} ms: {split}; launches "
+                  f"{ {n: c for n, c in la.items() if c} } [{card}]",
+                  flush=True)
+
+            # (b) A imports the second block; C dials A and range-syncs
+            wire.label = "b"
+            check(chain_a.process_block(block2) == root2,
+                  "A did not import the second block")
+            check(chain_a.head().head_state.hash_tree_root() == post_root2,
+                  "A's post-state root is not the second block's")
+            step_launches("a, the second block")
+            fetch_s, decode_s = [], []
+            ctx = nc.sync.ctx
+            fetch, decode = ctx._fetch_range, ctx._decode_block
+
+            def timed_fetch(*args):
+                t = time.perf_counter()
+                try:
+                    return fetch(*args)
+                finally:
+                    fetch_s.append(time.perf_counter() - t)
+
+            def timed_decode(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return decode(*args, **kwargs)
+                finally:
+                    decode_s.append(time.perf_counter() - t)
+
+            ctx._fetch_range, ctx._decode_block = timed_fetch, timed_decode
+            t0 = time.perf_counter()
+            peer_ca, dial_ca_ms = dial(nc, na, "C to A")
+            status_s = _until(lambda: status_of(nc, a_id) is not None,
+                              "C's status exchange with A")
+            st = status_of(nc, a_id)
+            check(st.head_root == root2 and st.head_slot == s2,
+                  f"C sees A at slot {st.head_slot}, not ahead at {s2}")
+            _until(lambda: chain_c.head().head_block_root == root2,
+                   "C's head on the second block by range sync")
+            sync_ms = (time.perf_counter() - t0) * 1e3
+            # the head moves at the epoch's commit; the segment's count
+            # lands when the replay returns
+            _until(lambda: nc.sync.ctx.imported_total == 2,
+                   "range sync's count of imported blocks")
+            engine = chain_c.replay_engine().snapshot()
+            check(engine["segments_replayed"] == 1
+                  and engine["blocks_committed"] == 2
+                  and engine["commit_seq"] == 1,
+                  f"C's replay engine: {engine['segments_replayed']} "
+                  f"segments, {engine['blocks_committed']} blocks, "
+                  f"{engine['commit_seq']} epochs committed")
+            check(chain_c.head().head_state.hash_tree_root() == post_root2,
+                  "C's post-state root is not the second block's")
+            check(stored_equal(chain_c, chain_a, (root1, root2)),
+                  "C's stored blocks differ from A's in SSZ")
+            chunks = nc.rpc.request(peer_ca, "beacon_blocks_by_root",
+                                    {"roots": [root2.hex()]})
+            check(chunks == [encode_block(chain_a.store.get_block(root2),
+                                          chain_a)],
+                  "C's beacon_blocks_by_root reply is not A's block bytes")
+            lb = step_launches("b")
+            check(lb["final_exp"] == 1, f"C's range sync ran "
+                                        f"{lb['final_exp']} signature "
+                                        f"batches, not one for the epoch")
+            busy = engine["busy_seconds"]
+            split_b = {"dial": dial_ca_ms, "status": status_s * 1e3,
+                       "download": (sum(fetch_s) - sum(decode_s)) * 1e3,
+                       "decode": sum(decode_s) * 1e3,
+                       **{k: busy[k] * 1e3 for k in busy}}
+            report.update(sync_ms=sync_ms, sync_split=split_b,
+                          replay=engine)
+            report["dial_ms"]["c"] = dial_ca_ms
+            print(f"network range sync (b): C dialed A in {dial_ca_ms:.1f} "
+                  f"ms, saw A ahead at slot {s2}, downloaded both blocks "
+                  f"by beacon_blocks_by_range (yamux, snappy) and replayed "
+                  f"them (one signature batch for the epoch on gpu): head "
+                  f"on the second block {sync_ms:.1f} ms after the dial, "
+                  f"its post-state root A's, both stored blocks A's SSZ; "
+                  f"the block by root byte-equal; split (ms): "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in split_b.items())
+                  + f"; launches { {n: c for n, c in lb.items() if c} } "
+                  f"[{card}]", flush=True)
+
+            # (c) GOSSIP_SINGLES single-bit attestations of the block's
+            # slot and one with its neighbour's signature, from A
+            wire.label = "c"
+            head1 = chain_b.head().head_state
+            t0 = time.perf_counter()
+            singles = sw.gossip_attestations(
+                head1, root1, sw.GOSSIP_SINGLES + 1, cpp, threads=cores,
+                target_root=anchor_root)
+            sign_s = time.perf_counter() - t0
+            bad, nxt = singles[-1][0], singles[-2][0]
+            singles[-1] = (type(bad)(
+                aggregation_bits=list(bad.aggregation_bits), data=bad.data,
+                signature=nxt.signature), singles[-1][1])
+            bad_root = htr(singles[-1][0])
+            verdicts = {"b": {}, "c": {}}
+            sizes = {"b": [], "c": []}
+            votes = {"b": [], "c": []}
+            for key, chain in (("b", chain_b), ("c", chain_c)):
+                recorder(chain, verdicts[key], sizes[key])
+                applied_votes(chain, votes[key])
+            topics = {f"beacon_attestation_{s}" for _a, s in singles}
+            for svc in (nb, nc):
+                _until(lambda svc=svc: topics <= na.gossip.peer_topics.get(
+                    svc.transport.node_id, set()),
+                    "A learning the attestation subnets")
+            score0 = {k: svc.peers.score(a_id)
+                      for k, svc in (("b", nb), ("c", nc))}
+            n_att = len(singles)
+            t0 = time.perf_counter()
+            for att, subnet in singles:
+                na.publish_attestation(att, subnet)
+            publish_ms = (time.perf_counter() - t0) * 1e3
+            for key in ("b", "c"):
+                _until(lambda key=key: len(verdicts[key]) == n_att,
+                       f"node {key.upper()}'s verdicts")
+            verdict_ms = (time.perf_counter() - t0) * 1e3
+            for svc in (nb, nc):
+                check(svc.processor.wait_idle(timeout=NETWORK_DEADLINE),
+                      "a processor still busy after the verdicts")
+            # the same attestations on cpp, on A (which never received them)
+            verify_on_a = (chain_a.
+                           batch_verify_unaggregated_attestations_for_gossip)
+            bls.set_backend("cpp")
+            try:
+                want = _verdicts(verify_on_a(singles))
+            finally:
+                bls.set_backend("gpu")
+            check(want == ["ok"] * (n_att - 1) + [BAD_SIGNATURE],
+                  f"cpp's verdicts: {sorted(set(want))}")
+            signers = [m[0] for m in sw.gossip_members(head1, s1, n_att)]
+            for key, chain, svc in (("b", chain_b, nb), ("c", chain_c, nc)):
+                got = [verdicts[key][htr(a)] for a, _s in singles]
+                check(got == want, f"node {key.upper()}'s verdicts differ "
+                                   f"from cpp's: {sorted(set(got))}")
+                check(sorted(votes[key]) == sorted(signers[:-1]),
+                      f"node {key.upper()} applied {len(votes[key])} votes, "
+                      f"not the {n_att - 1} valid attesters'")
+                delta = svc.peers.score(a_id) - score0[key]
+                check(abs(delta - (n_att * 0.1 - 5.0)) < 1e-6,
+                      f"node {key.upper()}'s score of A moved {delta}, not "
+                      f"{n_att} accepts and one reject")
+                check(not any(p.banned for p in svc.peers.peers.values()),
+                      f"node {key.upper()} banned a peer")
+            # B has only these votes for the slot's members: the blocks it
+            # imported carry the slot before's
+            fc_votes = chain_b.fork_choice.votes
+            check(all(fc_votes[v].next_root == root1 for v in signers[:-1])
+                  and (signers[-1] >= len(fc_votes)
+                       or fc_votes[signers[-1]].next_root != root1),
+                  "B's fork choice does not hold exactly the valid votes")
+            lc = step_launches("c")
+            report.update(sign_s=sign_s, publish_ms=publish_ms,
+                          verdict_ms=verdict_ms, batch_sizes=sizes)
+            print(f"network attestations (c): {n_att} single-bit "
+                  f"attestations of slot {s1} ({n_att - 1} signed by their "
+                  f"members, the last with its neighbour's signature) "
+                  f"signed in {sign_s:.1f} s, published by A on "
+                  f"{len(topics)} subnets in {publish_ms:.1f} ms; the last "
+                  f"verdict {verdict_ms:.1f} ms after the first publish; B "
+                  f"and C each accepted {n_att - 1} into fork choice and "
+                  f"refused the bad one alone {BAD_SIGNATURE} (the split "
+                  f"fallback), as cpp on A; A's score took the reject, no "
+                  f"ban; batches drained: B {sizes['b']}, C {sizes['c']}; "
+                  f"launches { {n: c for n, c in lc.items() if c} } "
+                  f"[{card}]", flush=True)
+
+            # (d) the swapped block: B has the slot's proposal, C has not
+            # seen it
+            wire.label = "d"
+            bad_block = sw.swapped_block(cw.state, cw.block, cpp)
+            bad_block_root = htr(bad_block.message)
+            imports_c = []
+            imports_of(chain_c, imports_c)
+            rejects_b = nb.peers.score(a_id)
+            na.publish_block(bad_block)
+            _until(lambda: imports_c, "C's import of the swapped block")
+            for svc in (nb, nc):
+                check(svc.processor.wait_idle(timeout=NETWORK_DEADLINE),
+                      "a processor still busy after the swapped block")
+            check(imports_c[0][0] == bad_block_root and imports_c[0][1],
+                  f"C's import of the swapped block: {imports_c}")
+            check(abs(nb.peers.score(a_id) - rejects_b + 5.0) < 1e-6,
+                  "B did not reject the second proposal at gossip")
+            for name, chain, head in (("B", chain_b, root1),
+                                      ("C", chain_c, root2)):
+                check(chain.head().head_block_root == head
+                      and chain.store.get_block(bad_block_root) is None
+                      and not chain.fork_choice.contains_block(
+                          bad_block_root),
+                      f"{name}: the swapped block moved the head or is "
+                      f"stored")
+            ld = step_launches("d")
+            print(f"network bad block (d): the swapped block (attestation 0 "
+                  f"with attestation 1's signature, the proposal signed "
+                  f"again) gossiped by A: B refused it at gossip (a second "
+                  f"proposal of slot {s1}), C refused its import "
+                  f"{imports_c[0][1]}; heads and stores unchanged; launches "
+                  f"{ {n: c for n, c in ld.items() if c} } [{card}]",
+                  flush=True)
+            launches = {n: sum(c[n] for c in steps.values()) for n in names}
+            graftwatch.on_slot(10)
+
+            # the card's idle share of a range sync: a fresh chain, profiled
+            wire.label = "profiled"
+            chain_e = anchored(tmp, "e")
+            ne = service(chain_e)
+            services.append(ne)
+            ne.start()
+
+            def sync_e():
+                dial(ne, na, "E to A")
+                _until(lambda: chain_e.head().head_block_root == root2,
+                       "E's head by range sync")
+
+            before = sum(k.launches for k in kernels.KERNELS.values())
+            prof = profiled(sync_e)
+            call_launches = sum(k.launches
+                                for k in kernels.KERNELS.values()) - before
+        finally:
+            for svc in services:
+                svc.stop()
+    torch.cuda.synchronize()
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the network "
+                         f"path")
+    idle = (f"device busy {prof['device_busy_ms']:.2f} ms "
+            f"({prof['device_events']} device events), the card idle "
+            f"{100 * (1 - prof['device_busy_share']):.1f} % of the sync"
+            if prof["device_events"] >= call_launches else
+            f"device busy not measured (the profile holds "
+            f"{prof['device_events']} device events, fewer than the "
+            f"sync's {call_launches} kernel launches)")
+    print(f"network range sync under the profiler (a fresh chain dialing "
+          f"A): {prof['wall_ms']:.1f} ms wall, {idle} [{card}]", flush=True)
+    print(f"network wire: bytes sent on the sockets "
+          f"{sum(wire.by_label.values())} in all, by step {wire.by_label} "
+          f"[{card}]", flush=True)
+    print(f"network launches on the path (3 anchorings, (a)-(d)): "
+          f"{launches} [{card}]", flush=True)
+    report.update(profile=prof, wire_bytes=wire.by_label, launches=launches,
+                  launches_by_step={k: {n: c for n, c in v.items() if c}
+                                    for k, v in steps.items()})
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"network phase: {report['seconds']:.1f} s; {_mem_line()} "
+          f"[{card}]", flush=True)
+    return report
+
+
 def _sampled(slot: int, name: str) -> float | None:
     """The graftwatch sampler's value of series ``name`` in the row of
     ``slot`` (a phase: the smoke ticks the sampler once a phase), or
@@ -2721,7 +3349,7 @@ def _sampled(slot: int, name: str) -> float | None:
 
 
 def obs_phase(card: str, stf: dict) -> dict:
-    """Phase 10: what the observability layer kept of phases 1-9, read and
+    """Phase 11: what the observability layer kept of phases 1-10, read and
     checked (nothing heavy runs again): every kernel that launched (the 15
     in mode 0, the mode-1/2 variants phase 6 ran) has a roofline record on
     the card with a device ms and a utilization of the peak in (0, 1.05],
@@ -2729,9 +3357,10 @@ def obs_phase(card: str, stf: dict) -> dict:
     end of phase 7 (platform ``cuda``, the card's kind and memory, bytes in
     use, the live merkle trees attributed within them); a second
     ``build_all`` of every library (no miss); the catalog metrics of the
-    state root, the BLS batch, the block and the chain's imports and
-    attestation batches in the sampler's rows; a flight dump rendered by
-    the port's doctor (exit 0)."""
+    state root, the BLS batch, the block, the chain's imports and
+    attestation batches, and the network's gossip, peer and sync metrics
+    in the sampler's rows (the network's feed the port's own catalog); a
+    flight dump rendered by the port's doctor (exit 0)."""
     import os
     import subprocess
     import tempfile
@@ -2839,7 +3468,14 @@ def obs_phase(card: str, stf: dict) -> dict:
             ("kzg_blob_verification_seconds.count", 9),
             ("execution_layer_new_payload_seconds.count", 9),
             ("execution_layer_forkchoice_seconds.count", 9),
-            ("beacon_block_production_seconds.count", 9))
+            ("beacon_block_production_seconds.count", 9),
+            ("gossipsub_messages_received_total", 10),
+            ("gossipsub_messages_published_total", 10),
+            ("gossipsub_validation_accept_total", 10),
+            ("gossipsub_validation_reject_total", 10),
+            ("libp2p_peers", 10), ("libp2p_peer_connect_total", 10),
+            ("sync_range_batches_downloaded_total", 10),
+            ("sync_range_blocks_imported_total", 10))
     metrics = {f"{n}@{slot}": _sampled(slot, n) for n, slot in want}
     missing = [k for k, v in metrics.items() if not v]
     check(not missing, f"catalog metrics not fed: {missing}")
@@ -2987,7 +3623,6 @@ def main(argv=None) -> int:
     # hot/cold store, the beacon processor, BeaconChain) on phase 7's
     # state, its launches beside each kernel's row
     chain = chain_phase(setup, workload, card_line)
-    del workload
     graftwatch.on_slot(8)
     for row in rows:
         if row["name"] in chain["launches"]:
@@ -3002,17 +3637,27 @@ def main(argv=None) -> int:
         if row["name"] in postmerge["launches"]:
             row["launches_postmerge_path"] = postmerge["launches"][row["name"]]
 
-    # phase 10: what the observability layer kept of phases 1-9
+    # phase 10: the beacon node's network (libp2p over TCP, gossipsub,
+    # req/resp, range sync) between three nodes on phase 7's workload, its
+    # launches beside each kernel's row; the phase ticks graftwatch itself,
+    # while its nodes are still connected
+    network = network_phase(setup, workload, card_line)
+    del workload
+    for row in rows:
+        if row["name"] in network["launches"]:
+            row["launches_network_path"] = network["launches"][row["name"]]
+
+    # phase 11: what the observability layer kept of phases 1-10
     obs = obs_phase(card_line, stf)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s from the start to "
-          f"the end of phase 10", flush=True)
+          f"the end of phase 11", flush=True)
 
     report = {"card": card_line, "sm_clock_max_mhz": sm_clock,
               "build_s": build_s, "build": summary, "kernels": rows,
               "kernel_modes": modes, "bls_field_muls": bls_check.muls,
               "slice": sl, "bls": bls, "multigpu": multigpu, "mxu": mxu,
               "stf": stf, "stf_field_muls": stf_check.muls, "chain": chain,
-              "postmerge": postmerge, "obs": obs}
+              "postmerge": postmerge, "network": network, "obs": obs}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -93,7 +93,25 @@ need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
         "lighthouse_tpu_torch.chain.builder",
         "lighthouse_tpu_torch.chain.harness",
         "lighthouse_tpu_torch.chain.replay",
-        "lighthouse_tpu_torch.chain.replay.engine"}
+        "lighthouse_tpu_torch.chain.replay.engine",
+        "lighthouse_tpu_torch.network", "lighthouse_tpu_torch.network.secp256k1",
+        "lighthouse_tpu_torch.network.multistream",
+        "lighthouse_tpu_torch.network.noise_xx",
+        "lighthouse_tpu_torch.network.plaintext",
+        "lighthouse_tpu_torch.network.yamux",
+        "lighthouse_tpu_torch.network.gossipsub_pb",
+        "lighthouse_tpu_torch.network.snappy",
+        "lighthouse_tpu_torch.network.transport",
+        "lighthouse_tpu_torch.network.gossip", "lighthouse_tpu_torch.network.rpc",
+        "lighthouse_tpu_torch.network.peer_manager",
+        "lighthouse_tpu_torch.network.service",
+        "lighthouse_tpu_torch.network.sync",
+        "lighthouse_tpu_torch.network.sync.batches",
+        "lighthouse_tpu_torch.network.sync.validation",
+        "lighthouse_tpu_torch.network.sync.backfill",
+        "lighthouse_tpu_torch.network.sync.lookups",
+        "lighthouse_tpu_torch.network.sync.range_sync",
+        "lighthouse_tpu_torch.network.sync.manager"}
 print(len(names), sorted(need - set(names)), bad)
 """
 
@@ -287,3 +305,61 @@ def test_port_module_imports_resolve(rel):
     in the port and a name that module binds, also the imports made
     lazily inside a function body, which loading the module never runs."""
     assert _unresolved_imports(rel) == []
+
+
+def _foreign_name_strings(rel: str) -> list[str]:
+    """Each ``sys.modules.get("...")`` and ``getLogger("...")`` literal of
+    a module that names the JAX package (``lighthouse_tpu`` or a module
+    under it): such a string would feed the JAX package's metric catalog
+    or loggers from the port, or, where that package is not loaded,
+    nothing at all."""
+    import ast
+
+    path = os.path.join(REPO, rel)
+    bad = []
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if not (isinstance(node, ast.Call) and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and isinstance(node.args[0].value, str)):
+            continue
+        func = node.func
+        modules_get = (isinstance(func, ast.Attribute) and func.attr == "get"
+                       and isinstance(func.value, ast.Attribute)
+                       and func.value.attr == "modules"
+                       and isinstance(func.value.value, ast.Name)
+                       and func.value.value.id == "sys")
+        get_logger = ((isinstance(func, ast.Attribute)
+                       and func.attr == "getLogger")
+                      or (isinstance(func, ast.Name)
+                          and func.id == "getLogger"))
+        name = node.args[0].value
+        if (modules_get or get_logger) and (
+                name == "lighthouse_tpu"
+                or name.startswith("lighthouse_tpu.")):
+            bad.append(f"line {node.lineno}: {name}")
+    return bad
+
+
+@pytest.mark.parametrize("rel", _PORT_FILES)
+def test_port_names_no_module_or_logger_of_the_jax_package(rel):
+    """Every module name a port module looks up in ``sys.modules`` and
+    every logger it names is the port's own (``lighthouse_tpu_torch...``)
+    or one outside both packages."""
+    assert _foreign_name_strings(rel) == []
+
+
+def test_name_string_check_catches_the_jax_package(tmp_path, monkeypatch):
+    """The check above flags the JAX package's names and passes the
+    port's."""
+    src = tmp_path / "probe.py"
+    src.write_text(
+        'import logging, sys\n'
+        'a = sys.modules.get("lighthouse_tpu.api.metrics_defs")\n'
+        'b = logging.getLogger("lighthouse_tpu.network")\n'
+        'c = sys.modules.get("lighthouse_tpu_torch.api.metrics_defs")\n'
+        'd = logging.getLogger("lighthouse_tpu_torch.network")\n'
+        'e = sys.modules.get("torch")\n')
+    monkeypatch.setattr(sys.modules[__name__], "REPO", str(tmp_path))
+    assert _foreign_name_strings("probe.py") == [
+        "line 2: lighthouse_tpu.api.metrics_defs",
+        "line 3: lighthouse_tpu.network"]
