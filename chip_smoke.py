@@ -204,13 +204,26 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    and refuse the bad one alone (the split fallback), verdicts equal to
    the ``cpp`` backend's on A; A's score takes the reject, no ban. (d) A
    gossips ``swapped_block``: B refuses it at gossip, C refuses its
-   import, heads and stores unchanged. Timed: the dials (the handshake),
+   import, heads and stores unchanged. (e) A ``BootNode`` on 127.0.0.1;
+   F, on a ``FaultyTransport``, range-syncs both blocks from A; A, F and
+   D (fresh at the anchor, on a ``FaultyTransport``) each get a
+   ``Discovery`` holding only the bootnode's ENR; D's ``discover_once``
+   finds A and F by FINDNODE and dials both, asks F for the epoch's batch
+   first (F's node id sorts first), F stalls it (``PeerBehavior("stall",
+   stall_secs=STALL_SECS)``), D penalises F and takes the batch from A:
+   D's head and state root A's, every ENR advertising its service's TCP
+   port, D's routing table through ``persist_dht`` / ``load_dht`` on its
+   store. Timed: the dials (the handshake),
    (a) from publish to B's head with its critical path by stage, (b) from
    dial to C's head split into status, download, decode and the replay
    engine's stages, (c) from the first publish to the last verdict with
-   the batch sizes drained, the bytes sent on the sockets by step, and a
-   range sync of a fresh chain under ``torch.profiler`` (the card's idle
-   share). Every state-root and BLS kernel must launch on the path.
+   the batch sizes drained, (e) from D's bootstrap to its dials and from
+   its first dial to A's head split into the stall, the download, decode
+   and the replay's stages, the bytes sent on the sockets by step (D's
+   own, TCP and discv5, in (e)), and a range sync of a fresh chain under
+   ``torch.profiler`` (the card's idle share). Every state-root and BLS
+   kernel must launch on the path, every BLS kernel and ``hash64`` in
+   (e) alone.
 11. Observability, read from what phases 1-10 left (the catalog and the
    ``obs`` layer are loaded at import, as a node loads them, and the
    graftwatch sampler ticks once a phase): every kernel that launched (15
@@ -2750,33 +2763,50 @@ NETWORK_DEADLINE = 300.0
 
 class _WireBytes:
     """The bytes the process writes to its sockets (``socket.sendall``:
-    every frame of the transport, the handshakes included) while
-    installed, in total and by the label last set."""
+    every frame of the transport, the handshakes included; ``sendto``:
+    discv5's packets) while installed, in total and by the label last
+    set; while ``by_conn`` is a dict, also by (local address, remote
+    address)."""
 
     def __init__(self):
         import threading
         self.by_label: dict[str, int] = {}
         self.label = "setup"
+        self.by_conn: dict | None = None
         self._lock = threading.Lock()
         self._inner = None
 
+    def _add(self, sock, n: int, remote=None) -> None:
+        with self._lock:
+            self.by_label[self.label] = self.by_label.get(self.label, 0) + n
+            if self.by_conn is not None:
+                try:
+                    key = (sock.getsockname(), remote or sock.getpeername())
+                except OSError:
+                    return
+                self.by_conn[key] = self.by_conn.get(key, 0) + n
+
     def __enter__(self):
         import socket
-        self._inner = inner = socket.socket.sendall
+        self._inner = sendall, sendto = (socket.socket.sendall,
+                                         socket.socket.sendto)
         counter = self
 
-        def sendall(sock, data, *args):
-            with counter._lock:
-                counter.by_label[counter.label] = (
-                    counter.by_label.get(counter.label, 0) + len(data))
-            return inner(sock, data, *args)
+        def counted_sendall(sock, data, *args):
+            counter._add(sock, len(data))
+            return sendall(sock, data, *args)
 
-        socket.socket.sendall = sendall
+        def counted_sendto(sock, data, *args):
+            counter._add(sock, len(data), args[-1])
+            return sendto(sock, data, *args)
+
+        socket.socket.sendall = counted_sendall
+        socket.socket.sendto = counted_sendto
         return self
 
     def __exit__(self, *exc) -> None:
         import socket
-        socket.socket.sendall = self._inner
+        socket.socket.sendall, socket.socket.sendto = self._inner
 
 
 def _until(cond, what: str, timeout: float = NETWORK_DEADLINE) -> float:
@@ -2801,6 +2831,260 @@ def _mem_line() -> str:
             f"VmRSS {status['VmRSS'].strip()}")
 
 
+#: how long node F stalls node D's range request in phase 10's step (e),
+#: in seconds: F reads the request, answers nothing, then resets the stream
+STALL_SECS = 3.0
+#: the seed of step (e)'s fault injector and of node F's libp2p key
+FAULT_SEED = 16
+
+
+def _identity_before(node_id: str, seed: int):
+    """A libp2p identity drawn from ``seed`` whose node id sorts before
+    ``node_id``: range sync hands a batch to the first fresh peer of its
+    pool in node-id order, so a node with it is asked first."""
+    from lighthouse_tpu_torch.network.secp256k1 import N
+    from lighthouse_tpu_torch.network.transport import NodeIdentity
+
+    rng = np.random.default_rng(seed)
+    for _ in range(100_000):
+        ident = NodeIdentity(int.from_bytes(rng.bytes(32), "big") % (N - 1)
+                             + 1)
+        if ident.node_id < node_id:
+            return ident
+    raise SmokeFailure(f"no identity sorts before {node_id}")
+
+
+def discovery_step(chain_a, na, node, wire, card: str) -> dict:
+    """Phase 10's step (e): a node found by discv5 range-syncs past a
+    stalling peer. A ``BootNode`` on 127.0.0.1; ``node(name, injector,
+    label, identity)`` makes a started node (a chain anchored at the
+    anchor and its service on a ``FaultyTransport`` registered with
+    ``injector`` under ``label``). F range-syncs A's chain over a
+    transparent link; A, F and then D get a ``Discovery`` holding only the
+    bootnode's ENR; F stalls every range request of D's
+    (``PeerBehavior("stall")``). D's ``discover_once`` finds A and F by
+    FINDNODE and dials both while D's sync manager is held (as a node busy
+    with a sync holds it), so its first drive sees both peers: F's node id
+    sorts first, so F is asked for the epoch's batch on every run, stalls
+    it, and D takes it from A. Checks: the lookups surfaced A and F, each
+    ENR advertises its service's TCP port, the stall was served and D
+    penalised F for it, D's head and head state's root are A's, D's
+    routing table round-trips through its store (``persist_dht``,
+    ``load_dht``). The report holds the times (the lookup to the dials,
+    the dial to D's head split into the stall, the download, the decode
+    and the replay's stages), the bytes on D's sockets and the penalties.
+    """
+    from lighthouse_tpu_torch.network.discovery import BootNode, Discovery
+    from lighthouse_tpu_torch.network.faults import (
+        FaultInjector, PeerBehavior,
+    )
+    from lighthouse_tpu_torch.network.persisted_dht import (
+        load_dht, persist_dht,
+    )
+
+    target = chain_a.head().head_block_root
+    target_state = chain_a.head().head_state.hash_tree_root()
+    injector = FaultInjector(seed=FAULT_SEED)
+    boot = BootNode()
+    boot.start()
+    discos = []
+    rep: dict = {"stall_secs": STALL_SECS}
+    try:
+        # F: range-syncs A's two blocks over a transparent link, its key
+        # one whose node id sorts before A's
+        t0 = time.perf_counter()
+        chain_f, nf = node("f", injector, "F",
+                           _identity_before(na.transport.node_id, FAULT_SEED))
+        check(nf.dial("127.0.0.1", na.port) is not None, "F to A: the dial "
+                                                         "failed")
+        # D, fresh at the anchor, built while F syncs
+        chain_d, nd = node("d", injector, "D", None)
+        _until(lambda: chain_f.head().head_block_root == target,
+               "F's head by range sync")
+        _until(lambda: nf.sync.ctx.imported_total == 2,
+               "F's count of imported blocks")
+        rep["f_sync_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # discovery: A and F register with the bootnode, then D joins
+        da = Discovery(na, bootnode_enrs=[boot.enr])
+        discos.append(da)
+        df = Discovery(nf, bootnode_enrs=[boot.enr])
+        discos.append(df)
+        injector.set_behavior("F", "D", PeerBehavior(
+            "stall", stall_secs=STALL_SECS))
+        a_id, f_id = na.transport.node_id, nf.transport.node_id
+        check(f_id < a_id, "F's node id does not sort before A's")
+
+        found, dials, fetches, penalties = [], [], [], []
+        decode_s = []
+        ctx = nd.sync.ctx
+        fetch, decode, penalize = (ctx._fetch_range, ctx._decode_block,
+                                   ctx.penalize)
+        dial = nd.dial
+
+        def timed_dial(host, port):
+            t = time.perf_counter()
+            peer = dial(host, port)
+            dials.append(((host, port), t, time.perf_counter(),
+                          peer is not None))
+            return peer
+
+        def timed_fetch(peer_id, start, count):
+            t = time.perf_counter()
+            ok = False
+            try:
+                out = fetch(peer_id, start, count)
+                ok = True
+                return out
+            finally:
+                fetches.append((peer_id, t, time.perf_counter(), ok))
+
+        def timed_decode(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return decode(*args, **kwargs)
+            finally:
+                decode_s.append(time.perf_counter() - t)
+
+        def noted_penalty(peer_id, reason):
+            penalties.append((peer_id, reason))
+            return penalize(peer_id, reason)
+
+        nd.dial = timed_dial
+        ctx._fetch_range, ctx._decode_block = timed_fetch, timed_decode
+        ctx.penalize = noted_penalty
+
+        def connected(svc, node_id) -> bool:
+            info = svc.peers.peers.get(node_id)
+            return node_id in svc.transport.peers and info is not None \
+                and info.status is not None
+
+        wire.label = "e"
+        wire.by_conn = {}
+        rounds = []
+        with nd.sync._drive_lock:
+            t_lookup = time.perf_counter()
+            dd = Discovery(nd, bootnode_enrs=[boot.enr])
+            discos.append(dd)
+            bootstrap_ms = (time.perf_counter() - t_lookup) * 1e3
+            lookup = dd.disc.lookup
+
+            def recorded_lookup(*args, **kwargs):
+                out = lookup(*args, **kwargs)
+                found.extend(e.node_id for e in out)
+                return out
+
+            dd.disc.lookup = recorded_lookup
+            while not (a_id in nd.transport.peers
+                       and f_id in nd.transport.peers):
+                check(time.perf_counter() - t_lookup < NETWORK_DEADLINE,
+                      "D's discovery did not reach A and F")
+                t = time.perf_counter()
+                made = dd.discover_once()
+                rounds.append({"made": made,
+                               "ms": (time.perf_counter() - t) * 1e3})
+            t_dialed = time.perf_counter()
+            _until(lambda: connected(nd, a_id) and connected(nd, f_id),
+                   "D's status exchanges with A and F")
+            t_status = time.perf_counter()
+        t_first = min(d[1] for d in dials if d[3])
+        _until(lambda: chain_d.head().head_block_root == target,
+               "D's head by range sync past F's stall")
+        t_head = time.perf_counter()
+        _until(lambda: ctx.imported_total == 2,
+               "D's count of imported blocks")
+        engine = chain_d.replay_engine().snapshot()
+
+        want = {da.enr.node_id, df.enr.node_id}
+        check(want <= set(found), "D's lookups did not surface A and F")
+        for name, disco, svc in (("A", da, na), ("F", df, nf),
+                                 ("D", dd, nd)):
+            check(disco.enr.tcp() == svc.port,
+                  f"{name}'s ENR advertises TCP port {disco.enr.tcp()}, not "
+                  f"its service's {svc.port}")
+        check(injector.behaviors_served.get("stall", 0) >= 1,
+              "F never stalled D's range request")
+        check(fetches and fetches[0][0] == f_id and not fetches[0][3],
+              "D's first range request did not go to F and fail")
+        check(any(p == f_id for p, _r in penalties)
+              and nd.peers.score(f_id) < 0, "D did not penalise F")
+        check(any(p == a_id and ok for p, _t, _e, ok in fetches),
+              "D did not download the batch from A")
+        check(chain_d.head().head_block_root == target
+              and chain_d.head().head_state.hash_tree_root()
+              == target_state, "D's head or its state root is not A's")
+        check(engine["segments_replayed"] == 1
+              and engine["blocks_committed"] == 2,
+              f"D's replay engine: {engine['segments_replayed']} segments, "
+              f"{engine['blocks_committed']} blocks")
+        persisted = persist_dht(chain_d.store, dd.disc.table.all())
+        loaded = {e.node_id for e in load_dht(chain_d.store)}
+        check(want <= loaded, "D's routing table did not round-trip A and "
+                              "F through its store")
+
+        # D's sockets: its connections' and its discv5 socket's addresses
+        d_local = {p.sock.getsockname() for p in nd.transport.peers.values()}
+        d_local.add(dd.disc.sock.getsockname())
+        conns = wire.by_conn
+        wire.by_conn = None
+        sent = sum(n for (lo, _r), n in conns.items() if lo in d_local)
+        recv = sum(n for (_l, re), n in conns.items() if re in d_local)
+        udp = dd.disc.sock.getsockname()
+        sent_udp = sum(n for (lo, _r), n in conns.items() if lo == udp)
+        recv_udp = sum(n for (_l, re), n in conns.items() if re == udp)
+
+        stall = [(e - t) * 1e3 for p, t, e, ok in fetches if p == f_id]
+        download = [(e - t) * 1e3 for p, t, e, ok in fetches
+                    if p == a_id and ok]
+        busy = engine["busy_seconds"]
+        split = {"status": (t_status - t_first) * 1e3,
+                 "stall": sum(stall),
+                 "download": sum(download) - sum(decode_s) * 1e3,
+                 "decode": sum(decode_s) * 1e3,
+                 **{k: busy[k] * 1e3 for k in busy}}
+        rep.update(
+            found=len(set(found)), rounds=rounds, bootstrap_ms=bootstrap_ms,
+            lookup_to_dialed_ms=(t_dialed - t_lookup) * 1e3,
+            dial_to_head_ms=(t_head - t_first) * 1e3, split=split,
+            dials=[{"ms": (e - t) * 1e3, "ok": ok} for _a, t, e, ok in dials],
+            penalties=[{"peer": "F" if p == f_id else "A" if p == a_id
+                        else p[:16], "reason": r} for p, r in penalties],
+            score_of_f=nd.peers.score(f_id),
+            stalls_served=injector.behaviors_served.get("stall", 0),
+            dht_persisted=persisted, dht_loaded=len(loaded), replay=engine,
+            d_bytes={"tcp_sent": sent - sent_udp, "tcp_received":
+                     recv - recv_udp, "udp_sent": sent_udp,
+                     "udp_received": recv_udp})
+        print(f"network discovery (e): F range-synced A's two blocks in "
+              f"{rep['f_sync_ms']:.1f} ms (transparent link); D bootstrapped "
+              f"from the bootnode's ENR in {bootstrap_ms:.1f} ms, its "
+              f"lookups surfaced {rep['found']} nodes (A and F among them) "
+              f"and it dialed A and F ({nd.transport.security}) "
+              f"{rep['lookup_to_dialed_ms']:.1f} ms after its first lookup "
+              f"({len(rounds)} round(s) of discover_once, "
+              f"{[round(r['ms'], 1) for r in rounds]} ms); every ENR "
+              f"advertises its service's TCP port [{card}]", flush=True)
+        print(f"network stall (e): F stalled D's batch request "
+              f"{rep['stalls_served']} time(s) ({STALL_SECS:.1f} s, then a "
+              f"reset), D penalised it {[r for _p, r in penalties]} (score "
+              f"{rep['score_of_f']:.1f}) and took the batch from A; D's head "
+              f"A's, its state root A's, {rep['dial_to_head_ms']:.1f} ms "
+              f"after its first dial; split (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+              + f" [{card}]", flush=True)
+        print(f"network dht (e): D persisted {persisted} ENRs into its "
+              f"store and loaded {len(loaded)} back, A's and F's among them; "
+              f"bytes on D's sockets: TCP {rep['d_bytes']['tcp_sent']} sent, "
+              f"{rep['d_bytes']['tcp_received']} received, discv5 "
+              f"{sent_udp} sent, {recv_udp} received [{card}]", flush=True)
+        return rep
+    finally:
+        wire.by_conn = None
+        for disco in discos:
+            disco.stop()
+        boot.stop()
+
+
 def network_phase(setup: dict, w, card: str) -> dict:
     """Phase 10: the beacon node's network at 1M validators. On phase 7's
     workload ``w`` (its state at ``stf_workload.SLOT``): the signers of a
@@ -2821,10 +3105,12 @@ def network_phase(setup: dict, w, card: str) -> dict:
     refuse the bad one alone (the split fallback), with verdicts equal to
     the ``cpp`` backend's on A. (d) A gossips ``swapped_block``: B
     refuses it at gossip (a second proposal of the slot), C, which has
-    not seen it, refuses its import; heads and stores unchanged. A second
-    fresh chain range-syncs under ``torch.profiler`` (the card's idle
-    share). Kernel launch counts are 0 once the chains are set up; every
-    state-root and BLS kernel must launch on the path."""
+    not seen it, refuses its import; heads and stores unchanged. (e)
+    ``discovery_step``: D, found through a bootnode by discv5, range-syncs
+    past F's stall. A second fresh chain range-syncs under
+    ``torch.profiler`` (the card's idle share). Kernel launch counts are 0
+    once the chains are set up; every state-root and BLS kernel must
+    launch on the path, every BLS kernel and ``hash64`` in (e)."""
     import os
     import tempfile
 
@@ -2844,6 +3130,7 @@ def network_phase(setup: dict, w, card: str) -> dict:
     from lighthouse_tpu_torch.network import (
         NetworkConfig, NetworkService, Topic,
     )
+    from lighthouse_tpu_torch.network.faults import FaultyTransport
     from lighthouse_tpu_torch.network.sync import encode_block
     from lighthouse_tpu_torch.obs import critpath
     from lighthouse_tpu_torch.profile_state_root import profiled
@@ -2935,13 +3222,21 @@ def network_phase(setup: dict, w, card: str) -> dict:
               f"chain {name}: not anchored")
         return chain
 
-    def service(chain):
+    def service(chain, injector=None, label=None, identity=None):
         """The node's network: a two-worker processor, attestation
         signatures deferred to its batches, the security protocol
-        named."""
+        named; with an ``injector``, on a ``FaultyTransport`` registered
+        with it under ``label``."""
+        factory = None
+        if injector is not None:
+            def factory(host, port):
+                return FaultyTransport(host, port, identity=identity,
+                                       security=security, injector=injector,
+                                       label=label)
         svc = NetworkService(chain, NetworkConfig(
             security=security, batch_gossip_verification=True),
-            processor=BeaconProcessor(num_workers=2))
+            processor=BeaconProcessor(num_workers=2),
+            transport_factory=factory)
         check(svc.transport.security == security,
               f"the transport chose {svc.transport.security}")
         return svc
@@ -3289,6 +3584,28 @@ def network_phase(setup: dict, w, card: str) -> dict:
                   f"{imports_c[0][1]}; heads and stores unchanged; launches "
                   f"{ {n: c for n, c in ld.items() if c} } [{card}]",
                   flush=True)
+
+            # (e) joining by discovery: F (holding both blocks) and D, fresh
+            # at the anchor, on a fault-injecting transport; D finds A and F
+            # through a bootnode and range-syncs past F's stall
+            def node(name, injector, label, identity):
+                chain = anchored(tmp, name)
+                svc = service(chain, injector, label, identity)
+                services.append(svc)
+                svc.start()
+                return chain, svc
+
+            t0 = time.perf_counter()
+            report["e"] = discovery_step(chain_a, na, node, wire, card)
+            le = step_launches("e")
+            report["e"]["ms"] = (time.perf_counter() - t0) * 1e3
+            report["e"]["launches"] = {n: c for n, c in le.items() if c}
+            for name in ["hash64"] + [k.name for k in kernels.BLS_KERNELS]:
+                check(le[name] > 0, f"kernel {name} was not launched in "
+                                    f"step (e)")
+            print(f"network launches (e) (2 anchorings, F's and D's range "
+                  f"syncs): {report['e']['launches']}; the step "
+                  f"{report['e']['ms']:.1f} ms [{card}]", flush=True)
             launches = {n: sum(c[n] for c in steps.values()) for n in names}
             graftwatch.on_slot(10)
 
@@ -3327,7 +3644,7 @@ def network_phase(setup: dict, w, card: str) -> dict:
     print(f"network wire: bytes sent on the sockets "
           f"{sum(wire.by_label.values())} in all, by step {wire.by_label} "
           f"[{card}]", flush=True)
-    print(f"network launches on the path (3 anchorings, (a)-(d)): "
+    print(f"network launches on the path (5 anchorings, (a)-(e)): "
           f"{launches} [{card}]", flush=True)
     report.update(profile=prof, wire_bytes=wire.by_label, launches=launches,
                   launches_by_step={k: {n: c for n, c in v.items() if c}

@@ -111,7 +111,19 @@ need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
         "lighthouse_tpu_torch.network.sync.backfill",
         "lighthouse_tpu_torch.network.sync.lookups",
         "lighthouse_tpu_torch.network.sync.range_sync",
-        "lighthouse_tpu_torch.network.sync.manager"}
+        "lighthouse_tpu_torch.network.sync.manager",
+        "lighthouse_tpu_torch.network.keccak", "lighthouse_tpu_torch.network.rlp",
+        "lighthouse_tpu_torch.network.enr",
+        "lighthouse_tpu_torch.network.discv5_wire",
+        "lighthouse_tpu_torch.network.discv5",
+        "lighthouse_tpu_torch.network.persisted_dht",
+        "lighthouse_tpu_torch.network.discovery",
+        "lighthouse_tpu_torch.network.nat", "lighthouse_tpu_torch.network.faults",
+        "lighthouse_tpu_torch.specs.networks",
+        "lighthouse_tpu_torch.utils.monitoring",
+        "lighthouse_tpu_torch.crypto.key_derivation",
+        "lighthouse_tpu_torch.crypto.keystore",
+        "lighthouse_tpu_torch.crypto.wallet"}
 print(len(names), sorted(need - set(names)), bad)
 """
 

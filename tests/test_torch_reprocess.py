@@ -3,8 +3,7 @@
 An attestation for an unknown block is parked and SUCCEEDS after its block imports.  Also covers early-block
 parking to the slot boundary, future-slot attestation parking, by-root
 expiry, and bucket bounds.  The same cases as the JAX package's
-tests/test_reprocess.py on the port, but for the network service's
-parking case: the port has no network service yet.
+tests/test_reprocess.py on the port.
 """
 from __future__ import annotations
 
@@ -173,3 +172,27 @@ def test_early_block_parked_until_slot_then_imports():
     assert chain.head().head_block_root == imported[0]
     proc.stop()
 
+
+def test_network_service_parks_unknown_root_attestation():
+    """The service's gossip path parks and the chain import replays —
+    full wiring, no manual park calls."""
+    from lighthouse_tpu_torch.network import NetworkService
+    from lighthouse_tpu_torch.ssz import htr, serialize
+    h = BeaconChainHarness(minimal_spec(), 64)
+    proc = BeaconProcessor(num_workers=2)
+    svc = NetworkService(h.chain, processor=proc)
+    h.extend_chain(2, attest=False)
+    chain = h.chain
+    h.advance_slot()
+    signed, post = h.produce_signed_block()
+    root = htr(signed.message)
+    atts = h.sh.produce_attestations(post, chain.slot(), root)
+    single = _single(atts[0])
+    raw = serialize(type(single).ssz_type, single)
+    action, ctx = svc._validate_gossip("beacon_attestation_0", raw)
+    assert action == "ignore" and proc.reprocess.parked == 1
+    chain.process_block(signed)
+    assert proc.wait_idle(10)
+    # replay applied the vote
+    assert proc.reprocess.parked == 0
+    proc.stop()

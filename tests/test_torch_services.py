@@ -1,11 +1,15 @@
-"""Engine-API tests: JWT tokens, the JSON-RPC client against the mock engine.
+"""Engine-API tests: JWT tokens, the JSON-RPC client against the mock
+engine; EIP-2335 keystores and EIP-2333 key derivation.
 
-The engine-API cases of the JAX package's tests/test_services.py, run on
-the port (imports switched to lighthouse_tpu_torch).
+The engine-API and key-store cases of the JAX package's
+tests/test_services.py, run on the port (imports switched to
+lighthouse_tpu_torch).
 """
 import pytest
 
 from lighthouse_tpu_torch.crypto import bls
+from lighthouse_tpu_torch.crypto.key_derivation import derive_path
+from lighthouse_tpu_torch.crypto.keystore import create_keystore, decrypt_keystore
 from lighthouse_tpu_torch.device import set_device
 from lighthouse_tpu_torch.execution_layer import (
     EngineApiClient, EngineState, Engines, ExecutionLayer, JwtAuth,
@@ -61,3 +65,22 @@ def test_engine_api_against_mock_server():
             bad.exchange_capabilities()
     finally:
         srv.stop()
+
+
+def test_keystore_roundtrip():
+    bls.set_backend("fake")
+    sk = 123456789
+    ks = create_keystore(sk, b"hunter2")
+    assert ks["version"] == 4
+    assert decrypt_keystore(ks, b"hunter2") == sk
+    with pytest.raises(ValueError):
+        decrypt_keystore(ks, b"wrong")
+
+
+def test_eip2333_determinism():
+    seed = bytes(range(32))
+    sk1 = derive_path(seed, "m/12381/3600/0/0/0")
+    sk2 = derive_path(seed, "m/12381/3600/0/0/0")
+    sk3 = derive_path(seed, "m/12381/3600/1/0/0")
+    assert sk1 == sk2 != sk3
+    assert 0 < sk1 < 2**255
