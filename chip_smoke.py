@@ -198,7 +198,7 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    (``beacon_blocks_by_range`` over yamux and snappy, the replay engine,
    one signature batch for the epoch on the card): C's head, post-state
    root and stored blocks' SSZ A's, the second block by root byte-equal.
-   (c) A gossips ``GOSSIP_SINGLES`` single-bit attestations of the block's
+   (c) A gossips ``NETWORK_SINGLES`` single-bit attestations of the block's
    slot on their subnets and one with its neighbour's signature; B and C
    verify them in processor batches on ``gpu``, apply every valid vote
    and refuse the bad one alone (the split fallback), verdicts equal to
@@ -213,17 +213,38 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    stall_secs=STALL_SECS)``), D penalises F and takes the batch from A:
    D's head and state root A's, every ENR advertising its service's TCP
    port, D's routing table through ``persist_dht`` / ``load_dht`` on its
-   store. Timed: the dials (the handshake),
+   store. (f) C, F and D stop; B imports the second block; a validator
+   client over the Beacon API (``validator_step``): ``BeaconApiServer(
+   ApiBackend(A's chain))`` on 127.0.0.1, its ``publish_fn`` A's
+   ``publish_block``; the client, spawned in a process of its own on the
+   ``cpp`` backend with the interop keys of slot SLOT+2's proposer and two
+   members of each of its 64 committees (written and warmed with the
+   second block's signers), runs ``on_slot(SLOT+2)`` over HTTP: its 129
+   indices and its duties (equal to the backend's direct calls), the
+   block A produces, signed in the client and posted (A's and then B's
+   head, the HTTP state root A's and the block's, the SSE ``head``
+   event), 128 attestations (each 200, their committees' data in A's op
+   pool, the verdicts of their sets on ``cpp`` A's on ``gpu``; one with
+   its neighbour's signature 400), the aggregations its selection proofs
+   pick (each accepted); its store refuses a second block for the slot;
+   then the reads and the serving fleet (``FLEET_THREADS`` x
+   ``FLEET_REQUESTS``). Timed: the dials (the handshake),
    (a) from publish to B's head with its critical path by stage, (b) from
    dial to C's head split into status, download, decode and the replay
    engine's stages, (c) from the first publish to the last verdict with
    the batch sizes drained, (e) from D's bootstrap to its dials and from
    its first dial to A's head split into the stall, the download, decode
    and the replay's stages, the bytes sent on the sockets by step (D's
-   own, TCP and discv5, in (e)), and a range sync of a fresh chain under
-   ``torch.profiler`` (the card's idle share). Every state-root and BLS
-   kernel must launch on the path, every BLS kernel and ``hash64`` in
-   (e) alone.
+   own, TCP and discv5, in (e)), D's range sync under ``torch.profiler``
+   (the card's idle share), and (f)'s calls (the index lookups, each
+   duties call, production with its ``block_production`` span, the
+   client's signing, publish to A's and B's heads with the critical path,
+   the attestation round trips and A's verify a POST, the aggregations,
+   the state-root GET, the fleet's requests/s, hit ratio and
+   ``api_request`` p95, the card's idle share over the client's slot).
+   Every state-root and BLS kernel must launch on the path, every BLS
+   kernel and ``hash64`` in (e) alone, every one but ``cap_fold`` in (f)
+   alone (``launches_validator_path``): (f) builds no tree.
 11. Observability, read from what phases 1-10 left (the catalog and the
    ``obs`` layer are loaded at import, as a node loads them, and the
    graftwatch sampler ticks once a phase): every kernel that launched (15
@@ -2874,6 +2895,7 @@ def discovery_step(chain_a, na, node, wire, card: str) -> dict:
     the dial to D's head split into the stall, the download, the decode
     and the replay's stages), the bytes on D's sockets and the penalties.
     """
+    from lighthouse_tpu_torch import kernels
     from lighthouse_tpu_torch.network.discovery import BootNode, Discovery
     from lighthouse_tpu_torch.network.faults import (
         FaultInjector, PeerBehavior,
@@ -2881,6 +2903,7 @@ def discovery_step(chain_a, na, node, wire, card: str) -> dict:
     from lighthouse_tpu_torch.network.persisted_dht import (
         load_dht, persist_dht,
     )
+    from lighthouse_tpu_torch.profile_state_root import profiled
 
     target = chain_a.head().head_block_root
     target_state = chain_a.head().head_state.hash_tree_root()
@@ -2962,7 +2985,14 @@ def discovery_step(chain_a, na, node, wire, card: str) -> dict:
         wire.label = "e"
         wire.by_conn = {}
         rounds = []
-        with nd.sync._drive_lock:
+        # D's sync manager held while it discovers and dials; released
+        # inside the profiler's window, which spans D's range sync (the
+        # profiler's one-time start-up taken first, outside it)
+        profiled(lambda: None)
+        lock = nd.sync._drive_lock
+        lock.acquire()
+        held = True
+        try:
             t_lookup = time.perf_counter()
             dd = Discovery(nd, bootnode_enrs=[boot.enr])
             discos.append(dd)
@@ -2987,12 +3017,28 @@ def discovery_step(chain_a, na, node, wire, card: str) -> dict:
             _until(lambda: connected(nd, a_id) and connected(nd, f_id),
                    "D's status exchanges with A and F")
             t_status = time.perf_counter()
-        t_first = min(d[1] for d in dials if d[3])
-        _until(lambda: chain_d.head().head_block_root == target,
-               "D's head by range sync past F's stall")
-        t_head = time.perf_counter()
-        _until(lambda: ctx.imported_total == 2,
-               "D's count of imported blocks")
+            t_first = min(d[1] for d in dials if d[3])
+            synced = {}
+
+            def sync_d():
+                nonlocal held
+                synced["release"] = time.perf_counter()
+                lock.release()
+                held = False
+                _until(lambda: chain_d.head().head_block_root == target,
+                       "D's head by range sync past F's stall")
+                synced["head"] = time.perf_counter()
+                _until(lambda: ctx.imported_total == 2,
+                       "D's count of imported blocks")
+
+            before = sum(k.launches for k in kernels.KERNELS.values())
+            prof = profiled(sync_d)
+            sync_launches = sum(k.launches for k in
+                                kernels.KERNELS.values()) - before
+        finally:
+            if held:
+                lock.release()
+        t_head = synced["head"]
         engine = chain_d.replay_engine().snapshot()
 
         want = {da.enr.node_id, df.enr.node_id}
@@ -3043,6 +3089,7 @@ def discovery_step(chain_a, na, node, wire, card: str) -> dict:
                  "decode": sum(decode_s) * 1e3,
                  **{k: busy[k] * 1e3 for k in busy}}
         rep.update(
+            status_to_release_ms=(synced["release"] - t_status) * 1e3,
             found=len(set(found)), rounds=rounds, bootstrap_ms=bootstrap_ms,
             lookup_to_dialed_ms=(t_dialed - t_lookup) * 1e3,
             dial_to_head_ms=(t_head - t_first) * 1e3, split=split,
@@ -3052,6 +3099,7 @@ def discovery_step(chain_a, na, node, wire, card: str) -> dict:
             score_of_f=nd.peers.score(f_id),
             stalls_served=injector.behaviors_served.get("stall", 0),
             dht_persisted=persisted, dht_loaded=len(loaded), replay=engine,
+            profile=prof, sync_launches=sync_launches,
             d_bytes={"tcp_sent": sent - sent_udp, "tcp_received":
                      recv - recv_udp, "udp_sent": sent_udp,
                      "udp_received": recv_udp})
@@ -3072,6 +3120,18 @@ def discovery_step(chain_a, na, node, wire, card: str) -> dict:
               f"after its first dial; split (ms): "
               + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
               + f" [{card}]", flush=True)
+        idle = (f"device busy {prof['device_busy_ms']:.2f} ms "
+                f"({prof['device_events']} device events), the card idle "
+                f"{100 * (1 - prof['device_busy_share']):.1f} % of it"
+                if prof["device_events"] >= sync_launches else
+                f"device busy not measured (the profile holds "
+                f"{prof['device_events']} device events, fewer than the "
+                f"sync's {sync_launches} kernel launches)")
+        print(f"network range sync (e) under the profiler (D's, from the "
+              f"release of its sync manager, "
+              f"{rep['status_to_release_ms']:.1f} ms after both statuses, "
+              f"to its imports): {prof['wall_ms']:.1f} ms wall, {idle} "
+              f"[{card}]", flush=True)
         print(f"network dht (e): D persisted {persisted} ENRs into its "
               f"store and loaded {len(loaded)} back, A's and F's among them; "
               f"bytes on D's sockets: TCP {rep['d_bytes']['tcp_sent']} sent, "
@@ -3085,21 +3145,622 @@ def discovery_step(chain_a, na, node, wire, card: str) -> dict:
         boot.stop()
 
 
+#: the single-bit attestations node A gossips in phase 10's step (c), and
+#: one more carrying its neighbour's signature (the post-merge workload's
+#: ``GOSSIP_SINGLES`` until step (f) came: cut so that the smoke keeps
+#: inside its time limit)
+NETWORK_SINGLES = 512
+#: the validator client's attesters in each committee of its slot (step
+#: (f)): two members of each of the slot's 64 committees at 1M validators
+VC_ATTESTERS_PER_COMMITTEE = 2
+#: step (f)'s serving fleet: threads, and requests a thread (half proposer
+#: duties, half attestation_data: ``bench.py`` ``bench_serving``'s mix)
+FLEET_THREADS, FLEET_REQUESTS = 8, 250
+
+
+def validator_client_process(url: str, rows: list, gvr: bytes, slot: int,
+                             conn) -> None:
+    """The validator client of phase 10's step (f), in a process of its
+    own (spawned: it re-imports this module, so the script keeps its work
+    under ``if __name__ == "__main__"``): ``_validator_client_slot``'s
+    report, or the traceback of its failure, sent on ``conn``."""
+    try:
+        conn.send(_validator_client_slot(url, rows, gvr, slot))
+    except Exception:
+        import traceback
+        conn.send({"error": traceback.format_exc()})
+    finally:
+        conn.close()
+
+
+def _validator_client_slot(url: str, rows: list, gvr: bytes,
+                           slot: int) -> dict:
+    """A validator client with the interop keys of ``rows`` (the proposer
+    of ``slot`` first) on the ``cpp`` backend, its slashing protection in
+    sqlite under a temp dir, talking to the beacon node at ``url`` only
+    through ``BeaconNodeFallback([BeaconNodeHttpClient(url, spec)])``; one
+    ``ValidatorClient.on_slot(slot)``. Then a second block for the slot
+    (the first with another graffiti) must be refused by its store, never
+    sent. The report: each HTTP call (method, path, start, end, status;
+    ``time.perf_counter``, the host's monotonic clock, so the caller can
+    compare), each signature's seconds, the signed block's SSZ, the
+    posted attestations' SSZ, the duties and indices the client holds,
+    its counters."""
+    import os
+    import tempfile
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import keygen_interop
+    from lighthouse_tpu_torch.specs.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.ssz import deserialize, serialize
+    from lighthouse_tpu_torch.validator_client import (
+        BeaconNodeFallback, BeaconNodeHttpClient, SlashingDatabase,
+        SlashingError, ValidatorClient, ValidatorStore,
+    )
+    from lighthouse_tpu_torch.validator_client.http_client import (
+        HttpApiError,
+    )
+
+    bls.set_backend("cpp")
+    spec = mainnet_spec()
+    calls, signs, posted = [], [], []
+    client = BeaconNodeHttpClient(url, spec, timeout=NETWORK_DEADLINE)
+    request, publish_attestation = client._req, client.publish_attestation
+
+    def recorded_request(method, path, *args, **kwargs):
+        t0, status = time.perf_counter(), 200
+        try:
+            return request(method, path, *args, **kwargs)
+        except HttpApiError as e:
+            status = e.status
+            raise
+        except Exception:
+            status = -1
+            raise
+        finally:
+            calls.append((method, path.split("?")[0], t0,
+                          time.perf_counter(), status))
+
+    def recorded_attestation(att):
+        posted.append(serialize(type(att).ssz_type, att))
+        return publish_attestation(att)
+
+    client._req = recorded_request
+    client.publish_attestation = recorded_attestation
+    sign = bls.sign
+
+    def timed_sign(sk, message):
+        t0 = time.perf_counter()
+        try:
+            return sign(sk, message)
+        finally:
+            signs.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ValidatorStore(spec, gvr, SlashingDatabase(
+            os.path.join(tmp, "slashing_protection.sqlite")))
+        t0 = time.perf_counter()
+        pubkeys = [store.add_validator(keygen_interop(int(r))) for r in rows]
+        keys_s = time.perf_counter() - t0
+        signed = []
+        sign_block = store.sign_block
+
+        def recorded_sign_block(pk, block):
+            sig = sign_block(pk, block)
+            signed.append((pk, block, sig))
+            return sig
+
+        store.sign_block = recorded_sign_block
+        vc = ValidatorClient(spec, store, BeaconNodeFallback([client]))
+        bls.sign = timed_sign
+        try:
+            t_start = time.perf_counter()
+            vc.on_slot(slot)
+            t_end = time.perf_counter()
+        finally:
+            bls.sign = sign
+        refused = block_ssz = None
+        if signed:
+            pk, block, sig = signed[0]
+            ssz = type(block).ssz_type
+            block_ssz = serialize(ssz, block), sig
+            other = deserialize(ssz, block_ssz[0])
+            other.body.graffiti = bytes(b ^ 0xFF for b in other.body.graffiti)
+            try:
+                store.sign_block(pk, other)
+            except SlashingError as e:
+                refused = str(e) or "SlashingError"
+        spe = spec.preset.slots_per_epoch
+        epochs = (slot // spe, slot // spe + 1)
+        return {
+            "start": t_start, "end": t_end,
+            "keys_s": keys_s, "pubkeys": [pk.hex() for pk in pubkeys],
+            "indices": {pk.hex(): i for pk, i in vc._indices.items()},
+            "attester_duties": {e: vc._duties.get(e) for e in epochs},
+            "proposer_duties": {e: vc._proposers.get(e) for e in epochs},
+            "calls": calls, "signs": signs, "posted": posted,
+            "block": block_ssz, "blocks_signed": len(signed),
+            "second_block_refused": refused,
+            "published": {"blocks": vc.published_blocks,
+                          "attestations": vc.published_attestations,
+                          "aggregates": vc.published_aggregates,
+                          "sync_messages": vc.published_sync_messages}}
+
+
+def _pcts(xs: list) -> tuple[float, float]:
+    """(p50, p95) of ``xs`` (nearest rank)."""
+    s = sorted(xs)
+    return (s[(len(s) - 1) // 2],
+            s[min(len(s) - 1, int(np.ceil(0.95 * len(s))) - 1)])
+
+
+def validator_step(chain_a, na, chain_b, vc_rows: list, bad: tuple,
+                   slot: int, card: str) -> dict:
+    """Phase 10's step (f): a validator client over the Beacon API. On A's
+    warm chain (its head the second block, B connected at the same head),
+    both clocks at ``slot``: ``BeaconApiServer(ApiBackend(chain_a))`` on
+    127.0.0.1 with its serving tier, the backend's ``publish_fn`` A's
+    ``publish_block`` (as the simulator wires it); the attester and
+    proposer duties of the slot's epoch e and of e + 1 by the backend's
+    direct calls first (e + 1 advances a copy of the 1M state to the next
+    epoch on every call); an SSE ``head`` stream opened; then the
+    validator client in a process of its own
+    (``validator_client_process``, ``vc_rows``' interop keys: ``slot``'s
+    proposer and its attesters) runs ``on_slot(slot)`` once: indices,
+    duties, the proposal (produced by A, signed in the client, posted,
+    gossiped to B), the attestations, the aggregations; A's process under
+    ``torch.profiler`` meanwhile (the card's idle share). Then, on the
+    same server, the attestation of ``bad`` (a member of committee 0 the
+    client does not hold, with its neighbour's signature) gets 400, the
+    reads (state root, validators, finality, headers, the block in SSZ)
+    and the serving fleet. Returns the step's times, counts and profile."""
+    import http.client
+    import multiprocessing
+    import threading
+
+    from lighthouse_tpu_torch import stf_workload as sw
+    from lighthouse_tpu_torch.api import ApiBackend, BeaconApiServer
+    from lighthouse_tpu_torch.chain.errors import BAD_SIGNATURE
+    from lighthouse_tpu_torch.crypto.bls import SignatureSet
+    from lighthouse_tpu_torch.crypto.bls.cpp_backend import CppBackend
+    from lighthouse_tpu_torch.obs import critpath
+    from lighthouse_tpu_torch.profile_state_root import profiled
+    from lighthouse_tpu_torch.specs.chain_spec import compute_signing_root
+    from lighthouse_tpu_torch.specs.constants import DOMAIN_BEACON_ATTESTER
+    from lighthouse_tpu_torch.ssz import deserialize, htr, serialize
+    from lighthouse_tpu_torch.state_transition.helpers import get_domain
+
+    T = chain_a.T
+    spe = chain_a.spec.preset.slots_per_epoch
+    epoch = slot // spe
+    rep: dict = {"slot": slot, "keys": len(vc_rows)}
+    for chain in (chain_a, chain_b):
+        chain.slot_clock.set_slot(slot)
+    backend = ApiBackend(chain_a)
+    backend.publish_fn = na.publish_block
+    srv = BeaconApiServer(backend)
+    srv.start()
+    url = f"http://127.0.0.1:{srv.port}"
+    head0 = chain_a.head()
+    listeners = []
+    try:
+        # the duties by the backend's direct calls, at the head the client
+        # asks at
+        direct, direct_ms = {}, {}
+        for e in (epoch, epoch + 1):
+            t0 = time.perf_counter()
+            direct[("attester", e)] = backend.get_attester_duties(
+                e, list(vc_rows))
+            t1 = time.perf_counter()
+            direct[("proposer", e)] = backend.get_proposer_duties(e)
+            t2 = time.perf_counter()
+            direct_ms[f"attester {e - epoch:+d}"] = (t1 - t0) * 1e3
+            direct_ms[f"proposer {e - epoch:+d}"] = (t2 - t1) * 1e3
+        check(direct[("proposer", epoch)][slot % spe] == (slot, vc_rows[0]),
+              "the client's first key does not propose at its slot")
+
+        # the head's arrival on A and B, and A's SSE stream
+        heads = {"a": [], "b": []}
+        for key, chain in (("a", chain_a), ("b", chain_b)):
+            def on_head(kind, payload, key=key):
+                heads[key].append((time.perf_counter(), payload.get("block")))
+            chain.events.add_listener(("head",), on_head)
+            listeners.append((chain, on_head))
+        sse_events, sse_streams = [], []
+        old_head = head0.head_block_root.hex()
+
+        def sse_reader():
+            # the server ends a stream after 30 s without an event; the
+            # reader opens the next at once (``Connection: close``: the
+            # server closes the socket when it ends the stream), as an
+            # EventSource client does, until the head moves
+            while time.perf_counter() - t_sse < NETWORK_DEADLINE:
+                conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                                  timeout=NETWORK_DEADLINE)
+                try:
+                    conn.request("GET", "/eth/v1/events?topics=head",
+                                 headers={"Connection": "close"})
+                    r = conn.getresponse()
+                    sse_streams.append(time.perf_counter())
+                    while True:
+                        line = r.fp.readline()
+                        if not line:
+                            break
+                        if line.startswith(b"data: "):
+                            event = json.loads(line[6:])
+                            sse_events.append((time.perf_counter(), event))
+                            if event.get("block") != old_head:
+                                return
+                except OSError:
+                    return
+                finally:
+                    conn.close()
+
+        before_subs = len(chain_a.events._subs)
+        t_sse = time.perf_counter()
+        sse = threading.Thread(target=sse_reader, daemon=True)
+        sse.start()
+        _until(lambda: len(chain_a.events._subs) > before_subs,
+               "the SSE stream's subscription")
+
+        # A's side of each attestation POST: its gossip verification
+        verify_ms = []
+        verify = chain_a.verify_unaggregated_attestation_for_gossip
+
+        def timed_verify(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return verify(*args, **kwargs)
+            finally:
+                verify_ms.append((time.perf_counter() - t0) * 1e3)
+
+        chain_a.verify_unaggregated_attestation_for_gossip = timed_verify
+        spans_before = {s.span_id for s in tracing.snapshot()}
+
+        # the validator client, a process of its own
+        ctx = multiprocessing.get_context("spawn")
+        parent, child = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=validator_client_process, args=(
+            url, [int(r) for r in vc_rows],
+            bytes(chain_a.genesis_validators_root), slot, child),
+            daemon=True)
+        got = {}
+
+        def run_vc():
+            proc.start()
+            child.close()
+            check(parent.poll(NETWORK_DEADLINE), "the validator client sent "
+                                                 "no report")
+            got.update(parent.recv())
+
+        try:
+            prof = profiled(run_vc)
+        finally:
+            proc.join(timeout=NETWORK_DEADLINE)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        chain_a.verify_unaggregated_attestation_for_gossip = verify
+        check("error" not in got, f"the validator client failed:\n"
+                                  f"{got.get('error')}")
+        calls = got["calls"]
+        by = {}
+        for method, path, t0, t1, status in calls:
+            by.setdefault((method, path), []).append((t0, t1, status))
+
+        # the proposal: produced by A, signed in the client, A's head, then
+        # B's by gossip
+        check(got["blocks_signed"] == 1 and got["block"] is not None,
+              f"the client signed {got['blocks_signed']} blocks")
+        block_ssz, sig = got["block"]
+        fork = chain_a.spec.fork_name_at_slot(slot)
+        block = deserialize(T.BeaconBlock[fork].ssz_type, block_ssz)
+        root = htr(block)
+        check(int(block.slot) == slot and int(block.proposer_index)
+              == vc_rows[0], "the client's block is not its slot's proposal")
+        posts = by.get(("POST", "/eth/v1/beacon/blocks"), [])
+        check(len(posts) == 1 and posts[0][2] == 200,
+              f"the block's POSTs: {posts}")
+        check(chain_a.head().head_block_root == root,
+              "A's head is not the client's block")
+        _until(lambda: chain_b.head().head_block_root == root,
+               "B's head on the client's block by gossip")
+        post_root = chain_a.head().head_state.hash_tree_root()
+        check(chain_b.head().head_state.hash_tree_root() == post_root
+              == bytes(block.state_root),
+              "B's head state root is not A's and the block's")
+        stored = chain_a.store.get_block(root)
+        check(stored is not None and bytes(stored.signature) == sig,
+              "A does not store the client's signed block")
+        t_post = posts[0][0]
+        t_a = min(t for t, r in heads["a"] if r == root)
+        t_b = min(t for t, r in heads["b"] if r == root)
+        sse.join(timeout=NETWORK_DEADLINE)
+        check(sse_events and sse_events[-1][1].get("block") == root.hex(),
+              f"the SSE stream's head events: {sse_events}")
+        new_spans = [s for s in tracing.snapshot()
+                     if s.span_id not in spans_before]
+        production = [s.duration * 1e3 for s in new_spans
+                      if s.kind == "block_production"]
+        imports = [s.duration * 1e3 for s in sorted(
+            new_spans, key=lambda s: s.start) if s.kind == "block_import"]
+        gossip_checks = [s.duration * 1e3 for s in sorted(
+            new_spans, key=lambda s: s.start) if s.kind == "gossip_verify"]
+        comp = critpath.worst_component(new_spans)
+        check(comp is not None, "no block trace after the publish")
+        stages = critpath.component_report(comp)
+
+        # the index lookups and the duties over HTTP
+        want = {p: int(r) for p, r in zip(got["pubkeys"], vc_rows)}
+        check(got["indices"] == want, "the client's indices over HTTP are "
+                                      "not its keys' rows")
+        for e in (epoch, epoch + 1):
+            check([tuple(d) for d in got["attester_duties"][e]]
+                  == direct[("attester", e)],
+                  f"the attester duties of epoch {e} over HTTP differ")
+            check([tuple(d) for d in got["proposer_duties"][e]]
+                  == direct[("proposer", e)],
+                  f"the proposer duties of epoch {e} over HTTP differ")
+
+        # the attestations: every POST 200, the op pool holding every
+        # committee's data, each set's verdict on cpp equal to A's on gpu
+        att_gets = by.get(("GET", "/eth/v1/validator/attestation_data"), [])
+        att_posts = by.get(("POST", "/eth/v1/beacon/pool/attestations"), [])
+        n_att = len(vc_rows) - 1
+        check(len(att_posts) == n_att
+              and all(st == 200 for _a, _b, st in att_posts),
+              f"attestation POSTs: {len(att_posts)}, statuses "
+              f"{sorted({st for _a, _b, st in att_posts})}")
+        atts = [deserialize(T.Attestation.ssz_type, b) for b in got["posted"]]
+        committees = {int(a.data.index) for a in atts}
+        with chain_a.op_pool._lock:
+            pooled = {(int(a.data.slot), int(a.data.index),
+                       bytes(a.data.beacon_block_root))
+                      for bucket in chain_a.op_pool._attestations.values()
+                      for a in bucket}
+        check(all((slot, ci, root) in pooled for ci in committees)
+              and len(committees) == n_att // VC_ATTESTERS_PER_COMMITTEE,
+              f"the op pool holds {len(pooled)} attestation data, not the "
+              f"{len(committees)} committees'")
+        state = chain_a.head().head_state
+        domain = get_domain(state, DOMAIN_BEACON_ATTESTER, epoch)
+        members = dict(enumerate(sw.slot_committees(state, slot)))
+
+        def signature_set(att):
+            pos = list(att.aggregation_bits).index(True)
+            row = int(members[int(att.data.index)][pos])
+            return SignatureSet(bytes(att.signature),
+                                [state.validators.pubkey(row)],
+                                compute_signing_root(htr(att.data), domain))
+
+        # the attestation of a member the client does not hold, with its
+        # neighbour's signature: 400 on the same server
+        row, ci, pos, size = bad
+        check(ci == 0 and pos == VC_ATTESTERS_PER_COMMITTEE,
+              f"the bad attester is at committee {ci}, position {pos}")
+        neighbour = next(a for a in atts if int(a.data.index) == 0)
+        bad_att = T.Attestation(
+            aggregation_bits=[i == pos for i in range(size)],
+            data=neighbour.data, signature=neighbour.signature)
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                          timeout=NETWORK_DEADLINE)
+        try:
+            conn.request("POST", "/eth/v1/beacon/pool/attestations",
+                         body=serialize(T.Attestation.ssz_type, bad_att),
+                         headers={"Content-Type":
+                                  "application/octet-stream"})
+            r = conn.getresponse()
+            bad_status, bad_body = r.status, r.read()
+        finally:
+            conn.close()
+        check(bad_status == 400 and BAD_SIGNATURE.encode() in bad_body,
+              f"the bad attestation got {bad_status}: {bad_body[:120]!r}")
+        cpp = CppBackend()
+        cpp_verdicts = [cpp.verify_signature_sets([signature_set(a)])
+                        for a in atts + [bad_att]]
+        gpu_verdicts = [st == 200 for _a, _b, st in att_posts] + [False]
+        check(cpp_verdicts == gpu_verdicts,
+              f"cpp's verdicts differ from gpu's on A: "
+              f"{sum(cpp_verdicts)} valid of {len(cpp_verdicts)}")
+
+        # the aggregations the selection proofs picked
+        agg_gets = by.get(("GET", "/eth/v1/validator/aggregate_attestation"),
+                          [])
+        agg_posts = by.get(("POST", "/eth/v1/validator/aggregate_and_proofs"),
+                           [])
+        check(len(agg_posts) == len(agg_gets)
+              == got["published"]["aggregates"]
+              and all(st == 200 for _a, _b, st in agg_posts),
+              f"aggregators {len(agg_gets)}, aggregate POSTs "
+              f"{[st for _a, _b, st in agg_posts]}")
+
+        # slashing protection: the second block refused, never sent
+        check(got["second_block_refused"] is not None and len(posts) == 1,
+              "the client's store signed a second block for its slot")
+
+        # the reads, on the same server
+        def get(path, accept=None):
+            c = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                           timeout=NETWORK_DEADLINE)
+            try:
+                t0 = time.perf_counter()
+                c.request("GET", path, headers={"Accept": accept}
+                          if accept else {})
+                r = c.getresponse()
+                body = r.read()
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                c.close()
+            check(r.status == 200, f"GET {path}: {r.status}")
+            return body, ms
+
+        body, root_get_ms = get("/eth/v1/beacon/states/head/root")
+        check(json.loads(body)["data"]["root"] == "0x" + post_root.hex(),
+              "the HTTP state root is not A's head state's")
+        ids = "&".join(f"id={r}" for r in vc_rows)
+        body, _ = get(f"/eth/v1/beacon/states/head/validators?{ids}")
+        check([v["validator"]["pubkey"][2:] for v in json.loads(body)["data"]]
+              == got["pubkeys"], "the HTTP validators are not the client's "
+                                 "keys")
+        body, _ = get("/eth/v1/beacon/states/head/finality_checkpoints")
+        fin = json.loads(body)["data"]
+        check(fin["current_justified"]["root"][2:]
+              == bytes(state.current_justified_checkpoint.root).hex(),
+              "the HTTP finality checkpoints are not A's head state's")
+        body, _ = get("/eth/v1/beacon/headers/head")
+        check(json.loads(body)["data"]["root"] == "0x" + root.hex(),
+              "the HTTP head header is not the client's block")
+        body, _ = get("/eth/v2/beacon/blocks/head", "application/octet-stream")
+        check(body == serialize(type(stored).ssz_type, stored),
+              "the SSZ head block is not A's stored block")
+
+        # the serving fleet: bench_serving's mix over HTTP
+        paths = (f"/eth/v1/validator/duties/proposer/{epoch}",
+                 f"/eth/v1/validator/attestation_data?slot={slot}"
+                 f"&committee_index=0")
+        cache = srv.serving.cache
+        hits0, misses0 = cache.hits, cache.misses
+        fleet_spans = {s.span_id for s in tracing.snapshot()}
+        failures = []
+
+        def fleet_thread():
+            c = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                           timeout=NETWORK_DEADLINE)
+            try:
+                for i in range(FLEET_REQUESTS):
+                    c.request("GET", paths[i % 2])
+                    r = c.getresponse()
+                    r.read()
+                    if r.status != 200:
+                        failures.append(r.status)
+            except OSError as e:
+                failures.append(repr(e))
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=fleet_thread)
+                   for _ in range(FLEET_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        fleet_s = time.perf_counter() - t0
+        check(not failures, f"the fleet's failures: {failures[:5]}")
+        hits, misses = cache.hits - hits0, cache.misses - misses0
+        api_ms = [s.duration * 1e3 for s in tracing.snapshot()
+                  if s.kind == "api_request"
+                  and s.span_id not in fleet_spans]
+        n_fleet = FLEET_THREADS * FLEET_REQUESTS
+    finally:
+        srv.stop()
+        for chain, fn in listeners:
+            chain.events.remove_listener(fn)
+
+    # the times
+    def spans_of(method, path):
+        return [(b - a) * 1e3 for a, b, _s in by.get((method, path), [])]
+
+    index_ms = spans_of("GET", "/eth/v1/validator/validator_index")
+    duty_ms = {}
+    for method, path in (("POST", "/eth/v1/validator/duties/attester/"),
+                         ("GET", "/eth/v1/validator/duties/proposer/")):
+        for e in (epoch, epoch + 1):
+            duty_ms[f"{path.split('/')[-2]} {e - epoch:+d}"] = spans_of(
+                method, f"{path}{e}")
+    trips = [(p[1] - g[0]) * 1e3 for g, p in zip(att_gets, att_posts)]
+    signs_ms = [s * 1e3 for s in got["signs"]]
+    produce = spans_of("GET", f"/eth/v2/validator/blocks/{slot}")
+    agg_ms = [(b - a) * 1e3 for a, b, _s in agg_gets + agg_posts]
+    busy = prof["device_busy_share"]
+    rep.update(
+        vc_wall_ms=(got["end"] - got["start"]) * 1e3,
+        vc_spawn_to_report_ms=prof["wall_ms"],
+        vc_keys_s=got["keys_s"], index_ms=index_ms, duty_ms=duty_ms,
+        direct_duty_ms=direct_ms, produce_ms=produce,
+        production_span_ms=production, sign_ms=signs_ms,
+        publish_to_a_head_ms=(t_a - t_post) * 1e3,
+        publish_to_b_head_ms=(t_b - t_post) * 1e3,
+        block_post_ms=(posts[0][1] - posts[0][0]) * 1e3,
+        block_import_span_ms=imports, gossip_verify_span_ms=gossip_checks,
+        publish_stages=stages,
+        attestation_round_trip_ms=trips, attestation_verify_ms=verify_ms,
+        aggregators=len(agg_gets), aggregation_ms=agg_ms,
+        state_root_get_ms=root_get_ms, published=got["published"],
+        second_block_refused=got["second_block_refused"],
+        fleet={"requests": n_fleet, "seconds": fleet_s,
+               "requests_per_s": n_fleet / fleet_s, "cache_hits": hits,
+               "cache_misses": misses,
+               "cache_hit_ratio": hits / max(1, hits + misses),
+               "api_request_p95_ms": _pcts(api_ms)[1] if api_ms else None},
+        profile=prof, sse_head_ms=(sse_events[-1][0] - t_post) * 1e3,
+        sse_streams=len(sse_streams))
+    trip50, trip95 = _pcts(trips)
+    ver50, ver95 = _pcts(verify_ms)
+    card_idle = (f"the card idle {100 * (1 - busy):.1f} % of the client's "
+                 f"slot ({prof['device_busy_ms']:.2f} ms busy of "
+                 f"{prof['wall_ms']:.1f}, {prof['device_events']} device "
+                 f"events)")
+    print(f"validator client (f): {len(vc_rows)} keys on cpp in a process "
+          f"of its own over HTTP; on_slot({slot}) {rep['vc_wall_ms']:.1f} ms "
+          f"(keys {got['keys_s'] * 1e3:.1f} ms); {len(index_ms)} index "
+          f"lookups {sum(index_ms):.1f} ms (the first {index_ms[0]:.1f}); "
+          f"duties over HTTP (ms) "
+          + ", ".join(f"{k} {sum(v):.1f}" for k, v in duty_ms.items())
+          + "; the backend's direct calls (ms) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in direct_ms.items())
+          + f" (+1 advances a copy of the 1M state a call) [{card}]",
+          flush=True)
+    print(f"validator proposal (f): produced by A in {produce[0]:.1f} ms "
+          f"(block_production {production[0] if production else 0:.1f}), "
+          f"{len(signs_ms)} signatures in the client {sum(signs_ms):.1f} "
+          f"ms; POSTed {rep['block_post_ms']:.1f} ms; publish to A's head "
+          f"{rep['publish_to_a_head_ms']:.1f} ms, to B's by gossip "
+          f"{rep['publish_to_b_head_ms']:.1f} ms (gossip_verify spans "
+          f"{[round(x, 1) for x in gossip_checks]}, block_import spans "
+          f"{[round(x, 1) for x in imports]}); the slowest trace "
+          f"{stages['total_ms']:.1f} ms: "
+          + ", ".join(f"{k} {v['service_ms']:.1f}"
+                      for k, v in stages["stages"].items())
+          + f"; the SSE head event {rep['sse_head_ms']:.1f} ms after the "
+          f"POST (stream {len(sse_streams)}); a second block refused by "
+          f"the store ({got['second_block_refused']!r}), never sent "
+          f"[{card}]",
+          flush=True)
+    print(f"validator attestations (f): {n_att} POSTs 200 (round trip "
+          f"p50 {trip50:.1f} / p95 {trip95:.1f} ms; A's verify a POST p50 "
+          f"{ver50:.1f} / p95 {ver95:.1f} ms), the op pool holds their "
+          f"{len(committees)} committees' data; cpp's verdicts equal A's "
+          f"gpu ones; the neighbour-signed one 400; {len(agg_gets)} "
+          f"aggregators, each aggregate accepted ({sum(agg_ms):.1f} ms); "
+          f"{card_idle} [{card}]", flush=True)
+    print(f"validator reads (f): the state root GET {root_get_ms:.1f} ms at "
+          f"1M, equal to A's head state's and the block's; validators, "
+          f"finality, the header, the SSZ block equal; fleet "
+          f"{FLEET_THREADS} x {FLEET_REQUESTS}: "
+          f"{rep['fleet']['requests_per_s']:.1f} requests/s, cache hit "
+          f"ratio {rep['fleet']['cache_hit_ratio']:.4f}, api_request p95 "
+          f"{rep['fleet']['api_request_p95_ms']:.3f} ms [{card}]", flush=True)
+    return rep
+
+
 def network_phase(setup: dict, w, card: str) -> dict:
     """Phase 10: the beacon node's network at 1M validators. On phase 7's
     workload ``w`` (its state at ``stf_workload.SLOT``): the signers of a
     second block (the committees of ``w``'s slot, the next slot's
-    proposer) get interop pubkeys, written into the state and warmed into
-    the gpu backend's cache; phase 8's chain workload on it (the anchor,
-    the block) and the second block, built and signed the same way one
-    slot later. Chains anchored as in phase 8, each with a
-    ``NetworkService`` on 127.0.0.1 (``NETWORK_SECURITY``, a two-worker
-    beacon processor, ``batch_gossip_verification``). (a) B dials A, both
+    proposer) and step (f)'s validator client (the proposer two slots on,
+    its attesters) get interop pubkeys, written into the state and warmed
+    into the gpu backend's cache; phase 8's chain workload on it (the
+    anchor, the block) and the second block, built and signed the same
+    way one slot later, the anchor written as the epoch's boundary block
+    (``stf_workload.anchor_as_boundary``). Chains anchored as in phase 8,
+    each with a ``NetworkService`` on 127.0.0.1 (``NETWORK_SECURITY``, a
+    two-worker beacon processor, ``batch_gossip_verification``). (a) B dials A, both
     at the anchor; A imports the block and gossips it, B imports it
     through its processor. (b) A imports the second block; C, fresh at
     the anchor, dials A and range-syncs both (``beacon_blocks_by_range``,
     the replay engine: one signature batch for the epoch), then fetches
-    the second by root. (c) A gossips ``GOSSIP_SINGLES`` single-bit
+    the second by root. (c) A gossips ``NETWORK_SINGLES`` single-bit
     attestations and one with its neighbour's signature; B and C verify
     them in processor batches on the card, accept every valid one and
     refuse the bad one alone (the split fallback), with verdicts equal to
@@ -3107,10 +3768,13 @@ def network_phase(setup: dict, w, card: str) -> dict:
     refuses it at gossip (a second proposal of the slot), C, which has
     not seen it, refuses its import; heads and stores unchanged. (e)
     ``discovery_step``: D, found through a bootnode by discv5, range-syncs
-    past F's stall. A second fresh chain range-syncs under
-    ``torch.profiler`` (the card's idle share). Kernel launch counts are 0
-    once the chains are set up; every state-root and BLS kernel must
-    launch on the path, every BLS kernel and ``hash64`` in (e)."""
+    past F's stall, under ``torch.profiler`` (the card's idle share). (f)
+    C, F and D stop, B imports the second block, then ``validator_step``:
+    a validator client in a process of its own proposes, attests and
+    aggregates over the Beacon API on A. Kernel launch counts are 0 once
+    the chains are set up; every state-root and BLS kernel must launch on
+    the path, every BLS kernel and ``hash64`` in (e), every one but
+    ``cap_fold`` (a tree build's) in (f)."""
     import os
     import tempfile
 
@@ -3133,7 +3797,6 @@ def network_phase(setup: dict, w, card: str) -> dict:
     from lighthouse_tpu_torch.network.faults import FaultyTransport
     from lighthouse_tpu_torch.network.sync import encode_block
     from lighthouse_tpu_torch.obs import critpath
-    from lighthouse_tpu_torch.profile_state_root import profiled
     from lighthouse_tpu_torch.specs.chain_spec import mainnet_spec
     from lighthouse_tpu_torch.ssz import htr, serialize
     from lighthouse_tpu_torch.state_transition import (
@@ -3158,13 +3821,24 @@ def network_phase(setup: dict, w, card: str) -> dict:
           flush=True)
 
     # the second block's signers: the committees of w's slot and the next
-    # slot's proposer (the gossip singles are among those members)
+    # slot's proposer (the gossip singles are among those members); step
+    # (f)'s validator client: the proposer two slots on and
+    # VC_ATTESTERS_PER_COMMITTEE members of each of that slot's
+    # committees, and one more member of committee 0 (the bad attestation)
     s1 = int(w.state.slot)
     check(s1 == sw.SLOT, f"phase 7's state is at slot {s1}, not {sw.SLOT}")
     t0 = time.perf_counter()
     members = np.concatenate(sw.slot_committees(w.state, s1))
-    wanted = np.unique(np.append(members, get_beacon_proposer_index(
-        w.state, s1 + 1)))
+    s3 = s1 + 2
+    n_vc = VC_ATTESTERS_PER_COMMITTEE * len(sw.slot_committees(w.state, s3))
+    vc_members = sw.gossip_members(w.state, s3, n_vc + 1)
+    vc_rows = [int(get_beacon_proposer_index(w.state, s3))] + [
+        m[0] for m in vc_members[:n_vc]]
+    vc_bad = vc_members[n_vc]
+    check(len(set(vc_rows)) == len(vc_rows) and vc_bad[0] not in vc_rows,
+          "step (f)'s proposer is one of its attesters")
+    wanted = np.unique(np.concatenate([members, [get_beacon_proposer_index(
+        w.state, s1 + 1), vc_bad[0]], vc_rows]))
     rows = np.setdiff1d(wanted, w.rows)
     pubkeys = sw.signer_pubkeys(rows, cpp, threads=cores)
     sw.write_signers(w.state, rows, pubkeys)
@@ -3174,9 +3848,14 @@ def network_phase(setup: dict, w, card: str) -> dict:
         b"", [bytes(pk) for pk in pubkeys], b"")], processes=cores)
     report["pubkey_warm_s"] = time.perf_counter() - t0
 
-    # the chain workload (phase 8's) and the second block one slot later
+    # the chain workload (phase 8's) and the second block one slot later,
+    # the anchor written as its epoch's boundary block (the attestation
+    # target the API serves in step (f))
     t0 = time.perf_counter()
+    boundary = sw.anchor_as_boundary(w.state)
     cw = sw.build_chain_workload(w, cpp)
+    check(htr(cw.anchor.message) == boundary,
+          "the anchor is not the epoch's boundary block")
     anchor_root, root1 = htr(cw.anchor.message), htr(cw.block.message)
     check(int(cw.block.message.slot) == s1, "the block is not at w's slot")
     post = cw.state.copy()
@@ -3471,7 +4150,7 @@ def network_phase(setup: dict, w, card: str) -> dict:
             head1 = chain_b.head().head_state
             t0 = time.perf_counter()
             singles = sw.gossip_attestations(
-                head1, root1, sw.GOSSIP_SINGLES + 1, cpp, threads=cores,
+                head1, root1, NETWORK_SINGLES + 1, cpp, threads=cores,
                 target_root=anchor_root)
             sign_s = time.perf_counter() - t0
             bad, nxt = singles[-1][0], singles[-2][0]
@@ -3606,25 +4285,38 @@ def network_phase(setup: dict, w, card: str) -> dict:
             print(f"network launches (e) (2 anchorings, F's and D's range "
                   f"syncs): {report['e']['launches']}; the step "
                   f"{report['e']['ms']:.1f} ms [{card}]", flush=True)
-            launches = {n: sum(c[n] for c in steps.values()) for n in names}
             graftwatch.on_slot(10)
 
-            # the card's idle share of a range sync: a fresh chain, profiled
-            wire.label = "profiled"
-            chain_e = anchored(tmp, "e")
-            ne = service(chain_e)
-            services.append(ne)
-            ne.start()
-
-            def sync_e():
-                dial(ne, na, "E to A")
-                _until(lambda: chain_e.head().head_block_root == root2,
-                       "E's head by range sync")
-
-            before = sum(k.launches for k in kernels.KERNELS.values())
-            prof = profiled(sync_e)
-            call_launches = sum(k.launches
-                                for k in kernels.KERNELS.values()) - before
+            # (f) a validator client over the Beacon API, on A's warm
+            # chain: C, F and D stop; B takes the second block (A never
+            # gossiped it), so both stand at A's head
+            for svc in services[2:]:
+                svc.stop()
+            del services[2:]
+            wire.label = "f"
+            check(chain_b.process_block(block2) == root2
+                  and chain_b.head().head_block_root == root2,
+                  "B did not import the second block")
+            step_launches("f, B to the second block")
+            t0 = time.perf_counter()
+            report["f"] = validator_step(chain_a, na, chain_b, vc_rows,
+                                         vc_bad, s3, card)
+            lf = step_launches("f")
+            report["f"]["ms"] = (time.perf_counter() - t0) * 1e3
+            report["f"]["launches"] = {n: c for n, c in lf.items() if c}
+            # no tree is built in (f): every state it roots is a copy of
+            # one that holds its trees, and an update folds the root's caps
+            # inside its walk, so cap_fold (a build's) launches on the
+            # phase's path (the anchorings), not here
+            for name in [k.name for k in kernels.STATE_ROOT_KERNELS
+                         if k.name != "cap_fold"] + [
+                             k.name for k in kernels.BLS_KERNELS]:
+                check(lf[name] > 0, f"kernel {name} was not launched in "
+                                    f"step (f)")
+            print(f"network launches (f) (the client's slot, the reads, the "
+                  f"fleet): {lf}; the step {report['f']['ms']:.1f} ms "
+                  f"[{card}]", flush=True)
+            launches = {n: sum(c[n] for c in steps.values()) for n in names}
         finally:
             for svc in services:
                 svc.stop()
@@ -3632,21 +4324,14 @@ def network_phase(setup: dict, w, card: str) -> dict:
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the network "
                          f"path")
-    idle = (f"device busy {prof['device_busy_ms']:.2f} ms "
-            f"({prof['device_events']} device events), the card idle "
-            f"{100 * (1 - prof['device_busy_share']):.1f} % of the sync"
-            if prof["device_events"] >= call_launches else
-            f"device busy not measured (the profile holds "
-            f"{prof['device_events']} device events, fewer than the "
-            f"sync's {call_launches} kernel launches)")
-    print(f"network range sync under the profiler (a fresh chain dialing "
-          f"A): {prof['wall_ms']:.1f} ms wall, {idle} [{card}]", flush=True)
+    prof = report["e"]["profile"]
     print(f"network wire: bytes sent on the sockets "
           f"{sum(wire.by_label.values())} in all, by step {wire.by_label} "
           f"[{card}]", flush=True)
-    print(f"network launches on the path (5 anchorings, (a)-(e)): "
+    print(f"network launches on the path (5 anchorings, (a)-(f)): "
           f"{launches} [{card}]", flush=True)
     report.update(profile=prof, wire_bytes=wire.by_label, launches=launches,
+                  launches_validator_path=lf,
                   launches_by_step={k: {n: c for n, c in v.items() if c}
                                     for k, v in steps.items()})
     report["seconds"] = time.perf_counter() - t_phase
@@ -3963,6 +4648,9 @@ def main(argv=None) -> int:
     for row in rows:
         if row["name"] in network["launches"]:
             row["launches_network_path"] = network["launches"][row["name"]]
+        if row["name"] in network["launches_validator_path"]:
+            row["launches_validator_path"] = network[
+                "launches_validator_path"][row["name"]]
 
     # phase 11: what the observability layer kept of phases 1-10
     obs = obs_phase(card_line, stf)

@@ -6,3 +6,5 @@ of the JAX package's jax-free modules bound to the port's own ops/.
 Importing the package touches no CUDA: the device is chosen at call time
 (device.py) and the kernels build at their first launch.
 """
+
+__version__ = "0.1.0"

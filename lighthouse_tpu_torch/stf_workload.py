@@ -488,6 +488,27 @@ def justify_anchor(state, anchor_root: bytes) -> None:
         epoch=state.current_epoch(), root=anchor_root)
 
 
+def anchor_as_boundary(state) -> bytes:
+    """Write the root of ``anchor_block(state)`` (the anchor
+    ``build_chain_workload`` builds on a copy of ``state``) into
+    ``state``'s ``block_roots`` at its epoch's start slot, and return it;
+    ``state`` is otherwise unchanged. The justified
+    checkpoint ``justify_anchor`` writes names the anchor as the epoch's
+    boundary block; with its root in that row too, the target an
+    attestation of the epoch takes from a state descended from it
+    (``ApiBackend.attestation_data``, ``build_block``) is the anchor,
+    which fork choice holds, not ``bench.py``'s random row."""
+    header = state.latest_block_header
+    root = htr(anchor_block(state).message)
+    state.latest_block_header = header
+    p = state.T.preset
+    roots = np.array(state.block_roots)
+    start = state.current_epoch() * p.slots_per_epoch
+    roots[start % p.slots_per_historical_root] = np.frombuffer(root, np.uint8)
+    state.block_roots = roots
+    return root
+
+
 def sign_proposal(state, signed_block, backend) -> None:
     """Sign ``signed_block``'s message as its proposer (interop key) with
     ``backend``, in place."""

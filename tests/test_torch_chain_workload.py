@@ -120,3 +120,39 @@ def test_gossip_attestations_are_single_and_signed():
             att.signature, [pk], compute_signing_root(htr(d), domain))])
     # position by position across the committees: both committees repeat
     assert {int(a.data.index) for a, _ in pairs} == {0, 1}
+
+
+def test_anchor_as_boundary_gives_a_target_fork_choice_holds():
+    """With the anchor's root at its epoch's start slot (phase 10's
+    rewrite), the block's attestations and the API's attestation data
+    for a later slot of the epoch take the anchor as their target, and a
+    chain anchored on the state holds it (bench.py's random row there
+    gave a target no fork choice holds)."""
+    from lighthouse_tpu_torch.api import ApiBackend
+    from lighthouse_tpu_torch.chain import BeaconChainBuilder
+    from lighthouse_tpu_torch.chain.execution import MockExecutionLayer
+    from lighthouse_tpu_torch.specs.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    bls.set_backend("fake")
+    w = sw.build_workload(FakeBackend(), n=N_SMALL, signed=False)
+    epoch = w.state.current_epoch()
+    assert w.state.get_block_root(epoch) != htr(
+        sw.anchor_block(w.state.copy()).message)
+    root = sw.anchor_as_boundary(w.state)
+    cw = sw.build_chain_workload(w, FakeBackend(), signed=False)
+    assert root == htr(cw.anchor.message) == \
+        cw.state.get_block_root(epoch)
+    assert {bytes(a.data.target.root)
+            for a in cw.block.message.body.attestations} == {root}
+    spec = mainnet_spec()
+    chain = (BeaconChainBuilder(spec)
+             .weak_subjectivity_anchor(cw.state.copy(), cw.anchor)
+             .slot_clock(ManualSlotClock(0, spec.seconds_per_slot,
+                                         current_slot=sw.SLOT + 1))
+             .execution_layer(MockExecutionLayer())
+             .build())
+    assert chain.recompute_head() == root
+    data = ApiBackend(chain).attestation_data(sw.SLOT + 1, 0)
+    assert bytes(data.target.root) == root
+    assert chain.fork_choice.contains_block(bytes(data.target.root))

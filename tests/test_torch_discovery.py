@@ -3,10 +3,9 @@ and the NetworkService integration (3 nodes mesh through one bootnode).
 
 The cases of the JAX package's tests/test_discovery.py, run on the port
 (imports switched to lighthouse_tpu_torch; the port on the CPU, its BLS
-backend put back after each test).  The node API case waits for the
-port's ``api`` package.  The service case polls for the dialed mesh under
-a deadline where the reference sleeps a fixed 0.3 s, which a loaded
-machine can outlast."""
+backend put back after each test).  The service and node API cases poll
+for the dialed peers under a deadline where the reference sleeps a fixed
+0.3 s, which a loaded machine can outlast."""
 import time
 
 import pytest
@@ -157,3 +156,51 @@ def test_network_service_discovers_and_dials():
             svc.stop()
         boot.stop()
 
+
+def test_node_api_serves_real_identity_and_peers():
+    """/eth/v1/node/identity + /peers are backed by the LIVE network
+    service (not the empty fallback): real text ENR, multiaddrs, per-peer
+    direction, and spec query filters."""
+    from lighthouse_tpu_torch.api.backend import ApiBackend
+    bls.set_backend("fake")
+    spec = minimal_spec()
+    h1 = BeaconChainHarness(spec, 64)
+    h2 = BeaconChainHarness(spec, 64)
+    s1 = NetworkService(h1.chain)
+    s2 = NetworkService(h2.chain)
+    s1.start()
+    s2.start()
+    d1 = Discovery(s1)
+    try:
+        s1.dial("127.0.0.1", s2.port)
+        api1 = ApiBackend(h1.chain)
+        api2 = ApiBackend(h2.chain)
+        assert _wait(lambda: len(api1.node_peers()) == 1
+                     and len(api2.node_peers()) == 1)
+        ident = api1.node_identity()
+        assert ident["peer_id"] == s1.transport.node_id
+        # the ENR is the signed discovery record in EIP-778 text form
+        rec = Enr.from_text(ident["enr"])
+        assert rec.node_id == d1.disc.local_enr.node_id
+        assert ident["p2p_addresses"] == \
+            [f"/ip4/127.0.0.1/tcp/{s1.port}"]
+        # metadata bitfields reflect the live subscriptions: attnets from
+        # the node-id-derived attestation subnets, syncnets from the four
+        # sync-committee subnets (1-byte LE bitfield, metadata v2)
+        attnets = 0
+        for subnet in s1.attnet_subnets:
+            attnets |= 1 << subnet
+        assert ident["metadata"]["attnets"] == \
+            "0x" + attnets.to_bytes(8, "little").hex()
+        assert ident["metadata"]["syncnets"] == "0x0f"
+        peers = api1.node_peers()
+        assert len(peers) == 1
+        assert peers[0]["direction"] == "outbound"
+        assert peers[0]["last_seen_p2p_address"].startswith("/ip4/")
+        assert api1.node_peers(directions=["inbound"]) == []
+        # the other side sees us inbound
+        assert api2.node_peers()[0]["direction"] == "inbound"
+    finally:
+        d1.stop()
+        s1.stop()
+        s2.stop()

@@ -123,7 +123,26 @@ need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
         "lighthouse_tpu_torch.utils.monitoring",
         "lighthouse_tpu_torch.crypto.key_derivation",
         "lighthouse_tpu_torch.crypto.keystore",
-        "lighthouse_tpu_torch.crypto.wallet"}
+        "lighthouse_tpu_torch.crypto.wallet",
+        "lighthouse_tpu_torch.api", "lighthouse_tpu_torch.api.json_repr",
+        "lighthouse_tpu_torch.api.serving",
+        "lighthouse_tpu_torch.api.serving.cache",
+        "lighthouse_tpu_torch.api.serving.coalesce",
+        "lighthouse_tpu_torch.api.serving.shed",
+        "lighthouse_tpu_torch.api.serving.tier",
+        "lighthouse_tpu_torch.api.backend",
+        "lighthouse_tpu_torch.api.http_server",
+        "lighthouse_tpu_torch.validator_client",
+        "lighthouse_tpu_torch.validator_client.slashing_protection",
+        "lighthouse_tpu_torch.validator_client.validator_store",
+        "lighthouse_tpu_torch.validator_client.fallback",
+        "lighthouse_tpu_torch.validator_client.client",
+        "lighthouse_tpu_torch.validator_client.http_client",
+        "lighthouse_tpu_torch.validator_client.keymanager",
+        "lighthouse_tpu_torch.validator_client.remote_signer",
+        "lighthouse_tpu_torch.validator_client.byzantine",
+        "lighthouse_tpu_torch.validator_manager",
+        "lighthouse_tpu_torch.testing.fuzz"}
 print(len(names), sorted(need - set(names)), bad)
 """
 

@@ -1,15 +1,22 @@
 """Named networks and the EIP-2386 wallet.
 
 The cases of the JAX package's tests/test_tooling.py whose modules the
-port holds (``specs.networks``, ``crypto.wallet``), run on the port
-(imports switched to lighthouse_tpu_torch; the port on the CPU, its BLS
-backend put back after each test).  The rest of that file needs the
-validator client, the validator manager and the watch monitor.
+port holds (``specs.networks``, ``crypto.wallet``, ``validator_manager``),
+run on the port (imports switched to lighthouse_tpu_torch; the port on the
+CPU, its BLS backend put back after each test).  The rest of that file
+needs the watch monitor and the command line.
 """
 import pytest
 
 from lighthouse_tpu_torch.crypto import bls
 from lighthouse_tpu_torch.device import set_device
+from lighthouse_tpu_torch.specs import minimal_spec
+from lighthouse_tpu_torch.validator_client import (
+    SlashingError, ValidatorStore,
+)
+from lighthouse_tpu_torch.validator_manager import (
+    create_validators, import_validators, move_validators,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -137,3 +144,38 @@ def test_config_dump_roundtrip(tmp_path):
                 (name, field)
         # and the dump is stable (dump(load(dump)) == dump)
         assert spec_to_config(back) == spec_to_config(spec), name
+
+
+def test_bulk_create_and_import(tmp_path):
+    seed = bytes(range(32))
+    keystores = create_validators(seed, 3, str(tmp_path), b"pw")
+    assert len(keystores) == 3
+    spec = minimal_spec()
+    store = ValidatorStore(spec, b"\x11" * 32)
+    assert import_validators(str(tmp_path), b"pw", store) == 3
+    assert len(store.voting_pubkeys()) == 3
+
+
+def test_move_carries_slashing_history():
+    spec = minimal_spec()
+    gvr = b"\x22" * 32
+    src = ValidatorStore(spec, gvr)
+    dst = ValidatorStore(spec, gvr)
+    pk = src.add_validator(12345)
+    # sign an attestation data in src, then move
+    from lighthouse_tpu_torch.containers import get_types
+    T = get_types(spec.preset)
+    data = T.AttestationData(slot=8, index=0,
+                             beacon_block_root=b"\x01" * 32,
+                             source=T.Checkpoint(epoch=1, root=b"\x02" * 32),
+                             target=T.Checkpoint(epoch=2, root=b"\x03" * 32))
+    src.sign_attestation(pk, data)
+    assert move_validators(src, dst, [pk], gvr) == 1
+    assert pk not in src._keys and pk in dst._keys
+    # surrounding vote must still be refused at the destination
+    bad = T.AttestationData(slot=8, index=0,
+                            beacon_block_root=b"\x01" * 32,
+                            source=T.Checkpoint(epoch=0, root=b"\x02" * 32),
+                            target=T.Checkpoint(epoch=3, root=b"\x04" * 32))
+    with pytest.raises(SlashingError):
+        dst.sign_attestation(pk, bad)
