@@ -65,7 +65,11 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    (``gpu``): True on the batch and equal to the C++ backend; five
    negative batches False on both; a 100-set batch True; every BLS kernel
    launched on that path (``affine`` twice, ``fp_ops`` once); the first
-   call and the median of three warm calls, sets/s, host prep.
+   call and the median of three warm calls, sets/s, host prep. The C++
+   verdicts on the whole flagship batch and on each whole negative one
+   are computed beside the kernel checks, on a thread pinned to all but
+   ``MAIN_CORES`` host cores (``cpp_reference``), and waited for before
+   the slice's timed calls.
 5. The sharded paths on every card (``n = torch.cuda.device_count()``, one
    rank a card, NCCL; ``lighthouse_tpu_torch/entry.py``): the dryrun's
    four checks (a sharded state-root step, a sharded pairing check, the
@@ -104,8 +108,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    mainnet Altair state and block of ``bench.py``'s state-transition
    workload, the block's 64 attestations and sync aggregate really signed,
    the signers' pubkeys interop keys): the pubkeys of its 67 signature
-   sets warmed into the ``gpu`` backend's cache (``os.cpu_count()``
-   processes); with every launch count at 0, the pre-state root on the
+   sets warmed into the ``gpu`` backend's cache (``GpuBackend.warm``);
+   with every launch count at 0, the pre-state root on the
    card, ``per_block_processing`` with its signatures verified as one
    batch on the ``gpu`` backend (67 sets over 67 messages at 128 lanes),
    the post-block root (``EXPECTED_BLOCK_ROOT_1M``), the epoch on a copy
@@ -129,8 +133,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    off); ``BeaconChain``s anchored on copies by ``BeaconChainBuilder``
    (``weak_subjectivity_anchor``, a manual slot clock at the block's
    slot, the mock execution layer, a ``HotColdDB`` on native kv stores
-   in a temp dir; ``store_genesis`` timed). 10,000 unaggregated
-   single-bit gossip attestations by the prior slot's committee members
+   in a temp dir; ``store_genesis`` timed). ``GOSSIP_BATCH`` (2,048)
+   unaggregated single-bit gossip attestations by the prior slot's committee members
    (each signed by its member on the C++ host backend, head and target
    the anchor) through ``batch_verify_unaggregated_attestations_for_gossip``
    on ``gpu`` (all verified), a 64-batch, and a negative 64-batch whose
@@ -172,7 +176,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    wrong token answered 401 and not logged). ``produce_block`` for the
    next slot's proposer registered with a ``MockBuilder`` over HTTP: a
    winning bid gives the builder's payload, a low one the local. The
-   block's 64 aggregates fed to the slasher by the phase (the chain feeds
+   block's first ``SLASHER_AGGREGATES`` (16) of its 64 aggregates fed to
+   the slasher by the phase (the chain feeds
    it from gossip only), 1,024 gossip singles verified on ``gpu`` through
    the chain, an equivocating block and a double vote refused by the
    gossip checks after they reach the slasher; ``process_queued`` finds
@@ -244,8 +249,62 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    ``api_request`` p95, the card's idle share over the client's slot).
    Every state-root and BLS kernel must launch on the path, every BLS
    kernel and ``hash64`` in (e) alone, every one but ``cap_fold`` in (f)
-   alone (``launches_validator_path``): (f) builds no tree.
-11. Observability, read from what phases 1-10 left (the catalog and the
+   alone (``launches_validator_path``): (f) builds no tree. (g) The chain
+   analytics (``watch_step``): ``WatchMonitor(A's chain).update()`` from
+   the anchor; its rows are A's blocks (slots, roots, proposers,
+   attestations), ``block_packing`` counts their attestations' seats (the
+   first block's 64 aggregates), the previous epoch's participation is the
+   1M-validator masks'; timed.
+12. The node as its users start it (``cli_phase``; it runs after phase 10
+   and before phase 11, which reads what it leaves), each step a process
+   of its own, ``python -m lighthouse_tpu_torch`` with the kernels bound
+   from ``_build/`` (phase 1 built them; a build in a step is a failure).
+   (b) Phase 10's chain workload built again on a copy of the state whose
+   genesis time puts the wall clock at the block's slot
+   ``NODE_LEAD_SECS`` on (its anchor unchanged, the block's state root
+   and post-state root follow from the new time), written as
+   ``--checkpoint-state`` / ``--checkpoint-block``; ``bn --network
+   mainnet --datadir D`` starts with HTTP, p2p and discovery on ephemeral
+   ports of 127.0.0.1 and metrics on a free port (the ``gpu`` backend).
+   While it boots, this process loads the same bytes (their root, an
+   anchoring: the split of the node's start); then (c) runs on a thread
+   of this process while the node is driven: the EF corpus of
+   ``tests/ef_vectors`` (``EfTestRunner``) on ``gpu``, then on ``cpp``:
+   every case passes, none skipped, the (path, ok) lists equal, the BLS
+   kernels launched on ``gpu`` only. Then the node: health; genesis (the
+   state's validators root, the new time); the anchor as head with the
+   state root this process gives the same bytes; at the block's slot no
+   sync in progress; the block POSTed as SSZ then becomes the head with
+   the workload's post-state root (the sync status after the import is
+   reported: an import past two slots leaves the head two slots behind
+   the clock); ``/metrics`` shows the card's memory in use, the
+   kernel libraries bound from ``_build/`` and no build, a batch, one
+   import, a ``roofline_utilization_ratio`` series for every state-root
+   and BLS kernel, and the node's own launch counts
+   (``kernel_launches_total``, read before and after the POST: the
+   import must launch every BLS kernel and ``path_update``);
+   ``nvidia-smi`` lists the node's process among the card's compute
+   processes (its pid, or, where every pid shows as 1 from another PID
+   namespace, one entry more than after its exit); SIGTERM ends it with
+   exit 0; ``bn`` on the datadir alone resumes from the store, and while
+   it does, (a): ``--network mainnet dev transition-blocks`` on phase 7's
+   state and block, written after phase 7 as fork byte + SSZ
+   (``cli_inputs``), signatures on the default ``gpu`` backend, must
+   print ``EXPECTED_BLOCK_ROOT_1M``; ``dev block-root`` the block's root
+   (each ``dev`` process writes its own launch counts to the file
+   ``LHTPU_LAUNCH_COUNTS`` names); after (c), the state's bytes loaded
+   here (``from_ssz_bytes``) give its root. The resumed node has the
+   genesis, the anchor state's finality checkpoints and the anchor as
+   head (as the JAX package's node resumes, tests/test_torch_client.py)
+   and ends on SIGTERM with exit 0. ``launches_cli_path``: the launches
+   of the path's own processes (the two ``dev`` processes, the node up to
+   its import) and of (c); the processes together must launch every
+   state-root and BLS kernel. This process's copies ((b)'s same bytes,
+   (a)'s load) are reported apart. Timed: the SSZ writes, each process
+   end to end, the node's start to health (with this process's load and
+   anchoring of the same bytes), the POST to the head with the node's
+   block-processing sums, the shutdowns, the restart, each corpus run.
+11. Observability, read from what phases 1-10 and 12 left (the catalog and the
    ``obs`` layer are loaded at import, as a node loads them, and the
    graftwatch sampler ticks once a phase): every kernel that launched (15
    in mode 0, 20 mode-1/2 variants) has a roofline record on the card
@@ -791,14 +850,20 @@ class BlsKernelCheck:
                 **({} if design is None else {"design": design})})
 
 
+#: pubkeys phase 4 also decompresses one by one on the host, to compare
+PUBKEY_SAMPLE = 100
+
+
 def bls_setup() -> dict:
     """Sign the 10,000 sets with the C++ host backend, then warm the
     pubkey cache of the module's default backend, ``gpu`` (a node's
-    registry cache)."""
-    from lighthouse_tpu_torch.bls_batch import build_sets, warm_pubkeys
+    registry cache); time ``PUBKEY_SAMPLE`` of the keys decompressed one
+    by one on the host beside it."""
+    from lighthouse_tpu_torch.bls_batch import build_sets
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls.cpp_backend import CppBackend
     from lighthouse_tpu_torch.crypto.bls.gpu_backend import GpuBackend
+    from lighthouse_tpu_torch.crypto.bls12_381 import g1_decompress
 
     t0 = time.perf_counter()
     cpp = CppBackend()
@@ -808,14 +873,31 @@ def bls_setup() -> dict:
     check(isinstance(gpu, GpuBackend),
           f"the default BLS backend is {type(gpu).__name__}, not gpu")
     t0 = time.perf_counter()
-    warmed = warm_pubkeys(gpu, sets)
+    warmed = gpu.warm([pk for s in sets for pk in s.pubkeys])
     warm_s = time.perf_counter() - t0
+    # a sample of the same keys one by one on the host, as the pure-Python
+    # backend decompresses them, without and with its subgroup check
+    sample = [s.pubkeys[0] for s in sets[:PUBKEY_SAMPLE]]
+    t0 = time.perf_counter()
+    for pk in sample:
+        g1_decompress(pk, subgroup_check=False)
+    host_ms = (time.perf_counter() - t0) / len(sample) * 1e3
+    t0 = time.perf_counter()
+    for pk in sample:
+        g1_decompress(pk)
+    host_checked_ms = (time.perf_counter() - t0) / len(sample) * 1e3
     print(f"bls setup: {len(sets)} sets over "
           f"{len({s.message for s in sets})} messages signed in "
           f"{sign_s:.1f} s (C++ host backend, 8 threads); {warmed} pubkeys "
-          f"into the cache in {warm_s:.1f} s (8 processes)", flush=True)
+          f"into the cache in {warm_s:.2f} s, "
+          f"{warm_s / warmed * 1e3:.3f} ms a key (GpuBackend.warm: the "
+          f"square roots on the card, the subgroup checks on host "
+          f"threads); on the host one by one ({len(sample)} of them): "
+          f"the pure-Python decompression {host_ms:.3f} ms a key, with its "
+          f"pure-Python subgroup check {host_checked_ms:.3f} ms", flush=True)
     return {"cpp": cpp, "gpu": gpu, "sets": sets, "sign_s": sign_s,
-            "pubkey_warm_s": warm_s}
+            "pubkey_warm_s": warm_s, "pubkey_host_ms": host_ms,
+            "pubkey_host_checked_ms": host_checked_ms}
 
 
 def bls_prep(setup: dict, sets, lanes: int, small: int) -> dict:
@@ -1036,6 +1118,42 @@ def negative_batches(sets) -> dict:
     return out
 
 
+#: host cores left to the smoke's own thread while phase 4's C++ reference
+#: verdicts are computed beside its kernel checks
+MAIN_CORES = 2
+
+
+def cpp_reference(cpp, sets):
+    """Start the C++ host backend's verdicts on the flagship batch and on
+    each of its five negatives (``negative_batches``), every one on the
+    whole batch, on a thread pinned to all but ``MAIN_CORES`` of this
+    process's cores (the library's own threads inherit the pinning), so
+    that they run while phase 4 checks its kernels. A future of {label:
+    (verdict, seconds)}, the flagship's under "flagship"."""
+    import os
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    cores = sorted(os.sched_getaffinity(0))
+
+    def run() -> dict:
+        if len(cores) > MAIN_CORES:
+            os.sched_setaffinity(threading.get_native_id(),
+                                 cores[MAIN_CORES:])
+        out = {}
+        for label, batch in [("flagship", sets),
+                             *negative_batches(sets).items()]:
+            t0 = time.perf_counter()
+            out[label] = (cpp.verify_signature_sets(batch),
+                          time.perf_counter() - t0)
+        return out
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return future
+
+
 def bls_slice_phase(setup: dict, card: str) -> dict:
     """The slice: the module entry ``crypto.bls.verify_signature_sets``
     (its default backend, ``gpu``, inside the ``bls_batch_verify`` span)
@@ -1051,6 +1169,11 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
     cpp, gpu, sets = setup["cpp"], setup["gpu"], setup["sets"]
     check(gpu_backend.lane_options() == (128, 10240),
           f"lane options {gpu_backend.lane_options()} on the card")
+    # the C++ verdicts, started beside the kernel checks, end before the
+    # slice's timed calls
+    t0 = time.perf_counter()
+    ref = setup["cpp_reference"].result()
+    ref_wait_s = time.perf_counter() - t0
 
     verify = bls.verify_signature_sets
     kernels.reset_counts()
@@ -1090,9 +1213,7 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
     t0 = time.perf_counter()
     gpu_backend.host_prepare(*parsed, 10240, 128)
     prep_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cpp_ok = cpp.verify_signature_sets(sets)
-    cpp_s = time.perf_counter() - t0
+    cpp_ok, cpp_s = ref["flagship"]
     check(cpp_ok is True, "the C++ backend rejects the flagship batch")
     print(f"bls slice: warm {[round(w, 4) for w in warm]} s, median "
           f"{warm_s * 1e3:.1f} ms = {N_SETS / warm_s:.0f} sets/s; host "
@@ -1105,12 +1226,16 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
         t0 = time.perf_counter()
         got = verify(bad)
         neg_s[label] = time.perf_counter() - t0
-        neg_cpp[label] = cpp.verify_signature_sets(bad)
+        neg_cpp[label] = ref[label][0]
         check(got is False and neg_cpp[label] is False,
               f"negative batch '{label}': gpu {got}, C++ {neg_cpp[label]}")
     print(f"bls slice: the five negative batches verify False on the card "
-          f"and on the C++ backend ({', '.join(f'{l} {t:.3f} s' for l, t in neg_s.items())})",
-          flush=True)
+          f"({', '.join(f'{l} {t:.3f} s' for l, t in neg_s.items())}) and "
+          f"on the C++ backend, each on the whole batch "
+          f"({', '.join(f'{l} {ref[l][1]:.1f} s' for l in negatives)}; "
+          f"the flagship and these on a thread pinned to all but "
+          f"{MAIN_CORES} host cores beside the kernel checks, waited for "
+          f"{ref_wait_s:.1f} s here)", flush=True)
 
     small = sets[:100]
     t0 = time.perf_counter()
@@ -1124,7 +1249,9 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
             "warm_median_s": warm_s, "sets_per_s": N_SETS / warm_s,
             "host_parse_s": parse_s, "host_prepare_s": prep_s,
             "cpp_verify_s": cpp_s, "negative_s": neg_s,
-            "negative_cpp": neg_cpp, "profile": prof,
+            "negative_cpp": neg_cpp, "negative_cpp_s": {
+                label: ref[label][1] for label in negatives},
+            "cpp_reference_wait_s": ref_wait_s, "profile": prof,
             "small_batch_s": small_s, "sign_s": setup["sign_s"],
             "pubkey_warm_s": setup["pubkey_warm_s"]}
 
@@ -1547,7 +1674,6 @@ def stf_phase(bounds: Bounds, setup: dict,
 
     from lighthouse_tpu_torch import kernels
     from lighthouse_tpu_torch import stf_workload as sw
-    from lighthouse_tpu_torch.bls_batch import warm_pubkeys
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls import gpu_backend
     from lighthouse_tpu_torch.profile_state_root import profiled
@@ -1578,14 +1704,14 @@ def stf_phase(bounds: Bounds, setup: dict,
                             f"attestations, {len(sets)} signature sets over "
                             f"{n_msgs} messages, not 64, 67 and 67")
     t0 = time.perf_counter()
-    warmed = warm_pubkeys(gpu, sets, processes=cores)
+    warmed = gpu.warm([pk for s in sets for pk in s.pubkeys])
     warm_s = time.perf_counter() - t0
     print(f"stf setup: {len(pre.validators)} validators at slot "
           f"{pre.slot}, {len(w.rows)} signer rows with interop pubkeys, "
           f"the block signed (C++ host backend, {cores} threads) in "
           f"{build_s:.1f} s; {len(sets)} signature sets over {n_msgs} "
           f"messages, {n_keys} pubkeys; {warmed} pubkeys into the gpu "
-          f"backend's cache in {warm_s:.1f} s ({cores} processes) [{card}]",
+          f"backend's cache in {warm_s:.1f} s [{card}]",
           flush=True)
 
     # the path: the pre-state's root (its trees built on the card), the
@@ -1759,9 +1885,12 @@ def stf_phase(bounds: Bounds, setup: dict,
             "epoch_root_ms": epoch_root_ms}, c, w
 
 
-#: the gossip batch of BASELINE.md config 3, and the beacon processor's
+#: the gossip batch phase 8 verifies through the chain (BASELINE.md config
+#: 3's 10,000 until phase 12 came: cut so that the smoke keeps inside its
+#: time limit; past 128 sets it still pads to the flagship's 10,240 lanes,
+#: and phase 4 verifies the 10,000), and the beacon processor's
 #: attestation batch (``beacon_processor/processor.py`` ``MAX_BATCH``)
-GOSSIP_BATCH = 10_000
+GOSSIP_BATCH = 2_048
 PROCESSOR_BATCH = 64
 #: the item of the negative 64-batch that carries its neighbour's signature
 NEGATIVE_ITEM = 17
@@ -1829,7 +1958,6 @@ def chain_phase(setup: dict, w, card: str) -> dict:
     from lighthouse_tpu_torch.beacon_processor import (
         BeaconProcessor, Work, WorkType,
     )
-    from lighthouse_tpu_torch.bls_batch import warm_pubkeys
     from lighthouse_tpu_torch.chain import BeaconChainBuilder, BlockError
     from lighthouse_tpu_torch.chain import attestation_verification as av
     from lighthouse_tpu_torch.chain.errors import BAD_SIGNATURE
@@ -2033,7 +2161,7 @@ def chain_phase(setup: dict, w, card: str) -> dict:
                     for a, s in main]
         checks_ms = (time.perf_counter() - t0) * 1e3
         sets = [p[2] for p in prepared]
-        check(warm_pubkeys(gpu, sets, processes=cores) == 0,
+        check(gpu.warm([pk for s in sets for pk in s.pubkeys]) == 0,
               "the gossip signers' pubkeys were not in phase 7's cache")
         parse_ms, _ = _median_ms(lambda: gpu_backend.parse_sets(gpu, sets))
         parsed = gpu_backend.parse_sets(gpu, sets)
@@ -2254,6 +2382,11 @@ def chain_phase(setup: dict, w, card: str) -> dict:
 #: and a history of 64 epochs 65 s in the phase; at 16 the sweeps walk
 #: two epoch chunks (64: five)
 SLASHER_HISTORY = 16
+#: the block's aggregates phase 9 feeds its slasher (all 64 until phase
+#: 12 came: ``process_queued`` took 23.1-45.4 s on them; cut so that the
+#: smoke keeps inside its time limit; the planted offences are the
+#: gossip singles' and the equivocation's)
+SLASHER_AGGREGATES = 16
 
 
 def postmerge_phase(setup: dict, card: str, seed: int) -> dict:
@@ -2289,7 +2422,6 @@ def postmerge_phase(setup: dict, card: str, seed: int) -> dict:
     from lighthouse_tpu_torch.beacon_processor import (
         BeaconProcessor, Work, WorkType,
     )
-    from lighthouse_tpu_torch.bls_batch import warm_pubkeys
     from lighthouse_tpu_torch.chain import BeaconChainBuilder, BlockError
     from lighthouse_tpu_torch.chain import attestation_verification as av
     from lighthouse_tpu_torch.chain.data_availability import (
@@ -2300,7 +2432,7 @@ def postmerge_phase(setup: dict, card: str, seed: int) -> dict:
         AttestationError,
     )
     from lighthouse_tpu_torch.crypto import bls
-    from lighthouse_tpu_torch.crypto.bls import SignatureSet, keygen_interop
+    from lighthouse_tpu_torch.crypto.bls import keygen_interop
     from lighthouse_tpu_torch.crypto.kzg import Kzg
     from lighthouse_tpu_torch.execution_layer import (
         EngineApiClient, ExecutionLayer, JwtAuth, MockEngineServer,
@@ -2356,8 +2488,7 @@ def postmerge_phase(setup: dict, card: str, seed: int) -> dict:
     epoch = slot // spec.preset.slots_per_epoch
     payload = block.message.body.execution_payload
     t0 = time.perf_counter()
-    warmed = warm_pubkeys(gpu, [SignatureSet(
-        b"", [bytes(pk) for pk in w.pubkeys], b"")], processes=cores)
+    warmed = gpu.warm([bytes(pk) for pk in w.pubkeys])
     report["pubkey_warm_s"] = time.perf_counter() - t0
     print(f"postmerge setup: {len(w.state.validators)} validators, Deneb "
           f"at slot {slot} (epoch {epoch}); the block {block_root.hex()} "
@@ -2620,7 +2751,8 @@ def postmerge_phase(setup: dict, card: str, seed: int) -> dict:
             twin = sw.double_vote(head_state, singles[0][0], anchor_root, cpp)
             report["sign_s"] = time.perf_counter() - t0
             block_indexed = [get_indexed_attestation(head_state, a)
-                             for a in block.message.body.attestations]
+                             for a in block.message.body.attestations[
+                                 :SLASHER_AGGREGATES]]
             for indexed in block_indexed:
                 chain.slasher.accept_attestation(indexed)
             t0 = time.perf_counter()
@@ -2688,7 +2820,7 @@ def postmerge_phase(setup: dict, card: str, seed: int) -> dict:
                           slasher_records=[(r.kind, r.validator_index)
                                            for r in found])
             print(f"postmerge slasher (history {SLASHER_HISTORY} epochs, the "
-                  f"default 4,096 cut: PERF.md section 4): the block's "
+                  f"default 4,096 cut: PERF.md section 4): the block's first "
                   f"{len(block_indexed)} aggregates "
                   f"({sum(len(a.attesting_indices) for a in block_indexed)} "
                   f"validators) fed by the phase itself (the chain feeds the "
@@ -3147,15 +3279,16 @@ def discovery_step(chain_a, na, node, wire, card: str) -> dict:
 
 #: the single-bit attestations node A gossips in phase 10's step (c), and
 #: one more carrying its neighbour's signature (the post-merge workload's
-#: ``GOSSIP_SINGLES`` until step (f) came: cut so that the smoke keeps
-#: inside its time limit)
-NETWORK_SINGLES = 512
+#: ``GOSSIP_SINGLES`` until step (f) came, 512 until phase 12 came: cut so
+#: that the smoke keeps inside its time limit)
+NETWORK_SINGLES = 256
 #: the validator client's attesters in each committee of its slot (step
 #: (f)): two members of each of the slot's 64 committees at 1M validators
 VC_ATTESTERS_PER_COMMITTEE = 2
 #: step (f)'s serving fleet: threads, and requests a thread (half proposer
-#: duties, half attestation_data: ``bench.py`` ``bench_serving``'s mix)
-FLEET_THREADS, FLEET_REQUESTS = 8, 250
+#: duties, half attestation_data: ``bench.py`` ``bench_serving``'s mix;
+#: 250 a thread until phase 12 came)
+FLEET_THREADS, FLEET_REQUESTS = 8, 125
 
 
 def validator_client_process(url: str, rows: list, gvr: bytes, slot: int,
@@ -3783,14 +3916,12 @@ def network_phase(setup: dict, w, card: str) -> dict:
     from lighthouse_tpu_torch import kernels
     from lighthouse_tpu_torch import stf_workload as sw
     from lighthouse_tpu_torch.beacon_processor import BeaconProcessor
-    from lighthouse_tpu_torch.bls_batch import warm_pubkeys
     from lighthouse_tpu_torch.chain import BeaconChainBuilder
     from lighthouse_tpu_torch.chain.errors import (
         BAD_SIGNATURE, AttestationError, BlockError,
     )
     from lighthouse_tpu_torch.chain.execution import MockExecutionLayer
     from lighthouse_tpu_torch.crypto import bls
-    from lighthouse_tpu_torch.crypto.bls import SignatureSet
     from lighthouse_tpu_torch.network import (
         NetworkConfig, NetworkService, Topic,
     )
@@ -3844,8 +3975,7 @@ def network_phase(setup: dict, w, card: str) -> dict:
     sw.write_signers(w.state, rows, pubkeys)
     report["signers_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    warmed = warm_pubkeys(gpu, [SignatureSet(
-        b"", [bytes(pk) for pk in pubkeys], b"")], processes=cores)
+    warmed = gpu.warm([bytes(pk) for pk in pubkeys])
     report["pubkey_warm_s"] = time.perf_counter() - t0
 
     # the chain workload (phase 8's) and the second block one slot later,
@@ -4316,6 +4446,11 @@ def network_phase(setup: dict, w, card: str) -> dict:
             print(f"network launches (f) (the client's slot, the reads, the "
                   f"fleet): {lf}; the step {report['f']['ms']:.1f} ms "
                   f"[{card}]", flush=True)
+
+            # (g) the chain analytics on A's chain: the anchor and the
+            # blocks after it
+            report["g"] = watch_step(chain_a, s1 - 1, card)
+            step_launches("g")
             launches = {n: sum(c[n] for c in steps.values()) for n in names}
         finally:
             for svc in services:
@@ -4337,6 +4472,709 @@ def network_phase(setup: dict, w, card: str) -> dict:
     report["seconds"] = time.perf_counter() - t_phase
     print(f"network phase: {report['seconds']:.1f} s; {_mem_line()} "
           f"[{card}]", flush=True)
+    return report, cw
+
+
+def watch_step(chain, anchor_slot: int, card: str) -> dict:
+    """Phase 10's step (g): the chain analytics (``watch/monitor.py``) on
+    ``chain`` at 1M validators. ``WatchMonitor(chain).update()`` from the
+    anchor (the monitor's cursor set to the slot before it: a watch that
+    follows a checkpoint-synced node starts at its anchor, not at genesis,
+    whose 3.2M slots before it hold no block the node has); the rows of
+    ``canonical_blocks`` are the chain's blocks from the anchor to the
+    head (slot, root, proposer, attestations); ``block_packing`` counts the
+    seats of each block's attestations (the first block's 64); the
+    participation rate of the head state's previous epoch is the one the
+    1M-validator masks give (numpy on the head state, here)."""
+    from lighthouse_tpu_torch.ssz import htr
+    from lighthouse_tpu_torch.watch import WatchMonitor
+
+    blocks, root = [], chain.head().head_block_root
+    while True:
+        blk = chain.store.get_block(root)
+        check(blk is not None, f"(g): block {root.hex()} not stored")
+        blocks.append((root, blk.message))
+        if int(blk.message.slot) <= anchor_slot:
+            break
+        root = blk.message.parent_root
+    blocks.reverse()
+    check(int(blocks[0][1].slot) == anchor_slot,
+          "(g): the head does not descend from the anchor")
+    t0 = time.perf_counter()
+    mon = WatchMonitor(chain)
+    mon._last_slot = anchor_slot - 1
+    added = mon.update()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    rows = list(mon._db.execute(
+        "SELECT slot, root, proposer, attestations FROM canonical_blocks "
+        "ORDER BY slot"))
+    want = [(int(b.slot), bytes(r), int(b.proposer_index),
+             len(b.body.attestations)) for r, b in blocks]
+    check(added == len(blocks) and rows == want,
+          f"(g): the monitor's {added} rows {[r[0] for r in rows]} are not "
+          f"the chain's blocks {[w[0] for w in want]}")
+    packing = {p["slot"]: p["included"]
+               for p in mon.block_packing(anchor_slot, want[-1][0])}
+    for _r, b in blocks:
+        seats: dict = {}
+        for a in b.body.attestations:
+            seats.setdefault((int(a.data.slot), int(a.data.index)),
+                             set()).update(i for i, bit in enumerate(
+                                 a.aggregation_bits) if bit)
+        check(packing.get(int(b.slot)) == sum(map(len, seats.values())),
+              f"(g): block_packing of slot {int(b.slot)} is "
+              f"{packing.get(int(b.slot))}")
+    first = blocks[1][1]
+    check(len(first.body.attestations) == 64,
+          f"(g): the first block has {len(first.body.attestations)} "
+          f"attestations, not 64")
+    state = chain.head().head_state
+    epoch = state.previous_epoch()
+    v = state.validators
+    active_now = ((np.asarray(v.activation_epoch) <= state.current_epoch())
+                  & (state.current_epoch() < np.asarray(v.exit_epoch)))
+    active = ((np.asarray(v.activation_epoch) <= epoch)
+              & (epoch < np.asarray(v.exit_epoch)))
+    timely_target = (np.asarray(state.previous_epoch_participation)
+                     & 2) != 0
+    eb = np.asarray(v.effective_balance, dtype=np.uint64)
+    total = max(int(state.T.preset.effective_balance_increment),
+                int(eb[active_now].sum()))
+    target = int(eb[active & timely_target & ~np.asarray(v.slashed)].sum())
+    part = mon.participation(epoch)
+    check(part is not None and part[0] == target / total,
+          f"(g): the epoch {epoch} participation {part} is not "
+          f"{target / total} from the masks")
+    report = {"update_ms": update_ms, "blocks": len(blocks),
+              "participation": part[0], "epoch": epoch,
+              "packing": {str(k): n for k, n in packing.items()},
+              "suboptimal": len(mon.suboptimal_at_epoch(epoch))}
+    print(f"network watch (g): WatchMonitor.update() on A's chain from the "
+          f"anchor at slot {anchor_slot}: {added} canonical blocks (slots "
+          f"{[w[0] for w in want]}, roots, proposers, attestations "
+          f"{[w[3] for w in want]} the chain's) in {update_ms:.1f} ms; "
+          f"packing (seats by slot) {packing}; epoch {epoch} participation "
+          f"{part[0]:.6f} from the 1M-validator masks; "
+          f"{report['suboptimal']} suboptimal attesters recorded [{card}]",
+          flush=True)
+    return report
+
+
+# -- phase 12: the node as its users start it ----------------------------------
+
+#: seconds each process phase 12 starts may take to answer, or to end
+CLI_DEADLINE = 600.0
+#: seconds from the moment phase 12 writes the node's genesis time to the
+#: start of the block's slot on that clock: the block's build, the files'
+#: write and the node's boot fit inside it, and the POST waits for the
+#: slot (the node is asked whether it syncs at the slot's start, its
+#: anchor one slot behind its clock; a head two slots behind reports a
+#: sync in progress)
+NODE_LEAD_SECS = 35
+#: seconds a node has to exit after SIGTERM
+NODE_STOP_SECS = 60.0
+
+
+def cli_inputs(w, card: str) -> dict:
+    """Phase 12 (a)'s inputs, written right after phase 7 (phase 10 writes
+    more signers into ``w.state``): the workload's state at its block's
+    slot and the signed block, each as fork byte + SSZ (the command
+    line's ``_load_state`` / ``_dump_state`` format), in a temp dir phase
+    12 removes; with the state's root (the card's, phase 7's trees) and
+    the block's."""
+    import tempfile
+
+    from lighthouse_tpu_torch.ssz import htr, serialize
+
+    d = tempfile.mkdtemp(prefix="lhtpu-cli-")
+    fork = bytes([w.state.fork_name.value])
+    t0 = time.perf_counter()
+    raw = fork + w.state.serialize()
+    serialize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Path(d, "pre.ssz").write_bytes(raw)
+    Path(d, "block.ssz").write_bytes(
+        fork + serialize(type(w.block).ssz_type, w.block))
+    write_s = time.perf_counter() - t0
+    out = {"dir": d, "state_bytes": len(raw), "serialize_s": serialize_s,
+           "write_s": write_s, "pre_root": w.state.hash_tree_root().hex(),
+           "block_root": htr(w.block.message).hex(),
+           "block_slot": int(w.block.message.slot)}
+    print(f"cli inputs: the {len(w.state.validators)}-validator state at "
+          f"slot {out['block_slot']} "
+          f"as fork byte + SSZ, {len(raw)} bytes: serialize "
+          f"{serialize_s:.2f} s, write (with the block) {write_s:.2f} s "
+          f"[{card}]", flush=True)
+    return out
+
+
+class _NodeProcess:
+    """A ``python -m lighthouse_tpu_torch bn`` process: its log lines
+    (stdout and stderr) read by a thread, its ports from the ``beacon node
+    up`` line, stopped by SIGTERM (killed past the deadline)."""
+
+    def __init__(self, args: list, cwd: Path):
+        import subprocess
+        import threading
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "lighthouse_tpu_torch", *args], cwd=cwd,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines: list[str] = []
+        self.stamps: list[float] = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        self.http = self.p2p = None
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.stamps.append(time.perf_counter())
+            self.lines.append(line.rstrip("\n"))
+
+    def tail(self) -> str:
+        return "\n".join(self.lines[-30:])
+
+    def wait_up(self) -> float:
+        """Seconds from the start to the ``beacon node up`` line (when this
+        process's reader got it, however late it is asked)."""
+        import re
+        pat = re.compile(r"beacon node up: http=(\d+) p2p=(\d+)")
+
+        def up():
+            check(self.proc.poll() is None,
+                  f"the node exited {self.proc.returncode}:\n{self.tail()}")
+            return any(pat.search(line) for line in self.lines)
+
+        _until(up, "the node's 'beacon node up' line", CLI_DEADLINE)
+        i = next(i for i, ln in enumerate(self.lines) if pat.search(ln))
+        m = pat.search(self.lines[i])
+        self.http, self.p2p = int(m.group(1)), int(m.group(2))
+        return self.stamps[i] - self.t0
+
+    def rss(self) -> str:
+        status = Path(f"/proc/{self.proc.pid}/status").read_text()
+        return next(line.split(":", 1)[1].strip()
+                    for line in status.splitlines()
+                    if line.startswith("VmRSS"))
+
+    def stop(self) -> float:
+        """SIGTERM; the seconds to its exit, which must be 0."""
+        import signal
+        import subprocess
+        t = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=NODE_STOP_SECS)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise SmokeFailure(f"the node did not exit within "
+                               f"{NODE_STOP_SECS:.0f} s of SIGTERM")
+        self._reader.join(timeout=5)
+        check(rc == 0, f"the node exited {rc} on SIGTERM:\n{self.tail()}")
+        return time.perf_counter() - t
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _http(port: int, path: str, method: str = "GET", body=None,
+          headers=None) -> tuple[int, bytes]:
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=CLI_DEADLINE)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _data(port: int, path: str):
+    status, body = _http(port, path)
+    check(status == 200, f"GET {path}: {status} {body[:300]!r}")
+    return json.loads(body)["data"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _exposition(port: int) -> dict[str, float]:
+    """The node's ``/metrics``: each sample line's value by its name with
+    its labels."""
+    status, body = _http(port, "/metrics")
+    check(status == 200, f"GET /metrics: {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def _compute_apps() -> list[int]:
+    """The pids ``nvidia-smi`` lists as the card's compute processes."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi exited {out.returncode}")
+    return [int(p) for p in out.stdout.split() if p.strip().isdigit()]
+
+
+def _cli(args: list, what: str, cwd: Path,
+         tmp: str) -> tuple[dict, float, dict[str, int]]:
+    """``python -m lighthouse_tpu_torch --network mainnet ARGS`` to its end:
+    the JSON of its last line of output, its seconds and its own kernel
+    launches (``LHTPU_LAUNCH_COUNTS``, a file in ``tmp``: none where it
+    bound no kernel library)."""
+    import os
+    import subprocess
+    counts = Path(tmp, f"launches-{os.getpid()}-{time.monotonic_ns()}.json")
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "lighthouse_tpu_torch", "--network", "mainnet",
+         *args], cwd=cwd, capture_output=True, text=True,
+        timeout=CLI_DEADLINE,
+        env=dict(os.environ, LHTPU_LAUNCH_COUNTS=str(counts)))
+    seconds = time.perf_counter() - t
+    check(out.returncode == 0,
+          f"{what} exited {out.returncode}: {out.stderr[-3000:]}")
+    launches = json.loads(counts.read_text()) if counts.exists() else {}
+    return json.loads(out.stdout.strip().splitlines()[-1]), seconds, launches
+
+
+def _node_launches(samples: dict[str, float]) -> dict[str, int]:
+    """A node's own kernel launches, from its ``/metrics``
+    (``kernel_launches_total``, a series a kernel)."""
+    pre = 'kernel_launches_total{kernel="'
+    return {k[len(pre):].split('"')[0]: int(v) for k, v in samples.items()
+            if k.startswith(pre)}
+
+
+def _ef_corpus(corpus: Path, names: list[str]) -> dict:
+    """(c): ``EfTestRunner(corpus).run()`` on ``gpu``, then on ``cpp``
+    (the module's backend set for each): every case passing, none
+    skipped, the same (path, ok) lists, the BLS kernels launched on
+    ``gpu`` and not on ``cpp``; each run's seconds and launch deltas. Run
+    on a thread beside the node, niced so that the node's processes come
+    first on the host's cores."""
+    import os
+    import threading
+
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.ef_tests import EfTestRunner
+
+    # below the node's processes on the host's cores (this thread only)
+    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 10)
+    runs = {}
+    try:
+        for name in ("gpu", "cpp"):
+            bls.set_backend(name)
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            results = EfTestRunner(corpus).run()
+            seconds = time.perf_counter() - t0
+            after = kernels.launch_counts()
+            bad = [r.path for r in results if not r.ok or r.skipped]
+            check(results and not bad,
+                  f"EF corpus on {name}: {len(bad)} cases failed or "
+                  f"skipped: {bad[:5]}")
+            runs[name] = {"seconds": seconds, "cases": len(results),
+                          "pairs": [(r.path, r.ok) for r in results],
+                          "launches": {n: after[n] - before[n]
+                                       for n in names}}
+    finally:
+        bls.set_backend("gpu")
+    check(runs["gpu"]["pairs"] == runs["cpp"]["pairs"],
+          "the EF corpus's (path, ok) lists differ between gpu and cpp")
+    check(all(runs["gpu"]["launches"][k.name] for k in kernels.BLS_KERNELS),
+          f"the EF corpus on gpu launched only {runs['gpu']['launches']}")
+    check(not any(runs["cpp"]["launches"][k.name]
+                  for k in kernels.BLS_KERNELS),
+          "the EF corpus on cpp launched a BLS kernel")
+    return runs
+
+
+def cli_phase(setup: dict, w, cw, inputs: dict, card: str) -> dict:
+    """Phase 12: the node as its users start it, each step a process of its
+    own (``python -m lighthouse_tpu_torch``, the kernels bound from
+    ``_build/``, which phase 1 built). (b) Phase 10's chain workload built
+    again on a copy of ``w`` whose genesis time puts the wall clock at the
+    block's slot ``NODE_LEAD_SECS`` on; ``bn`` from that checkpoint state
+    and anchor block (``gpu``, HTTP and p2p on ephemeral ports, metrics
+    on) starts, and while it boots this process loads the same bytes
+    (their root, an anchoring). Then (c) runs on a thread of this process
+    while the node is driven (``_ef_corpus``: the EF corpus of
+    ``tests/ef_vectors`` on ``gpu``, then on ``cpp``; this process
+    launches no other kernel until it ends). The node: health, genesis,
+    the anchor as head, the state root this process gives the same bytes;
+    at the block's slot the node is not syncing; the block POSTed as SSZ
+    then becomes the head with the workload's post-state root (the sync
+    status after the import is reported); ``/metrics`` shows
+    the card's memory, the bound kernel libraries and no build, the batch,
+    the import, a roofline series for every state-root and BLS kernel,
+    and its own launch counts (``kernel_launches_total``, read before and
+    after the POST: the import's launches are the difference);
+    ``nvidia-smi`` lists the node's process (``_compute_apps``); SIGTERM
+    ends it with exit 0; ``bn`` on the datadir alone resumes from the
+    store, and while it does, (a): ``dev transition-blocks`` on ``inputs``
+    (phase 7's state and block, signatures on the default ``gpu``
+    backend) prints ``EXPECTED_BLOCK_ROOT_1M``, ``dev block-root`` the
+    block's root (each process writes its own launch counts,
+    ``LHTPU_LAUNCH_COUNTS``); once (c) has ended, the state's bytes loaded
+    here give the state's root; the resumed node has the genesis, the
+    anchor state's finality checkpoints and the anchor as head (as the
+    JAX package's node resumes: neither persists its head before
+    finality); SIGTERM again. ``launches_cli_path`` is the launches of
+    the path's own processes ((a)'s two, the node up to its import) and
+    of (c); every state-root and BLS kernel must launch in the processes,
+    every BLS kernel and ``path_update`` in the node's import. This
+    process's copies ((b)'s same bytes, (a)'s load) are reported apart."""
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch import stf_workload as sw
+    from lighthouse_tpu_torch.chain import BeaconChainBuilder
+    from lighthouse_tpu_torch.chain.execution import MockExecutionLayer
+    from lighthouse_tpu_torch.containers import get_types
+    from lighthouse_tpu_torch.containers.state import BeaconState
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.specs.chain_spec import ForkName, mainnet_spec
+    from lighthouse_tpu_torch.ssz import htr, serialize
+    from lighthouse_tpu_torch.store import HotColdDB, NativeKvStore
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    t_phase = time.perf_counter()
+    cpp, gpu = setup["cpp"], setup["gpu"]
+    check(bls.get_backend() is gpu, "the BLS module's backend is not gpu")
+    spec = mainnet_spec()
+    T = get_types(spec.preset)
+    root_dir = Path(__file__).resolve().parent
+    d = inputs["dir"]
+    report: dict = {"inputs": {k: v for k, v in inputs.items()
+                               if k != "dir"}}
+    names = [k.name for k in kernels.STATE_ROOT_KERNELS + kernels.BLS_KERNELS]
+    nodes: list[_NodeProcess] = []
+    pool = ThreadPoolExecutor(max_workers=1)
+    corpus = None
+    kernels.reset_counts()
+    try:
+        # (b) the checkpoint: the chain workload on a new genesis time,
+        # written as the node's --checkpoint-state / --checkpoint-block
+        anchor_slot = int(cw.anchor.message.slot)
+        slot = anchor_slot + 1
+        t0 = time.perf_counter()
+        genesis_time = (int(time.time()) + NODE_LEAD_SECS
+                        - slot * spec.seconds_per_slot)
+        wb = sw.Workload(w.state.copy(), w.block, w.rows, w.pubkeys)
+        wb.state.genesis_time = genesis_time
+        cwb = sw.build_chain_workload(wb, cpp)
+        del wb
+        anchor_root, block_root = (htr(cwb.anchor.message),
+                                   htr(cwb.block.message))
+        check(anchor_root == htr(cw.anchor.message),
+              "the anchor moved with the genesis time")
+        build_s = time.perf_counter() - t0
+        fork = bytes([cwb.state.fork_name.value])
+        t0 = time.perf_counter()
+        state_raw = fork + cwb.state.serialize()
+        state_file = os.path.join(d, "checkpoint_state.ssz")
+        anchor_file = os.path.join(d, "checkpoint_block.ssz")
+        Path(state_file).write_bytes(state_raw)
+        Path(anchor_file).write_bytes(
+            fork + serialize(type(cwb.anchor).ssz_type, cwb.anchor))
+        write_s = time.perf_counter() - t0
+        datadir = os.path.join(d, "node")
+        port_args = ["--network", "mainnet", "bn", "--datadir", datadir,
+                     "--http-port", "0", "--port", "0",
+                     "--discovery-port", "0", "--listen-address",
+                     "127.0.0.1", "--metrics"]
+        metrics_port = _free_port()
+        node = _NodeProcess(port_args + [
+            "--metrics-port", str(metrics_port), "--checkpoint-state",
+            state_file, "--checkpoint-block", anchor_file], root_dir)
+        nodes.append(node)
+
+        # while the node boots: the same bytes here (the load, the root,
+        # an anchoring)
+        t0 = time.perf_counter()
+        st = BeaconState.from_ssz_bytes(state_raw[1:], T, spec,
+                                        ForkName(state_raw[0]))
+        here_load_s = time.perf_counter() - t0
+        del state_raw
+        t0 = time.perf_counter()
+        state_root = st.hash_tree_root()
+        here_root_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            db = HotColdDB(NativeKvStore(os.path.join(tmp, "hot")),
+                           NativeKvStore(os.path.join(tmp, "cold")), spec)
+            t0 = time.perf_counter()
+            chain = (BeaconChainBuilder(spec)
+                     .weak_subjectivity_anchor(st, cwb.anchor)
+                     .slot_clock(ManualSlotClock(genesis_time,
+                                                 spec.seconds_per_slot,
+                                                 current_slot=slot))
+                     .execution_layer(MockExecutionLayer())
+                     .store(db).build())
+            here_anchor_s = time.perf_counter() - t0
+            del chain, db
+        del st
+
+        # (c) the EF corpus on gpu, then on cpp, on a thread of this
+        # process while the node is driven (no other kernel launches here
+        # until it ends)
+        corpus = pool.submit(_ef_corpus,
+                             root_dir / "tests" / "ef_vectors" / "tests",
+                             names)
+
+        # (b) the node from the 1M-validator checkpoint
+        up_s = node.wait_up()
+        _until(lambda: _http(node.http, "/eth/v1/node/health")[0] in
+               (200, 206), "the node's health", CLI_DEADLINE)
+        health_s = time.perf_counter() - node.t0
+        genesis = _data(node.http, "/eth/v1/beacon/genesis")
+        check(genesis["genesis_validators_root"] == "0x" + bytes(
+            cwb.state.genesis_validators_root).hex()
+              and genesis["genesis_time"] == str(genesis_time),
+              f"the node's genesis {genesis}")
+        check(_data(node.http, "/eth/v1/beacon/headers/head")["root"]
+              == "0x" + anchor_root.hex(), "the node's head is not the "
+                                           "anchor")
+        finality = _data(node.http,
+                         "/eth/v1/beacon/states/head/finality_checkpoints")
+        check(_data(node.http, "/eth/v1/beacon/states/head/root")["root"]
+              == "0x" + state_root.hex(),
+              "the node's head state root is not this process's root of "
+              "the same bytes")
+        node_boot = _node_launches(_exposition(metrics_port))
+        wait_s = max(0.0, genesis_time + slot * spec.seconds_per_slot
+                     - time.time())
+        time.sleep(wait_s)
+        # at the block's slot, its anchor one slot behind the clock: a node
+        # started from a checkpoint of the clock's epoch is not syncing
+        synced = _data(node.http, "/eth/v1/node/syncing")
+        check(synced["is_syncing"] is False,
+              f"the node is syncing at the block's slot: {synced}")
+        t0 = time.perf_counter()
+        status, body = _http(
+            node.http, "/eth/v1/beacon/blocks", "POST",
+            serialize(type(cwb.block).ssz_type, cwb.block),
+            {"Content-Type": "application/octet-stream",
+             "Eth-Consensus-Version": cwb.state.fork_name.name.lower()})
+        check(status == 200, f"POST the block: {status} {body[:300]!r}")
+        while _data(node.http, "/eth/v1/beacon/headers/head")[
+                "root"] != "0x" + block_root.hex():
+            check(time.perf_counter() - t0 < CLI_DEADLINE,
+                  "the node's head is not on the block")
+            time.sleep(0.1)
+        post_s = time.perf_counter() - t0
+        syncing = _data(node.http, "/eth/v1/node/syncing")
+        samples = _exposition(metrics_port)
+        node_launches = _node_launches(samples)
+        node_import = {n: node_launches.get(n, 0) - node_boot.get(n, 0)
+                       for n in names}
+        stages = {k[:-len("_sum")]: v for k, v in samples.items()
+                  if k.startswith("beacon_block_processing_")
+                  and k.endswith("_seconds_sum")}
+        print(f"cli (b): at slot {slot} (after {wait_s:.1f} s of waiting) "
+              f"the node not syncing ({synced}); the block POSTed, the "
+              f"node's head on it {post_s:.1f} s later, then its sync status "
+              f"{syncing}; the node's block processing sums (s) "
+              f"{ {k: round(v, 3) for k, v in stages.items()} }; the node's "
+              f"own launches (its /metrics) up to the POST "
+              f"{ {n: node_boot.get(n, 0) for n in names} }, in the import "
+              f"{node_import} [{card}]", flush=True)
+        check(_data(node.http, "/eth/v1/beacon/states/head/root")["root"]
+              == "0x" + cwb.post_root.hex(),
+              "the node's post-state root is not the workload's")
+        roofline_kernels = sorted(
+            k.split('"')[1] for k in samples
+            if k.startswith('roofline_utilization_ratio{kernel="'))
+        check(samples.get("device_hbm_bytes_in_use", 0) > 0,
+              "the node's device_hbm_bytes_in_use is not above 0")
+        check(samples.get("kernel_libraries_loaded", 0) > 0
+              and samples.get("kernel_build_cache_hits_total", 0) > 0,
+              "the node bound no kernel library from _build/")
+        check(samples.get("kernel_build_cache_misses_total", 0) == 0,
+              "the node built a kernel library")
+        check(samples.get("bls_batch_verify_sigs_count", 0) >= 1,
+              "the node's bls_batch_verify_sigs has no sample")
+        check(samples.get("beacon_block_imported_total") == 1,
+              f"the node's beacon_block_imported_total is "
+              f"{samples.get('beacon_block_imported_total')}")
+        check(set(names) <= set(roofline_kernels),
+              f"no roofline series for "
+              f"{sorted(set(names) - set(roofline_kernels))} on the node")
+        missed = [n for n in [k.name for k in kernels.BLS_KERNELS]
+                  + ["path_update"] if node_import[n] <= 0]
+        check(not missed, f"the node's import launched no {missed}")
+        apps_up = _compute_apps()
+        node_rss = node.rss()
+        stop_s = node.stop()
+        apps_down = _compute_apps()
+        # the card's compute processes: the node's pid where nvidia-smi
+        # sees this process's PID namespace, else (every pid shown as 1)
+        # one entry more while the node runs than after it exits
+        check(nodes[0].proc.pid in apps_up
+              or len(apps_up) == len(apps_down) + 1,
+              f"nvidia-smi lists {apps_up} with the node up, {apps_down} "
+              f"after its exit: not the node's process "
+              f"{nodes[0].proc.pid}")
+        node = _NodeProcess(port_args + ["--metrics-port",
+                                         str(_free_port())], root_dir)
+        nodes.append(node)
+
+        # (a) the lcli-style transition at full width, while the node
+        # resumes
+        pre, blk = os.path.join(d, "pre.ssz"), os.path.join(d, "block.ssz")
+        post = os.path.join(d, "post.ssz")
+        got, tr_s, tr_launches = _cli(
+            ["dev", "transition-blocks", "--pre", pre, "--block", blk,
+             "--out", post], "dev transition-blocks", root_dir, d)
+        check(got["post_state_root"] == "0x" + EXPECTED_BLOCK_ROOT_1M,
+              f"dev transition-blocks printed {got['post_state_root']}, "
+              f"not the JAX package's {EXPECTED_BLOCK_ROOT_1M}")
+        got, br_s, br_launches = _cli(["dev", "block-root", "--block", blk],
+                                      "dev block-root", root_dir, d)
+        check(got == {"slot": inputs["block_slot"],
+                      "root": "0x" + inputs["block_root"]},
+              f"dev block-root printed {got}")
+
+        # (c) ends before this process launches again
+        runs = corpus.result()
+        report["c"] = {n: {k: v for k, v in r.items() if k != "pairs"}
+                       for n, r in runs.items()}
+        print(f"cli (c): the EF corpus ({runs['gpu']['cases']} cases) every "
+              f"case passing, none skipped, on gpu in "
+              f"{runs['gpu']['seconds']:.1f} s (launches "
+              f"{ {n: c for n, c in runs['gpu']['launches'].items() if c} }) "
+              f"and on cpp in {runs['cpp']['seconds']:.1f} s (launches "
+              f"{ {n: c for n, c in runs['cpp']['launches'].items() if c} }),"
+              f" the (path, ok) lists equal (on a thread, beside the node) "
+              f"[{card}]", flush=True)
+        raw = Path(pre).read_bytes()
+        t0 = time.perf_counter()
+        loaded = BeaconState.from_ssz_bytes(raw[1:], T, spec,
+                                            ForkName(raw[0]))
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(loaded.hash_tree_root().hex() == inputs["pre_root"],
+              "the state loaded from the SSZ file has another root")
+        root_s = time.perf_counter() - t0
+        del loaded, raw
+        report["a"] = {"transition_s": tr_s, "block_root_s": br_s,
+                       "load_s": load_s, "root_s": root_s,
+                       "post_bytes": os.path.getsize(post)}
+        print(f"cli (a): dev transition-blocks at 1M validators (signatures "
+              f"on, gpu) printed the JAX package's post-state root "
+              f"{EXPECTED_BLOCK_ROOT_1M} in {tr_s:.1f} s of process (its "
+              f"post-state {report['a']['post_bytes']} bytes written; its "
+              f"own launches { {n: tr_launches.get(n, 0) for n in names} });"
+              f" dev block-root the block's in {br_s:.1f} s (launches "
+              f"{ {n: c for n, c in br_launches.items() if c} }); the "
+              f"state's bytes loaded here (from_ssz_bytes) in {load_s:.2f} "
+              f"s, their root the state's on the card in {root_s:.2f} s "
+              f"(beside the node's restart) [{card}]", flush=True)
+
+        restart_s = node.wait_up()
+        _until(lambda: _http(node.http, "/eth/v1/node/health")[0] in
+               (200, 206), "the resumed node's health", CLI_DEADLINE)
+        check(_data(node.http, "/eth/v1/beacon/genesis") == genesis,
+              "the resumed node's genesis differs")
+        fin = _data(node.http,
+                    "/eth/v1/beacon/states/head/finality_checkpoints")
+        check(fin == finality,
+              f"the resumed node's finality checkpoints {fin} are not the "
+              f"anchor state's {finality}")
+        head = _data(node.http, "/eth/v1/beacon/headers/head")["root"]
+        check(head == "0x" + anchor_root.hex(),
+              f"the resumed node's head {head} is not the anchor")
+        restop_s = node.stop()
+        report["b"] = {
+            "build_s": build_s, "write_s": write_s, "up_s": up_s,
+            "health_s": health_s, "load_s": here_load_s,
+            "root_s": here_root_s, "anchoring_s": here_anchor_s,
+            "services_s": health_s - here_load_s - here_anchor_s,
+            "slot_wait_s": wait_s, "post_s": post_s, "stages_s": stages,
+            "syncing": [synced, syncing],
+            "stop_s": stop_s, "restart_s": restart_s, "restop_s": restop_s,
+            "node_rss": node_rss, "roofline_kernels": roofline_kernels,
+            "compute_apps": [apps_up, apps_down],
+            "metrics": {k: v for k, v in samples.items() if k in (
+                "device_hbm_bytes_in_use", "kernel_libraries_loaded",
+                "kernel_build_cache_hits_total",
+                "bls_batch_verify_sigs_count",
+                "beacon_block_imported_total")}}
+        print(f"cli (b): the workload rebuilt on genesis time {genesis_time} "
+              f"(the block signed, its root filled) in {build_s:.1f} s, the "
+              f"checkpoint written in {write_s:.2f} s; bn from the 1M "
+              f"checkpoint (gpu): up in {up_s:.1f} s, healthy "
+              f"{health_s:.1f} s after its start "
+              f"(the same bytes here: load {here_load_s:.2f} s, root "
+              f"{here_root_s:.2f} s, anchoring with store_genesis "
+              f"{here_anchor_s:.2f} s; the rest, the process's start and "
+              f"its services, {report['b']['services_s']:.1f} s); genesis, "
+              f"the anchor as head and its "
+              f"state root over HTTP; waited {wait_s:.1f} s for slot "
+              f"{slot}; the block POSTed to the head {post_s:.1f} s (the "
+              f"node's block processing sums (s) "
+              f"{ {k: round(v, 3) for k, v in stages.items()} }), its "
+              f"post-state root the workload's; node "
+              f"VmRSS {node_rss}; /metrics {report['b']['metrics']}, "
+              f"roofline series of {len(roofline_kernels)} kernels; "
+              f"nvidia-smi's compute processes {apps_up} with the node (pid "
+              f"{nodes[0].proc.pid}) up, {apps_down} after; SIGTERM to "
+              f"exit 0 in {stop_s:.1f} s; resumed from its datadir (the "
+              f"genesis, the anchor state's finality checkpoints, the "
+              f"anchor as head) up {restart_s:.1f} s after its start (its "
+              f"'beacon node up' line, beside (a) and (c)), SIGTERM to "
+              f"exit 0 in {restop_s:.1f} s [{card}]", flush=True)
+        torch.cuda.synchronize()
+        here = kernels.launch_counts()
+        copies = {n: here[n] - runs["gpu"]["launches"][n]
+                  - runs["cpp"]["launches"][n] for n in names}
+    finally:
+        if corpus is not None:
+            corpus.cancel()
+        pool.shutdown(wait=True)
+        for node in nodes:
+            node.kill()
+        bls.set_backend("gpu")
+        shutil.rmtree(d, ignore_errors=True)
+    processes = {n: tr_launches.get(n, 0) + br_launches.get(n, 0)
+                 + node_launches.get(n, 0) for n in names}
+    launches = {n: processes[n] + runs["gpu"]["launches"][n]
+                + runs["cpp"]["launches"][n] for n in names}
+    for name in names:
+        check(processes[name] > 0,
+              f"kernel {name} was not launched by phase 12's processes "
+              f"(dev transition-blocks, dev block-root, the node)")
+    report["launches"] = launches
+    report["launches_by_part"] = {
+        "dev_transition_blocks": tr_launches, "dev_block_root": br_launches,
+        "node_to_import": node_launches, "node_import": node_import,
+        "corpus_gpu": runs["gpu"]["launches"],
+        "corpus_cpp": runs["cpp"]["launches"], "smoke_copies": copies}
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"cli launches on the path (the processes' own: dev "
+          f"transition-blocks, dev block-root, the node to its import; and "
+          f"(c) here): {launches}; this process's copies ((b)'s same "
+          f"bytes, (a)'s load) apart: {copies} [{card}]", flush=True)
+    print(f"cli phase: {report['seconds']:.1f} s; {_mem_line()} [{card}]",
+          flush=True)
     return report
 
 
@@ -4521,6 +5359,13 @@ def obs_phase(card: str, stf: dict) -> dict:
     return report
 
 
+def _phase_took(n: int, t0: float) -> float:
+    """Print phase ``n``'s seconds since ``t0``; the time now."""
+    now = time.perf_counter()
+    print(f"phase {n}: {now - t0:.1f} s", flush=True)
+    return now
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -4562,18 +5407,22 @@ def main(argv=None) -> int:
     graftwatch.on_slot(1)
 
     # phase 2: state-root kernels against their plain versions
+    t_phase = time.perf_counter()
     rows, modes = kernel_phase(bounds)
     graftwatch.on_slot(2)
+    t_phase = _phase_took(2, t_phase)
 
     # phase 3: the state-root slice
     sl = slice_phase(card_line)
     graftwatch.on_slot(3)
+    t_phase = _phase_took(3, t_phase)
     for row in rows:
         row["launches"] = sl["launches"][row["name"]]
 
     # phase 4: the BLS slice: the batch, its kernels against their plain
     # versions at its shapes, then the main path
     setup = bls_setup()
+    setup["cpp_reference"] = cpp_reference(setup["cpp"], setup["sets"])
     bls_check = bls_kernel_phase(bounds, setup)
     bls = bls_slice_phase(setup, card_line)
     for row in bls_check.rows:
@@ -4581,6 +5430,7 @@ def main(argv=None) -> int:
     rows += bls_check.rows
     modes.update(bls_check.modes)
     graftwatch.on_slot(4)
+    t_phase = _phase_took(4, t_phase)
 
     # phase 5: the sharded paths over every card (n = device_count)
     par_rows, par_modes, path_modes, multigpu = multigpu_phase(
@@ -4593,6 +5443,7 @@ def main(argv=None) -> int:
     rows += par_rows
     modes.update(par_modes)
     graftwatch.on_slot(5)
+    _phase_took(5, t_phase)
 
     # phase 6: the multiply lowerings 1 and 2, and the caller-less kernels
     mxu_rows, mxu_modes, mxu = mxu_phase(bounds, setup, bls_check,
@@ -4604,8 +5455,10 @@ def main(argv=None) -> int:
     # phase 7: the block on the card (the state transition at 1M
     # validators), its launches beside each kernel's row, its BLS kernel
     # checks at the block batch's shapes among the kernels' modes
+    t_phase = time.perf_counter()
     stf, stf_check, workload = stf_phase(bounds, setup, card_line)
     graftwatch.on_slot(7)
+    _phase_took(7, t_phase)
     for row in rows:
         if row["name"] in stf["launches"]:
             row["launches_block_path"] = stf["launches"][row["name"]]
@@ -4620,6 +5473,9 @@ def main(argv=None) -> int:
     for name, recs in stf_check.modes.items():
         modes.setdefault(name, []).extend(
             {**m, "mode": f"{label}, {m['mode']}"} for m in recs)
+    # phase 12's lcli-style inputs: the workload's state and block before
+    # phase 10 writes more signers into the state
+    cli_in = cli_inputs(workload, card_line)
 
     # phase 8: the beacon node's gossip path (fork choice, the op pool, the
     # hot/cold store, the beacon processor, BeaconChain) on phase 7's
@@ -4643,8 +5499,7 @@ def main(argv=None) -> int:
     # req/resp, range sync) between three nodes on phase 7's workload, its
     # launches beside each kernel's row; the phase ticks graftwatch itself,
     # while its nodes are still connected
-    network = network_phase(setup, workload, card_line)
-    del workload
+    network, chain_workload = network_phase(setup, workload, card_line)
     for row in rows:
         if row["name"] in network["launches"]:
             row["launches_network_path"] = network["launches"][row["name"]]
@@ -4652,7 +5507,17 @@ def main(argv=None) -> int:
             row["launches_validator_path"] = network[
                 "launches_validator_path"][row["name"]]
 
-    # phase 11: what the observability layer kept of phases 1-10
+    # phase 12: the node as its users start it (the command line in
+    # processes of its own: the lcli-style transition, a node from the 1M
+    # checkpoint, its restart from the datadir), and the EF corpus
+    cli = cli_phase(setup, workload, chain_workload, cli_in, card_line)
+    del workload, chain_workload
+    graftwatch.on_slot(12)
+    for row in rows:
+        if row["name"] in cli["launches"]:
+            row["launches_cli_path"] = cli["launches"][row["name"]]
+
+    # phase 11: what the observability layer kept of phases 1-10 and 12
     obs = obs_phase(card_line, stf)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s from the start to "
           f"the end of phase 11", flush=True)
@@ -4662,7 +5527,8 @@ def main(argv=None) -> int:
               "kernel_modes": modes, "bls_field_muls": bls_check.muls,
               "slice": sl, "bls": bls, "multigpu": multigpu, "mxu": mxu,
               "stf": stf, "stf_field_muls": stf_check.muls, "chain": chain,
-              "postmerge": postmerge, "network": network, "obs": obs}
+              "postmerge": postmerge, "network": network, "cli": cli,
+              "obs": obs}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -39,7 +39,7 @@ def main(argv=None) -> int:
         print("ab_batch: no CUDA device", file=sys.stderr)
         return 1
     from lighthouse_tpu_torch import kernels
-    from lighthouse_tpu_torch.bls_batch import N_SETS, build_sets, warm_pubkeys
+    from lighthouse_tpu_torch.bls_batch import N_SETS, build_sets
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls import gpu_backend as gb
     from lighthouse_tpu_torch.crypto.bls.cpp_backend import CppBackend
@@ -53,7 +53,7 @@ def main(argv=None) -> int:
     gpu = bls.get_backend()
     if not isinstance(gpu, gb.GpuBackend):
         raise SystemExit(f"the default backend is {type(gpu).__name__}")
-    warm_pubkeys(gpu, sets)
+    gpu.warm([pk for s in sets for pk in s.pubkeys])
     t0 = time.perf_counter()
     if bls.verify_signature_sets(sets) is not True:
         raise SystemExit("the batch did not verify")

@@ -55,11 +55,18 @@ def inc_counter(name: str, help_: str = "", amount: float = 1) -> None:
     _get(Counter, name, help_ or name).inc(amount)
 
 
-def set_gauge(name: str, value: float, help_: str = "") -> None:
+def set_gauge(name: str, value: float, help_: str = "",
+              labels: dict | None = None) -> None:
+    """Set gauge ``name``; with ``labels``, its series of those label
+    values (the sampler keeps the last value set, whatever its labels)."""
     rec = _recorder()
     if rec is not None:
         rec("gauge", name, value)
     if not _HAVE_PROM:
+        return
+    if labels:
+        _get(Gauge, name, help_ or name,
+             labelnames=sorted(labels)).labels(**labels).set(value)
         return
     _get(Gauge, name, help_ or name).set(value)
 

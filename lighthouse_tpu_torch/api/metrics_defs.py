@@ -290,7 +290,8 @@ CATALOG: dict[str, tuple[str, str]] = {
         ("gauge", "HBM byte limit summed across devices"),
     "roofline_utilization_ratio":
         ("gauge", "Bound over measured device time for the last "
-                  "roofline-timed kernel call"),
+                  "roofline-timed call of each kernel variant (label "
+                  "kernel)"),
     "kernel_build_cache_hits_total":
         ("counter", "Kernel libraries found built in _build/"),
     "kernel_build_cache_misses_total":
@@ -322,12 +323,19 @@ EXTERNALLY_FED: dict[str, str] = {
 }
 
 
+#: catalog gauges kept as one series a label value, and their label
+#: names: the roofline ratio of each kernel variant a process timed
+LABELS = {"roofline_utilization_ratio": ("kernel",)}
+
+
 def register_catalog() -> int:
     """Force-register every catalog entry (so /metrics exposes the full
     inventory even before first use); returns the count."""
     for name, (kind, help_) in CATALOG.items():
         if kind == "counter":
             metrics.inc_counter(name, help_, 0)
+        elif name in LABELS:
+            metrics._get(metrics.Gauge, name, help_, labelnames=LABELS[name])
         elif kind == "gauge":
             metrics.set_gauge(name, 0, help_)
         else:
@@ -345,8 +353,9 @@ def count(name: str, amount: float = 1) -> None:
     metrics.inc_counter(name, CATALOG.get(name, ("", name))[1], amount)
 
 
-def gauge(name: str, value: float) -> None:
-    metrics.set_gauge(name, value, CATALOG.get(name, ("", name))[1])
+def gauge(name: str, value: float, **labels) -> None:
+    metrics.set_gauge(name, value, CATALOG.get(name, ("", name))[1],
+                      labels or None)
 
 
 def observe(name: str, value: float) -> None:

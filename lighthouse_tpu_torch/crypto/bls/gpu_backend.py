@@ -1,8 +1,8 @@
 """GPU BLS backend: `verify_signature_sets` on the card's CUDA kernels.
 
 The `gpu` entry in the backend registry, the port of the JAX package's
-`tpu` backend (lighthouse_tpu/crypto/bls/tpu_backend.py), line for line.
-Pipeline for a batch of sets:
+`tpu` backend (lighthouse_tpu/crypto/bls/tpu_backend.py): its batch
+pipeline line for line. Pipeline for a batch of sets:
 
   host:   parse+range-check compressed bytes, aggregate cached pubkeys,
           expand_message_xmd (a few SHA-256 calls per message)
@@ -32,8 +32,10 @@ constants, built once. RLC scalars come from `secrets`: unpredictable
 scalars are what makes the batch check sound.
 
 Aggregation (the op pool's) runs on the C++ host library, byte-equal to
-the Python reference backend; sign/keygen stay on the Python reference
-backend (cold path).
+the Python reference backend; a cold pubkey's square root is taken on
+the card (`GpuBackend.warm`); the single verifies and sign/keygen stay on
+the Python reference backend (cold path), as in the JAX package's `tpu`
+backend.
 """
 from __future__ import annotations
 
@@ -267,12 +269,105 @@ def _host_aggregate(points, width: int, what: str) -> bytes:
     return bytes(out.raw)
 
 
+def decompress_g1_batch(pks) -> list:
+    """``g1_decompress(pk, subgroup_check=False)`` of each compressed G1
+    point (None where it refuses one), the square roots taken on the port's
+    device as one batch: y = (x^3 + 4)^((p+1)/4) by square-and-multiply
+    over the batch's lanes (``fp_ops`` products, ~570 launches whatever
+    the batch's size); the host keeps a root only where its square is
+    x^3 + 4, and takes the sign the flag asks for."""
+    from ... import device
+    from ...ops import bigint as bi
+    from ..bls12_381.curve import B_G1, Point
+    from ..bls12_381.fields import Fp
+    from ..bls12_381.fields import P as P_INT
+    out: list = [None] * len(pks)
+    lanes, xs = [], []
+    for i, data in enumerate(pks):
+        data = bytes(data)
+        if len(data) != 48 or not data[0] & 0x80:
+            continue
+        if data[0] & 0x40:
+            if data[0] == 0xC0 and not any(data[1:]):
+                out[i] = Point.infinity(B_G1)
+            continue
+        x = int.from_bytes(bytes([data[0] & 0x1F]) + data[1:], "big")
+        if x < P_INT:
+            lanes.append(i)
+            xs.append(x)
+    if not lanes:
+        return out
+    dev = device.get_device()
+    x_m = bi.mont_from_int_limbs(torch.from_numpy(bi.ints_to_limbs(xs)).to(
+        dev))
+    four = torch.from_numpy(bi.to_limbs(4 * bi.R_MOD_P % P_INT)).to(dev)
+    rhs = bi.add_mod(bi.mont_mul(bi.mont_mul(x_m, x_m), x_m),
+                     four.expand_as(x_m).contiguous())
+    e = (P_INT + 1) // 4
+    y = rhs
+    for bit in bin(e)[3:]:
+        y = bi.mont_mul(y, y)
+        if bit == "1":
+            y = bi.mont_mul(y, rhs)
+    ys = bi.limbs_to_ints(bi.mont_to_int_limbs(y).cpu().numpy())
+    for i, x, yv in zip(lanes, xs, ys):
+        if yv * yv % P_INT != (x * x * x + 4) % P_INT:
+            continue
+        if (yv * 2 > P_INT) != bool(pks[i][0] & 0x20):
+            yv = P_INT - yv
+        out[i] = Point.from_affine(Fp(x), Fp(yv), B_G1)
+    return out
+
+
 class GpuBackend(PythonBackend):
     """Verification on the card; aggregation (the op pool's per-insert
     work) on the C++ host library, byte-equal to the pure-Python
-    backend's; signing and key generation on the pure-Python backend."""
+    backend's; the single verifies, signing and key generation on the
+    pure-Python backend."""
 
     name = "gpu"
+
+    def _pk(self, pk: bytes):
+        """The point of a pubkey, as the pure-Python backend gives it (and
+        the same refusals), through ``warm``: the pure-Python subgroup
+        check costs ~30x the decompression."""
+        pt = self._pk_cache.get(pk)
+        if pt is None:
+            self.warm([pk])
+            pt = self._pk_cache.get(pk)
+            if pt is None:
+                raise ValueError("invalid pubkey")
+        return pt
+
+    def warm(self, pks) -> int:
+        """Decompress each distinct pubkey of ``pks`` the cache lacks into
+        it; returns how many it added (a key that does not decode, or
+        lies outside the subgroup, is left out). The square roots are
+        taken on the device as one batch (``decompress_g1_batch``), the
+        subgroup checks on the C++ host library, on a thread a key up to
+        the host's cores (ctypes calls release the interpreter lock)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .cpp_backend import get_lib
+        todo = [pk for pk in dict.fromkeys(pks) if pk not in self._pk_cache]
+        if not todo:
+            return 0
+        lib = get_lib()
+
+        def in_subgroup(pk, pt) -> bool:
+            # the point at infinity is in the subgroup; the C++ check
+            # refuses it
+            return pt is not None and (
+                pt.is_infinity() or lib.bls_validate_pubkey(bytes(pk)) == 1)
+
+        points = decompress_g1_batch(todo)
+        workers = min(len(todo), os.cpu_count() or 4)
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            ok = list(pool.map(in_subgroup, todo, points))
+        for pk, pt, good in zip(todo, points, ok):
+            if good:
+                self._pk_cache[pk] = pt
+        return sum(ok)
 
     def aggregate_signatures(self, sigs) -> bytes:
         return _host_aggregate(sigs, 96, "invalid signature in aggregate")
@@ -283,6 +378,7 @@ class GpuBackend(PythonBackend):
     def verify_signature_sets(self, sets: list[SignatureSet]) -> bool:
         if not sets:
             return False
+        self.warm([pk for s in sets for pk in s.pubkeys])
         parsed = parse_sets(self, sets)
         if parsed is None:
             return False

@@ -618,7 +618,7 @@ def multigpu_run(n_devices: int, sets=None, gpu=None) -> dict:
     import torch
 
     from . import kernels
-    from .bls_batch import build_sets, warm_pubkeys
+    from .bls_batch import build_sets
     from .crypto.bls import SignatureSet
     from .parallel.launch import run_ranks
 
@@ -637,7 +637,7 @@ def multigpu_run(n_devices: int, sets=None, gpu=None) -> dict:
         from .crypto.bls.gpu_backend import GpuBackend
         gpu = GpuBackend()
         t0 = time.perf_counter()
-        warm_pubkeys(gpu, sets)
+        gpu.warm([pk for s in sets for pk in s.pubkeys])
         setup["pubkey_warm_s"] = time.perf_counter() - t0
     bad = list(sets)
     bad[1] = SignatureSet(bad[1].signature, bad[1].pubkeys, b"\xEE" * 32)
@@ -739,12 +739,12 @@ def main(argv=None) -> int:
             else [bi.mxu_mode()])
     sets = gpu = None
     if len(mxus) > 1:
-        from .bls_batch import build_sets, warm_pubkeys
+        from .bls_batch import build_sets
         from .crypto.bls.cpp_backend import CppBackend
         from .crypto.bls.gpu_backend import GpuBackend
         sets = build_sets(CppBackend())
         gpu = GpuBackend()
-        warm_pubkeys(gpu, sets)
+        gpu.warm([pk for s in sets for pk in s.pubkeys])
     by_mode = {}
     prev = bi.mxu_mode()
     try:

@@ -215,6 +215,17 @@ def reset_counts() -> None:
             v.launches = 0
 
 
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches in this process by name, each multiply
+    variant's under its own (``<kernel>_mxu<n>``)."""
+    out = {}
+    for k in KERNELS.values():
+        out[k.name] = k.launches
+        for v in k._variants.values():
+            out[v.name] = v.launches
+    return out
+
+
 def stream_ptr(device) -> int:
     """The current stream of ``device``, for a launch. The C entries
     launch on the CUDA runtime's current device, so a tensor on another

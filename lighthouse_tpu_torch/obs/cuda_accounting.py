@@ -16,7 +16,12 @@ So this module counts:
   :func:`host_readback`, the accounted device->host read
   (``parallel.bls``'s validity gates);
 - :func:`snapshot`, the counters the flight recorder dumps under
-  ``cuda``.
+  ``cuda``;
+- from the first library bound, the process's kernel launches
+  (``kernels.launch_counts``): on ``/metrics`` as the counter
+  ``kernel_launches_total`` (label ``kernel``), read at each scrape, and,
+  where ``LHTPU_LAUNCH_COUNTS`` names a file, written there as JSON when
+  the process exits (a command-line process that serves no metrics).
 
 The JAX package's ``TrackedJit`` and ``install_monitoring`` have no
 counterpart: PyTorch runs eagerly, so nothing recompiles behind a call,
@@ -28,6 +33,9 @@ through ``sys.modules`` like ``tracing._observe_metric``.
 """
 from __future__ import annotations
 
+import atexit
+import json
+import os
 import re
 import sys
 import threading
@@ -113,16 +121,64 @@ def record_build(key: str, library: str, seconds: float, log: str) -> None:
 
 
 def record_bound(library: str) -> None:
-    """A library bound with ``ctypes`` (each file counts once)."""
+    """A library bound with ``ctypes`` (each file counts once); the first
+    exposes the process's launch counts (``expose_launches``)."""
     with _lock:
         if library in _bound:
             return
         _bound.add(library)
         _counters["libraries_loaded"] = len(_bound)
         n = len(_bound)
+    if n == 1:
+        expose_launches()
     md = _metrics()
     if md is not None:
         md.gauge("kernel_libraries_loaded", n)
+
+
+class _LaunchCollector:
+    """``kernel_launches_total{kernel=...}``: ``kernels.launch_counts()``
+    as it stands at the scrape."""
+
+    def collect(self):
+        from prometheus_client.core import CounterMetricFamily
+
+        from .. import kernels
+        fam = CounterMetricFamily(
+            "kernel_launches", "CUDA kernel launches in this process, by "
+            "kernel (a multiply variant under its own name)",
+            labels=["kernel"])
+        for name, count in kernels.launch_counts().items():
+            fam.add_metric([name], count)
+        yield fam
+
+
+_exposed = False
+
+
+def expose_launches() -> None:
+    """Once a process: the launch counts on the metrics registry, where
+    the process has loaded ``api.metrics`` (a node has, before its first
+    launch) and prometheus_client is installed; and, where
+    ``LHTPU_LAUNCH_COUNTS`` names a file, their JSON written there at the
+    process's exit."""
+    global _exposed
+    with _lock:
+        if _exposed:
+            return
+        _exposed = True
+    metrics = sys.modules.get("lighthouse_tpu_torch.api.metrics")
+    if metrics is not None and metrics.REGISTRY is not None:
+        metrics.REGISTRY.register(_LaunchCollector())
+    path = os.environ.get("LHTPU_LAUNCH_COUNTS")
+    if path:
+        atexit.register(_write_launches, path)
+
+
+def _write_launches(path: str) -> None:
+    from .. import kernels
+    with open(path, "w") as f:
+        json.dump(kernels.launch_counts(), f)
 
 
 def account_transfer(nbytes: int, direction: str = "h2d") -> None:

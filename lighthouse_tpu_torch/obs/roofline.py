@@ -264,7 +264,8 @@ class Tracked:
         util = sample.get("utilization_of_peak")
         md = _metrics()
         if md is not None and util is not None:
-            md.gauge("roofline_utilization_ratio", float(util))
+            md.gauge("roofline_utilization_ratio", float(util),
+                     kernel=variant)
         return out
 
     def _timed(self, args, kwargs, platform: str):

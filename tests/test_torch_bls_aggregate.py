@@ -2,8 +2,9 @@
 pure-Python backends of both packages and the `cpp` backend: byte-equal
 aggregates of valid points, and the same ValueError as the pure-Python
 backend on each invalid kind (a wrong length, a point off the curve, a
-point off the subgroup, a malformed infinity encoding). Also the pubkey
-warm-up's decompression (its subgroup check on the C++ library) against
+point off the subgroup, a malformed infinity encoding). Also the `gpu`
+backend's cold pubkeys (their square roots as one batch, their subgroup
+checks on the C++ library), warmed all at once or one a call, against
 the pure-Python decompression."""
 import numpy as np
 import pytest
@@ -132,14 +133,51 @@ def test_cpp_aggregation_differs_on_a_point_off_the_subgroup(backends):
             backend.aggregate_signatures([bad])
 
 
-def test_pubkey_warm_chunk_equals_the_pure_python_decompression(signed):
-    from lighthouse_tpu_torch.bls_batch import _decompress_chunk
+@pytest.mark.parametrize("warm_batch", [256, 1])
+def test_gpu_pubkey_decompression_equals_the_pure_python_one(
+        signed, warm_batch):
+    """The `gpu` backend's cold pubkeys (``warm``: the square roots as one
+    batch, the subgroup checks on the C++ library, on a thread pool),
+    ``warm_batch`` keys a call: the pure-Python backend's points, the same
+    keys refused with the same error, none of them cached."""
     from lighthouse_tpu_torch.crypto.bls12_381 import g1_decompress
     _sigs, pks = signed
-    keys = pks + [b"\xc0" + b"\x00" * 47] + [
-        _bad(kind, 48) for kind in _BAD_KINDS]
-    got = _decompress_chunk(keys)
-    want = [g1_decompress(k) for k in keys]
+    bad = [_bad(kind, 48) for kind in _BAD_KINDS]
+    keys = pks + [b"\xc0" + b"\x00" * 47] + bad
+    gpu, py = GpuBackend(), PythonBackend()
+    added = sum(gpu.warm(keys[i:i + warm_batch])
+                for i in range(0, len(keys), warm_batch))
+    assert added == len(pks) + 1
+    assert gpu.warm(keys + pks) == 0
+    for k in pks + [b"\xc0" + b"\x00" * 47]:
+        assert g1_compress(gpu._pk(k)) == g1_compress(py._pk(k)) == \
+            g1_compress(g1_decompress(k))
+    for k in bad:
+        errors = []
+        for backend in (gpu, py):
+            with pytest.raises(ValueError) as e:
+                backend._pk(k)
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
+        assert k not in gpu._pk_cache
+    assert gpu.validate_pubkey(pks[0]) and not gpu.validate_pubkey(bad[3])
+
+
+def test_batch_decompression_equals_the_pure_python_one(signed):
+    """``decompress_g1_batch`` (the square roots as one batch of ``fp_ops``
+    products, here their plain versions) gives ``g1_decompress(pk,
+    subgroup_check=False)`` of every key, valid or not."""
+    from lighthouse_tpu_torch.crypto.bls.gpu_backend import (
+        decompress_g1_batch,
+    )
+    from lighthouse_tpu_torch.crypto.bls12_381 import g1_decompress
+    cpp = CppBackend()
+    _sigs, pks = signed
+    big = b"\x9a" + b"\xff" * 47              # x past the modulus
+    keys = pks + [cpp.sk_to_pk(sk) for sk in range(1, 12)] + [
+        b"\xc0" + b"\x00" * 47, big] + [_bad(k, 48) for k in _BAD_KINDS]
+    got = decompress_g1_batch(keys)
+    want = [g1_decompress(k, subgroup_check=False) for k in keys]
     assert [None if p is None else g1_compress(p) for p in got] == \
         [None if p is None else g1_compress(p) for p in want]
-    assert sum(p is None for p in got) == len(_BAD_KINDS)
+    assert sum(p is not None for p in got) == len(pks) + 11 + 2

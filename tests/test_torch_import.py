@@ -142,7 +142,19 @@ need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
         "lighthouse_tpu_torch.validator_client.remote_signer",
         "lighthouse_tpu_torch.validator_client.byzantine",
         "lighthouse_tpu_torch.validator_manager",
-        "lighthouse_tpu_torch.testing.fuzz"}
+        "lighthouse_tpu_torch.testing.fuzz",
+        "lighthouse_tpu_torch.__main__", "lighthouse_tpu_torch.client",
+        "lighthouse_tpu_torch.client.builder",
+        "lighthouse_tpu_torch.client.environment",
+        "lighthouse_tpu_torch.watch", "lighthouse_tpu_torch.watch.monitor",
+        "lighthouse_tpu_torch.testing.simulator",
+        "lighthouse_tpu_torch.testing.scenarios",
+        "lighthouse_tpu_torch.ef_tests", "lighthouse_tpu_torch.ef_tests.runner",
+        "lighthouse_tpu_torch.ef_tests.scalar_spec",
+        "lighthouse_tpu_torch.ef_tests.scalar_spec_electra",
+        "lighthouse_tpu_torch.ef_tests.gen_corpus",
+        "lighthouse_tpu_torch.ef_tests.gen_corpus_r3",
+        "lighthouse_tpu_torch.ef_tests.gen_corpus_r5"}
 print(len(names), sorted(need - set(names)), bad)
 """
 

@@ -229,3 +229,96 @@ def test_metric_feeds_stay_off_without_the_catalog(monkeypatch, samplers):
     with ttracing.span("tree_hash"):
         pass
     assert _pending(t, "tree_hash_root_seconds") == 0
+
+
+def test_roofline_ratio_is_a_series_a_kernel(samplers, monkeypatch):
+    """Each roofline-timed kernel sets its own ``roofline_utilization_ratio``
+    series (label ``kernel``), also after ``register_catalog``; the
+    sampler keeps the last value set."""
+    import torch
+    from prometheus_client import generate_latest
+
+    from lighthouse_tpu_torch.obs import roofline
+    _, t = samplers
+    monkeypatch.setattr(roofline, "_REGISTRY", {})
+    tmd.register_catalog()
+    x = torch.ones(1000, dtype=torch.int32)
+    for name in ("test.alpha", "test.beta"):
+        toy = roofline.track_roofline(
+            name, lambda x, s: x * s, lambda out, x, s: (x.numel() * 8,
+                                                         x.numel() * s))
+        toy(x, 3)
+    text = generate_latest(tmetrics.REGISTRY).decode()
+    for name in ("test.alpha", "test.beta"):
+        (rec,) = roofline.snapshot()[name]
+        line = next(l for l in text.splitlines() if l.startswith(
+            f'roofline_utilization_ratio{{kernel="{name}"}}'))
+        assert float(line.split()[-1]) == pytest.approx(
+            rec["utilization_of_peak"])
+    t.sample(1)
+    assert t.latest("roofline_utilization_ratio") == pytest.approx(
+        roofline.snapshot()["test.beta"][0]["utilization_of_peak"])
+
+
+def test_kernel_launches_on_metrics_from_the_first_bound_library(
+        monkeypatch):
+    """The first library a process binds puts its launch counts on the
+    metrics registry (``kernel_launches_total``, a series a kernel and a
+    multiply variant), read at each scrape."""
+    from prometheus_client import CollectorRegistry, generate_latest
+
+    from lighthouse_tpu_torch import kernels
+    from lighthouse_tpu_torch.obs import cuda_accounting as ca
+    monkeypatch.setattr(tmetrics, "REGISTRY", CollectorRegistry())
+    monkeypatch.setattr(ca, "_exposed", False)
+    monkeypatch.setattr(ca, "_bound", set())
+    monkeypatch.setattr(ca, "_counters", dict(ca._counters))
+    monkeypatch.setattr(ca, "_metrics", lambda: None)
+    monkeypatch.setattr(kernels.HASH64, "launches", 7)
+    variant = kernels.FINAL_EXP.variant(1)
+    monkeypatch.setattr(variant, "launches", 2)
+
+    def series(text):
+        return {l.split('"')[1]: float(l.split()[-1])
+                for l in text.splitlines()
+                if l.startswith('kernel_launches_total{kernel="')}
+
+    assert series(generate_latest(tmetrics.REGISTRY).decode()) == {}
+    ca.record_bound("libone.so")
+    ca.record_bound("libtwo.so")
+    got = series(generate_latest(tmetrics.REGISTRY).decode())
+    assert got == {k: float(v) for k, v in kernels.launch_counts().items()}
+    assert got["hash64"] == 7 and got["final_exp_mxu1"] == 2
+    monkeypatch.setattr(kernels.HASH64, "launches", 9)
+    assert series(generate_latest(tmetrics.REGISTRY).decode())[
+        "hash64"] == 9
+
+
+def test_kernel_launches_written_at_exit_where_asked(tmp_path):
+    """With ``LHTPU_LAUNCH_COUNTS`` naming a file, a process that bound a
+    library writes its launch counts there as JSON when it exits; without
+    it, nothing is written."""
+    import json
+    import os
+    import subprocess
+    from pathlib import Path
+
+    from lighthouse_tpu_torch import kernels
+    code = ("from lighthouse_tpu_torch import kernels\n"
+            "from lighthouse_tpu_torch.obs import cuda_accounting as ca\n"
+            "ca.record_bound('libone.so')\n"
+            "kernels.PATH_UPDATE.launches = 3\n"
+            "kernels.FP_OPS.variant(2).launches = 5\n")
+    for asked in (True, False):
+        out = tmp_path / f"launches-{asked}.json"
+        env = {k: v for k, v in os.environ.items()
+               if k != "LHTPU_LAUNCH_COUNTS"}
+        if asked:
+            env["LHTPU_LAUNCH_COUNTS"] = str(out)
+        subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                       cwd=Path(__file__).resolve().parents[1], timeout=300)
+        assert out.exists() == asked
+    got = json.loads((tmp_path / "launches-True.json").read_text())
+    want = {name: 0 for name in kernels.KERNELS}
+    want.update(path_update=3, fp_ops_mxu2=5)
+    assert got == want

@@ -1,10 +1,13 @@
 """Engine-API tests: JWT tokens, the JSON-RPC client against the mock
-engine; EIP-2335 keystores and EIP-2333 key derivation.
+engine; EIP-2335 keystores and EIP-2333 key derivation; the command
+line's config dump.
 
-The engine-API and key-store cases of the JAX package's
+The engine-API, key-store and CLI cases of the JAX package's
 tests/test_services.py, run on the port (imports switched to
 lighthouse_tpu_torch).
 """
+import json
+
 import pytest
 
 from lighthouse_tpu_torch.crypto import bls
@@ -84,3 +87,13 @@ def test_eip2333_determinism():
     sk3 = derive_path(seed, "m/12381/3600/1/0/0")
     assert sk1 == sk2 != sk3
     assert 0 < sk1 < 2**255
+
+
+def test_cli_dump_config(capsys):
+    from lighthouse_tpu_torch.__main__ import main
+    rc = main(["--network", "minimal", "beacon_node", "--dump-config",
+               "--interop-validators", "8", "--slasher"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["slasher_enabled"] is True
+    assert out["interop_validator_count"] == 8
