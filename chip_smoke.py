@@ -62,8 +62,11 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    count (an inverse a lane, ``bls_cost.affine_int_ops``) and the count
    with a Fermat inverse a lane beside. Then the module entry
    ``crypto.bls.verify_signature_sets`` on its default backend
-   (``gpu``): True on the batch and equal to the C++ backend; five
-   negative batches False on both; a 100-set batch True; every BLS kernel
+   (``gpu``), through the 10k correctness protocol of
+   ``tools.bls_10k_correctness.check_batch`` (the batch cold and warm, then
+   with one message changed): True on the batch and equal to the C++
+   backend; five negative batches (the protocol's one and four more)
+   False on both; a 100-set batch True; every BLS kernel
    launched on that path (``affine`` twice, ``fp_ops`` once); the first
    call and the median of three warm calls, sets/s, host prep. The C++
    verdicts on the whole flagship batch and on each whole negative one
@@ -317,8 +320,20 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    and gossip batches (``beacon_attestation_processing_seconds``), and
    phase 9's KZG, engine-API and production histograms, and phase 10's
    gossip, peer and range-sync counters from the port's catalog; a flight dump
-   the port's doctor renders with exit 0. The run's total time is printed
-   before the kernel line.
+   the port's doctor renders with exit 0.
+13. The port's tools on the card (``tools_phase``), each a process of its
+   own: (a) ``python -m lighthouse_tpu_torch.tools.sanitize
+   lighthouse_tpu_torch.tools.gil_throughput`` on the ``gpu`` backend at
+   the tool's defaults (16 slots, 2 attestation threads, 256 validators,
+   the minimal spec; the chains built and the singles signed on ``cpp``),
+   the port's lock sanitizer armed before the node's modules load: its
+   record (blocks/s, attestations/s, the error kinds), the sanitizer's
+   reports (none allowed) and armed classes, the kernel launches of the
+   tool's measured run (every state-root and BLS kernel), the card's idle
+   share over that run (``nvidia-smi`` utilization); no non-benign error;
+   (b) the same tool on ``cpp``, unsanitized, niced, started in phase 12
+   once its first node has stopped, its rates beside. The run's total time is
+   printed before the kernel line.
 
 Every bound beside a kernel's time (phases 2, 4, 6, 7) is the roofline
 record of the checked call: its wrapper's declared cost (``obs/roofline``).
@@ -1089,6 +1104,7 @@ def negative_batches(sets) -> dict:
     from lighthouse_tpu_torch.crypto.bls12_381 import Fp2
     from lighthouse_tpu_torch.crypto.bls12_381.curve import B_G2, G2Point
     from lighthouse_tpu_torch.crypto.bls12_381.sig import g2_compress
+    from lighthouse_tpu_torch.tools.bls_10k_correctness import spoil_one
     mid = len(sets) // 2
     s = sets[mid]
     xx = 1
@@ -1099,8 +1115,8 @@ def negative_batches(sets) -> dict:
         xx += 1
     outside = g2_compress(G2Point(Fp2(xx, 0), yy))
     spoiled = {
-        "one message changed": SignatureSet(s.signature, s.pubkeys,
-                                            b"\xee" * 32),
+        # the 10k correctness tool's own negative
+        "one message changed": spoil_one(sets)[mid],
         "signature of another message": SignatureSet(
             sets[mid + 1].signature, s.pubkeys, s.message),
         "infinity signature": SignatureSet(bytes([0xC0]) + bytes(95),
@@ -1165,6 +1181,7 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls import gpu_backend
     from lighthouse_tpu_torch.profile_state_root import profiled
+    from lighthouse_tpu_torch.tools import bls_10k_correctness as tenk
 
     cpp, gpu, sets = setup["cpp"], setup["gpu"], setup["sets"]
     check(gpu_backend.lane_options() == (128, 10240),
@@ -1176,14 +1193,28 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
     ref_wait_s = time.perf_counter() - t0
 
     verify = bls.verify_signature_sets
+    # the 10k correctness protocol (tools/bls_10k_correctness.py): the
+    # batch cold, warm, then with one message changed; the main path's
+    # launch counts are its first call's
+    launches: dict[str, int] = {}
+
+    def verify_counted(batch):
+        ok = verify(batch)
+        if not launches:
+            launches.update({k.name: k.launches for k in kernels.BLS_KERNELS})
+        return ok
+
     kernels.reset_counts()
-    t0 = time.perf_counter()
-    ok = verify(sets)
-    cold_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.BLS_KERNELS}
-    check(ok is True, "the 10,000-set batch did not verify on the card")
+    tenk_rec = tenk.check_batch(verify_counted, sets)
+    cold_s = tenk_rec["cold_seconds"]
+    check(tenk_rec["verify_ok"] is True,
+          "the 10,000-set batch did not verify on the card (cold and warm)")
+    check(tenk_rec["reject_ok"] is True,
+          "the 10,000-set batch with one message changed verified")
     print(f"bls slice: {N_SETS} sets verify True, first call {cold_s:.3f} "
-          f"s [{card}]", flush=True)
+          f"s, warm {tenk_rec['warm_seconds']:.3f} s, one message changed "
+          f"False in {tenk_rec['negative_seconds']:.3f} s "
+          f"(bls_10k_correctness.check_batch) [{card}]", flush=True)
     print(f"bls slice: launches on the main path {launches}", flush=True)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the BLS path")
@@ -1193,8 +1224,8 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
                                    f"times, not once (the lane inputs' "
                                    f"Montgomery entry)")
 
-    warm = []
-    for _ in range(3):
+    warm = [tenk_rec["warm_seconds"]]
+    for _ in range(2):
         t0 = time.perf_counter()
         check(verify(sets) is True, "warm call failed")
         warm.append(time.perf_counter() - t0)
@@ -1223,9 +1254,13 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
     negatives = negative_batches(sets)
     neg_s, neg_cpp = {}, {}
     for label, bad in negatives.items():
-        t0 = time.perf_counter()
-        got = verify(bad)
-        neg_s[label] = time.perf_counter() - t0
+        if label == "one message changed":     # the protocol's own, above
+            got = not tenk_rec["reject_ok"]
+            neg_s[label] = tenk_rec["negative_seconds"]
+        else:
+            t0 = time.perf_counter()
+            got = verify(bad)
+            neg_s[label] = time.perf_counter() - t0
         neg_cpp[label] = ref[label][0]
         check(got is False and neg_cpp[label] is False,
               f"negative batch '{label}': gpu {got}, C++ {neg_cpp[label]}")
@@ -1253,6 +1288,7 @@ def bls_slice_phase(setup: dict, card: str) -> dict:
                 label: ref[label][1] for label in negatives},
             "cpp_reference_wait_s": ref_wait_s, "profile": prof,
             "small_batch_s": small_s, "sign_s": setup["sign_s"],
+            "bls_10k_correctness": tenk_rec,
             "pubkey_warm_s": setup["pubkey_warm_s"]}
 
 
@@ -4803,7 +4839,8 @@ def _ef_corpus(corpus: Path, names: list[str]) -> dict:
     return runs
 
 
-def cli_phase(setup: dict, w, cw, inputs: dict, card: str) -> dict:
+def cli_phase(setup: dict, w, cw, inputs: dict, card: str,
+              after_node_stop=None) -> dict:
     """Phase 12: the node as its users start it, each step a process of its
     own (``python -m lighthouse_tpu_torch``, the kernels bound from
     ``_build/``, which phase 1 built). (b) Phase 10's chain workload built
@@ -4837,7 +4874,10 @@ def cli_phase(setup: dict, w, cw, inputs: dict, card: str) -> dict:
     the path's own processes ((a)'s two, the node up to its import) and
     of (c); every state-root and BLS kernel must launch in the processes,
     every BLS kernel and ``path_update`` in the node's import. This
-    process's copies ((b)'s same bytes, (a)'s load) are reported apart."""
+    process's copies ((b)'s same bytes, (a)'s load) are reported apart.
+    ``after_node_stop`` (a callable, optional) is called once the first
+    node's exit has been checked against ``nvidia-smi``'s compute
+    processes: a process started from there leaves that count alone."""
     import os
     import shutil
     import tempfile
@@ -5033,6 +5073,8 @@ def cli_phase(setup: dict, w, cw, inputs: dict, card: str) -> dict:
               f"nvidia-smi lists {apps_up} with the node up, {apps_down} "
               f"after its exit: not the node's process "
               f"{nodes[0].proc.pid}")
+        if after_node_stop is not None:
+            after_node_stop()
         node = _NodeProcess(port_args + ["--metrics-port",
                                          str(_free_port())], root_dir)
         nodes.append(node)
@@ -5174,6 +5216,224 @@ def cli_phase(setup: dict, w, cw, inputs: dict, card: str) -> dict:
           f"(c) here): {launches}; this process's copies ((b)'s same "
           f"bytes, (a)'s load) apart: {copies} [{card}]", flush=True)
     print(f"cli phase: {report['seconds']:.1f} s; {_mem_line()} [{card}]",
+          flush=True)
+    return report
+
+
+# -- phase 13: the port's tools on the card -------------------------------------
+
+#: seconds each of phase 13's tool processes may take to its end
+TOOLS_DEADLINE = 600.0
+#: the cadence, in milliseconds, at which phase 13 samples the card's
+#: utilization (``nvidia-smi ... -lms``)
+UTIL_SAMPLE_MS = 100
+
+
+class _UtilSampler:
+    """``nvidia-smi``'s ``utilization.gpu`` of the first card, sampled
+    every ``UTIL_SAMPLE_MS`` while the block runs, each sample stamped
+    with this process's clock: the share of time a kernel ran."""
+
+    def __enter__(self):
+        import subprocess
+        import threading
+        self.samples: list[tuple[float, float]] = []
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", f"-lms={UTIL_SAMPLE_MS}",
+             "-i", "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+        return self
+
+    def _read(self) -> None:
+        for line in self._proc.stdout:
+            try:
+                self.samples.append((time.perf_counter(),
+                                     float(line.strip())))
+            except ValueError:
+                continue
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        try:
+            self._proc.wait(timeout=10)
+        except Exception:
+            self._proc.kill()
+            self._proc.wait()
+        self._thread.join(timeout=10)
+        return False
+
+    def idle_share(self, lo: float, hi: float) -> tuple[float | None, int]:
+        """1 - mean utilization over the samples stamped in [lo, hi], and
+        their number (None where there is none)."""
+        window = [u for t, u in self.samples if lo <= t <= hi]
+        if not window:
+            return None, 0
+        return 1.0 - sum(window) / (100.0 * len(window)), len(window)
+
+
+class _ToolRun:
+    """``python -m ARGS`` started (niced by ``nice`` where ``nice`` is
+    not 0), its output read line by line as it comes: the JSON lines it
+    printed (by their first key), the moment the gil_throughput line
+    arrived, the moment its output closed (its end). ``finish`` waits for
+    its end and checks it."""
+
+    def __init__(self, args: list, env: dict, cwd: Path, what: str,
+                 nice: int = 0):
+        import os
+        import shutil
+        import subprocess
+        import threading
+        self.what = what
+        self.t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", *args]
+        if nice and shutil.which("nice"):
+            cmd = ["nice", "-n", str(nice)] + cmd
+        self.proc = subprocess.Popen(cmd, cwd=cwd,
+                                     env=dict(os.environ, **env),
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self.err: list[str] = []
+        self.lines: dict[str, dict] = {}
+        self.t_rec = self.t_end = None
+        self._readers = [
+            threading.Thread(target=lambda: self.err.extend(
+                self.proc.stderr), daemon=True),
+            threading.Thread(target=self._read, daemon=True)]
+        for t in self._readers:
+            t.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            line = line.strip()
+            if not line.startswith("{"):
+                continue
+            try:
+                doc = json.loads(line)
+            except ValueError:
+                continue
+            if "blocks_per_sec" in doc:
+                self.lines["tool"], self.t_rec = doc, time.perf_counter()
+            elif "locksan" in doc:
+                self.lines["locksan"] = doc["locksan"]
+            elif "error" in doc:
+                self.lines["error"] = doc
+        self.t_end = time.perf_counter()
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self) -> dict:
+        import subprocess
+        try:
+            rc = self.proc.wait(timeout=max(1.0, TOOLS_DEADLINE - (
+                time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise SmokeFailure(f"{self.what} did not end in "
+                               f"{TOOLS_DEADLINE:.0f} s")
+        for t in self._readers:
+            t.join(timeout=10)
+        seconds = (self.t_end or time.perf_counter()) - self.t0
+        check(rc == 0, f"{self.what} exited {rc}: {self.lines.get('error')} "
+                       f"{''.join(self.err)[-3000:]}")
+        check("tool" in self.lines, f"{self.what} printed no record")
+        return {**self.lines, "t_record": self.t_rec, "seconds": seconds}
+
+
+#: the niceness of phase 13's ``cpp`` run, which runs beside phase 12
+TOOLS_CPP_NICE = 10
+
+
+def start_cpp_tool() -> _ToolRun:
+    """Phase 13 (b), started in phase 12 once its first node has stopped:
+    ``gil_throughput`` on ``cpp``, unsanitized, niced, in a process of its
+    own beside the rest of phase 12; ``tools_phase`` reads its record."""
+    return _ToolRun(["lighthouse_tpu_torch.tools.gil_throughput"],
+                    {"LHTPU_GIL_BACKEND": "cpp"},
+                    Path(__file__).resolve().parent, "gil_throughput on cpp",
+                    nice=TOOLS_CPP_NICE)
+
+
+def tools_phase(card: str, cpp_run: _ToolRun) -> dict:
+    """Phase 13: the port's tools on the card. (a) ``gil_throughput`` on
+    the ``gpu`` backend at its defaults (16 slots, 2 attestation threads,
+    256 validators, the minimal spec; its two chains built and the singles
+    signed on ``cpp``, as the tool always does) in a process of its
+    own under the port's lock sanitizer (``tools.sanitize``: the lock
+    tracking installed and every class of ``locksan.build_plan`` armed
+    before the node's modules load): the tool's record, the sanitizer's
+    reports (there must be none) and armed classes, the kernel launches
+    of the tool's measured run (its record's ``launches``: the tool zeroes
+    the counts when the run starts; every state-root and BLS kernel must
+    launch), and the card's idle share over that run (``nvidia-smi``
+    utilization sampled every ``UTIL_SAMPLE_MS``). No non-benign error.
+    (b) The same tool on ``cpp``, unsanitized, started by
+    ``start_cpp_tool`` in phase 12 and awaited here before (a) starts:
+    its rates beside."""
+    from lighthouse_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    gil = "lighthouse_tpu_torch.tools.gil_throughput"
+    cpp_run = cpp_run.finish()
+    with _UtilSampler() as util:
+        run = _ToolRun(["lighthouse_tpu_torch.tools.sanitize", gil],
+                       {"LHTPU_GIL_BACKEND": "gpu"}, root,
+                       "gil_throughput on gpu under the lock sanitizer"
+                       ).finish()
+    rec, san = run["tool"], run.get("locksan")
+    launches = rec["launches"]
+    idle, n_samples = util.idle_share(run["t_record"] - rec["elapsed_s"],
+                                      run["t_record"])
+    print(f"tools: gil_throughput gpu {json.dumps(rec)} [{card}]",
+          flush=True)
+    check(san is not None, "the sanitized run printed no sanitizer record")
+    print(f"tools: lock sanitizer {len(san['reports'])} report(s), "
+          f"{san['armed']} classes armed", flush=True)
+    for line in san["reports"]:
+        print(f"tools: locksan report: {line}", flush=True)
+    print(f"tools: launches during the gpu run's measured "
+          f"{rec['elapsed_s']} s {launches}", flush=True)
+    print("tools: card idle share over the measured run "
+          + (f"{idle:.3f} ({n_samples} nvidia-smi samples, every "
+             f"{UTIL_SAMPLE_MS} ms)" if idle is not None else
+             "not measured (no nvidia-smi sample)") + f" [{card}]",
+          flush=True)
+    check(not san["reports"], f"the lock sanitizer reported "
+                              f"{len(san['reports'])} unguarded write(s)")
+    check(san["armed"] > 0, "the lock sanitizer armed no class")
+    check(rec["real_errors"] == 0,
+          f"gil_throughput on gpu: non-benign errors {rec['att_errors']}")
+    check(rec["backend"] == "gpu", f"the run verified on {rec['backend']}")
+    for k in kernels.STATE_ROOT_KERNELS + kernels.BLS_KERNELS:
+        check(launches.get(k.name, 0) > 0,
+              f"kernel {k.name} was not launched by the gpu run's "
+              f"measured run")
+
+    cpp = cpp_run["tool"]
+    print(f"tools: gil_throughput cpp (niced, beside phase 12) "
+          f"{json.dumps(cpp)} [{card}]", flush=True)
+    check(cpp["real_errors"] == 0,
+          f"gil_throughput on cpp: non-benign errors {cpp['att_errors']}")
+    check(cpp["backend"] == "cpp", f"the run verified on {cpp['backend']}")
+    print(f"tools: blocks/s gpu {rec['blocks_per_sec']} cpp "
+          f"{cpp['blocks_per_sec']}; attestations/s gpu {rec['atts_per_sec']} "
+          f"cpp {cpp['atts_per_sec']}; verified gpu {rec['atts_verified']} "
+          f"cpp {cpp['atts_verified']} of {rec['atts_sent_once']} [{card}]",
+          flush=True)
+    report = {"gpu": rec, "cpp": cpp, "locksan": san, "launches": launches,
+              "idle_share": idle, "util_samples": n_samples,
+              "gpu_process_s": run["seconds"],
+              "cpp_process_s": cpp_run["seconds"]}
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"tools phase: {report['seconds']:.1f} s (the cpp process's "
+          f"{cpp_run['seconds']:.1f} s began in phase 12) [{card}]",
           flush=True)
     return report
 
@@ -5509,8 +5769,19 @@ def main(argv=None) -> int:
 
     # phase 12: the node as its users start it (the command line in
     # processes of its own: the lcli-style transition, a node from the 1M
-    # checkpoint, its restart from the datadir), and the EF corpus
-    cli = cli_phase(setup, workload, chain_workload, cli_in, card_line)
+    # checkpoint, its restart from the datadir), and the EF corpus; phase
+    # 13 (b) starts, niced, once the first node has stopped
+    cpp_tools: list = []
+    try:
+        cli = cli_phase(setup, workload, chain_workload, cli_in, card_line,
+                        after_node_stop=lambda: cpp_tools.append(
+                            start_cpp_tool()))
+    except BaseException:
+        for t in cpp_tools:
+            t.kill()
+        raise
+    check(len(cpp_tools) == 1, "phase 12 did not start phase 13's cpp run")
+    cpp_tool = cpp_tools[0]
     del workload, chain_workload
     graftwatch.on_slot(12)
     for row in rows:
@@ -5518,9 +5789,19 @@ def main(argv=None) -> int:
             row["launches_cli_path"] = cli["launches"][row["name"]]
 
     # phase 11: what the observability layer kept of phases 1-10 and 12
-    obs = obs_phase(card_line, stf)
+    try:
+        obs = obs_phase(card_line, stf)
+        print(f"smoke: {time.perf_counter() - t_start:.1f} s from the start "
+              f"to the end of phase 11", flush=True)
+
+        # phase 13: the port's tools on the card (gil_throughput on gpu
+        # under the lock sanitizer; the cpp run started before phase 12),
+        # each in a process of its own
+        tools = tools_phase(card_line, cpp_tool)
+    finally:
+        cpp_tool.kill()
     print(f"smoke: {time.perf_counter() - t_start:.1f} s from the start to "
-          f"the end of phase 11", flush=True)
+          f"the end of phase 13", flush=True)
 
     report = {"card": card_line, "sm_clock_max_mhz": sm_clock,
               "build_s": build_s, "build": summary, "kernels": rows,
@@ -5528,7 +5809,7 @@ def main(argv=None) -> int:
               "slice": sl, "bls": bls, "multigpu": multigpu, "mxu": mxu,
               "stf": stf, "stf_field_muls": stf_check.muls, "chain": chain,
               "postmerge": postmerge, "network": network, "cli": cli,
-              "obs": obs}
+              "obs": obs, "tools": tools}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -141,13 +141,16 @@ R3_LIMBS = to_limbs((R_INT * R_INT * R_INT) % P_INT)
 
 
 class RowCounter:
-    """Field products computed by the plain ``mont_mul`` (rows x calls)."""
+    """Field products computed by the plain ``mont_mul`` (rows x calls),
+    and its calls."""
 
     def __init__(self):
         self.rows = 0
+        self.calls = 0
 
     def reset(self) -> None:
         self.rows = 0
+        self.calls = 0
 
 
 MONT_MUL_ROWS = RowCounter()
@@ -503,6 +506,7 @@ def cond_sub_exact(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
 def _mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The plain Montgomery product (any device); counts its rows."""
     MONT_MUL_ROWS.rows += max(a.numel(), b.numel()) // NLIMBS
+    MONT_MUL_ROWS.calls += 1
     return _plain(_mont_mul_limbs, a, b)
 
 
@@ -523,6 +527,7 @@ def to_int_limbs_plain(x: torch.Tensor) -> torch.Tensor:
     """Out of Montgomery domain, fully reduced to [0, p), by the plain
     multiply (counted: a product by 1)."""
     MONT_MUL_ROWS.rows += x.numel() // NLIMBS
+    MONT_MUL_ROWS.calls += 1
     return _plain(_to_int_limbs, x)
 
 

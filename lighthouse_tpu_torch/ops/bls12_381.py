@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..crypto.bls12_381.fields import P as P_INT, X_PARAM
+from ..obs.cuda_accounting import host_readback
 from ..obs.roofline import tensor_bytes, tracked
 from . import bigint as bi
 
@@ -1347,8 +1348,8 @@ def g1_segment_sum(x, y, z, starts, ends):
         raise ValueError("g1_segment_sum: x, y, z must be 16-byte aligned "
                          "(the kernel loads rows in 16-byte words)")
     if isinstance(ends, torch.Tensor):
-        lo, hi = (torch.stack(torch.aminmax(ends.reshape(-1).long())).tolist()
-                  if ends.numel() else (0, 0))
+        lo, hi = (host_readback(torch.stack(torch.aminmax(
+            ends.reshape(-1).long()))).tolist() if ends.numel() else (0, 0))
     else:
         ends = np.asarray(ends).reshape(-1)
         lo, hi = (int(ends.min()), int(ends.max())) if ends.size else (0, 0)

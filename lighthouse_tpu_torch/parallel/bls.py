@@ -51,7 +51,7 @@ def _miller_product_cost(partials, mesh: Mesh, px, py, qx, qy, mask=None):
     from ..ops import bls_cost as cost
     n_local = int(px.shape[0])
     live = (np.ones(n_local, bool) if mask is None
-            else mask.cpu().numpy())
+            else host_readback(mask).numpy())
     muls = cost.miller_loop(live) + cost.final_exp(n_local, 0)
     return (tensor_bytes(px, py, qx, qy, mask) + mesh.size * _FP12_BYTES,
             muls * cost.FP_MUL_INT_OPS,
@@ -89,7 +89,7 @@ def _scalar_mul_program(degree: int):
         scaled lanes brought in."""
         from ..ops import bls_cost as cost
         one = k.FP_ONE if degree == 1 else k.FP2_ONE
-        muls = cost.scalar_mul_lanes(bits.cpu().numpy(), degree,
+        muls = cost.scalar_mul_lanes(host_readback(bits).numpy(), degree,
                                      z_one=k._z_is(z, one))["products"]
         out_bytes = tensor_bytes(out)
         return (tensor_bytes(x, y, z, bits) + out_bytes,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .specs.constants import FAR_FUTURE_EPOCH
+
 #: the state the card runs (chip_smoke.py, profile_state_root.py): the
 #: registry size of ``bench.py``, its column seed, and its reps
 N_VALIDATORS = 1_000_000
@@ -26,7 +28,7 @@ BENCH_ROWS_PER_REP = 1024
 def seeded_columns(n: int, seed: int = STATE_SEED) -> dict[str, np.ndarray]:
     """Column name -> array for an ``n``-validator state."""
     rng = np.random.default_rng(seed)
-    far = np.full(n, 2**64 - 1, dtype=np.uint64)
+    far = np.full(n, FAR_FUTURE_EPOCH, dtype=np.uint64)
     return {
         "pubkeys": rng.integers(0, 256, size=(n, 48), dtype=np.uint8),
         "withdrawal_credentials": rng.integers(0, 256, size=(n, 32),

@@ -154,7 +154,41 @@ need = {"lighthouse_tpu_torch.ops.bigint", "lighthouse_tpu_torch.ops.bls12_381",
         "lighthouse_tpu_torch.ef_tests.scalar_spec_electra",
         "lighthouse_tpu_torch.ef_tests.gen_corpus",
         "lighthouse_tpu_torch.ef_tests.gen_corpus_r3",
-        "lighthouse_tpu_torch.ef_tests.gen_corpus_r5"}
+        "lighthouse_tpu_torch.ef_tests.gen_corpus_r5",
+        "lighthouse_tpu_torch.analysis", "lighthouse_tpu_torch.analysis.engine",
+        "lighthouse_tpu_torch.analysis.cache",
+        "lighthouse_tpu_torch.analysis.callgraph",
+        "lighthouse_tpu_torch.analysis.sharedstate",
+        "lighthouse_tpu_torch.analysis.locksan",
+        "lighthouse_tpu_torch.analysis.rules",
+        "lighthouse_tpu_torch.analysis.rules.compile_budget",
+        "lighthouse_tpu_torch.analysis.rules.cow_discipline",
+        "lighthouse_tpu_torch.analysis.rules.data_race",
+        "lighthouse_tpu_torch.analysis.rules.device_transfer",
+        "lighthouse_tpu_torch.analysis.rules.lock_discipline",
+        "lighthouse_tpu_torch.analysis.rules.lock_order",
+        "lighthouse_tpu_torch.analysis.rules.recompilation",
+        "lighthouse_tpu_torch.analysis.rules.serving_cache_discipline",
+        "lighthouse_tpu_torch.analysis.rules.shutdown_order",
+        "lighthouse_tpu_torch.analysis.rules.spec_constants",
+        "lighthouse_tpu_torch.analysis.rules.ssz_schema",
+        "lighthouse_tpu_torch.analysis.rules.store_atomicity",
+        "lighthouse_tpu_torch.analysis.rules.thread_lifecycle",
+        "lighthouse_tpu_torch.analysis.rules.trace_safety",
+        "lighthouse_tpu_torch.analysis.fixtures",
+        "lighthouse_tpu_torch.analysis.fixtures.compile_budget_fix",
+        "lighthouse_tpu_torch.analysis.fixtures.device_transfer_fix",
+        "lighthouse_tpu_torch.analysis.fixtures.recompile_hazard_fix",
+        "lighthouse_tpu_torch.analysis.fixtures.trace_safety_fix",
+        "lighthouse_tpu_torch.tools", "lighthouse_tpu_torch.tools.lint",
+        "lighthouse_tpu_torch.tools.obs_diff",
+        "lighthouse_tpu_torch.tools.obs_doctor",
+        "lighthouse_tpu_torch.tools.store_fsck",
+        "lighthouse_tpu_torch.tools.trace_report",
+        "lighthouse_tpu_torch.tools.perf_model",
+        "lighthouse_tpu_torch.tools.gil_throughput",
+        "lighthouse_tpu_torch.tools.bls_10k_correctness",
+        "lighthouse_tpu_torch.tools.sanitize"}
 print(len(names), sorted(need - set(names)), bad)
 """
 
